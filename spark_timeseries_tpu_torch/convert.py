@@ -1,0 +1,44 @@
+"""Carry fitted parameters from the JAX package into the port.
+
+The JAX package returns ``FitResult`` fields as arrays; the parameter rows
+use the layout of ``spark_timeseries_tpu.models.arima._split_params``:
+``[c (if intercept), phi_1..phi_p, theta_1..theta_q]``, which is the port's
+layout too.  :func:`from_jax_params` turns them into the port's tensors, so
+a model fitted by either package forecasts in the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .models.base import FitResult, to_device
+from .reliability.status import STATUS_DTYPE
+
+
+def from_jax_params(params_np, *, device="cuda", neg_log_likelihood=None,
+                    converged=None, iters=None, status=None) -> FitResult:
+    """``[B, k]`` (or ``[k]``) fitted parameters, plus any of the optional
+    ``FitResult`` fields, as a port ``FitResult`` on ``device``.
+
+    Floating parameters keep their dtype (float32 or float64); fields not
+    given are ``None``.  Array-likes of any kind are accepted (numpy, or a
+    JAX array, which converts through ``numpy.asarray``).
+    """
+    params = np.asarray(params_np)
+    if params.dtype.kind != "f":
+        raise TypeError(f"parameters must be floating, got {params.dtype}")
+    if params.ndim not in (1, 2):
+        raise ValueError(f"parameters must be [k] or [B, k], got "
+                         f"{params.shape}")
+
+    def opt(x, dtype):
+        return None if x is None else to_device(
+            np.asarray(x).astype(dtype), device)
+
+    return FitResult(
+        params=to_device(params, device),
+        neg_log_likelihood=opt(neg_log_likelihood, params.dtype),
+        converged=opt(converged, np.bool_),
+        iters=opt(iters, np.int32),
+        status=opt(status, STATUS_DTYPE),
+    )

@@ -1,0 +1,47 @@
+// Shared helpers for the port's CUDA kernels (compiled for sm_90a).
+//
+// Layout contract of every kernel here: panels are TIME-MAJOR [T, B]
+// float32, contiguous, so element (t, b) sits at t * B + b.  One thread owns
+// one series and walks its time axis; the 32 threads of a warp read 32
+// neighbouring series at each step, which makes every panel load coalesced.
+// Per-series parameters and outputs are [k, B] for the same reason.
+//
+// Kernels launch on the caller's stream, allocate nothing, never
+// synchronise, and use no atomics: every reduction is one thread's
+// sequential sum in a fixed order, so results are bitwise reproducible.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <type_traits>
+
+// Kernel launch on the caller's stream: STS_LAUNCH(grid, stream, kern)(args)
+#ifndef STS_LAUNCH
+#define STS_LAUNCH(grid, stream, ...) \
+  __VA_ARGS__<<<(grid), ::sts::kThreads, 0, (stream)>>>
+#endif
+
+namespace sts {
+
+constexpr int kThreads = 256;
+
+inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
+
+// Smallest register-ring capacity in {1, 2, 4, 8} that holds n lags.
+// Kernels are instantiated per capacity, not per order: loops run to the
+// compile-time capacity with a uniform `i < n` guard, so every ring index
+// is a compile-time constant and the ring stays in registers.
+template <class F>
+void with_cap8(int n, F&& f) {
+  if (n <= 1) f(std::integral_constant<int, 1>{});
+  else if (n <= 2) f(std::integral_constant<int, 2>{});
+  else if (n <= 4) f(std::integral_constant<int, 4>{});
+  else f(std::integral_constant<int, 8>{});
+}
+
+__device__ __forceinline__ size_t at(int t, int B, int b) {
+  return static_cast<size_t>(t) * static_cast<size_t>(B) + b;
+}
+
+}  // namespace sts
