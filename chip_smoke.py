@@ -6,18 +6,28 @@
 Phases; each failure makes the script exit non-zero with no result line:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the three CUDA kernels from ``spark_timeseries_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once) and print the build seconds;
-3. hold each kernel against its plain PyTorch version on the card, at
-   B = 65,537 x T = 1,000 (ragged starts) and B = 4,097 x T = 3,000;
-4. drive the main path: ``arima.fit`` of a 1,000,000 x 1,000 float32
-   ARIMA(1,1,1) panel (the BASELINE.json headline) built on the card from a seeded generator, then
-   ``arima.forecast(..., 30)``, with the kernel launch counts set to 0 just
-   before and read just after; check the result (finite, plausible, and the
-   kernel path against the eager path on a 4,096-row slice);
-5. time each kernel at the main path's shape with CUDA events, beside its
-   plain version and its bound (bytes over 3.35 TB/s, flops over the
-   float32 rate, whichever is larger).
+2. build the CUDA kernels from the five sources in
+   ``spark_timeseries_tpu_torch/csrc`` (one ``nvcc`` per source, all at
+   once) and print the build seconds;
+3. hold each of the seven kernels against its plain PyTorch version on the
+   card, at B = 65,537 x T = 1,000 and B = 4,097 x T = 3,000 (ragged
+   panels; for the transforms also all-NaN, constant and trailing-NaN rows);
+4. drive the ARIMA path: ``arima.fit`` of a 1,000,000 x 1,000 float32
+   ARIMA(1,1,1) panel (the BASELINE.json headline) built on the card from a
+   seeded generator, then ``arima.forecast(..., 30)``, with the kernel
+   launch counts set to 0 just before and read just after; check the result
+   (finite, plausible, and the kernel path against the eager path on a
+   4,096-row slice); profile a warm fit;
+5. drive the volatility pipeline the same way: a 100,000 x 2,520 ragged
+   panel of daily log prices with GARCH(1,1) returns, folded once, then the
+   fill chain (percent returns), the autocorrelation of the returns and of
+   their squares, ``garch.fit``, ``garch.forecast(..., 30)`` and
+   ``garch.fit_argarch``; check the estimates against the generating
+   parameters and the kernel path against the eager path on a 4,096-row
+   slice; profile a warm GARCH fit;
+6. time each kernel at its path's shape with CUDA events, beside its plain
+   version and its bound (bytes over 3.35 TB/s, flops over the float32
+   rate, whichever is larger).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -34,25 +44,40 @@ from pathlib import Path
 
 import torch
 
-ROWS, TIME = 1_000_000, 1_000  # the main path's panel
+ROWS, TIME = 1_000_000, 1_000  # the ARIMA path's panel
+VOL_ROWS, VOL_TIME = 100_000, 2_520  # the volatility pipeline's panel
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 # Tolerances of kernel vs plain version, relative to the largest magnitude
-# of the plain result.  The two differ only in rounding: the kernels' fused
-# multiply-adds against PyTorch's separate multiply and add, over sums of
-# up to T terms.
-TOL = {"css_fwd": 1e-5, "css_bwd": 1e-5, "hr_moments": 1e-5}
+# of the plain result (NaNs must sit at the same places).  The two differ
+# only in rounding: the kernels' fused multiply-adds against PyTorch's
+# separate multiply and add, over sums of up to T terms.  The fill chain
+# rounds every operation as PyTorch does (_rn intrinsics), so it is held
+# tighter.
+TOL = {"css_fwd": 1e-5, "css_bwd": 1e-5, "hr_moments": 1e-5,
+       "fill_chain": 1e-6, "autocorr": 1e-5, "garch_fwd": 1e-5,
+       "garch_bwd": 1e-5}
 
+_PK = "spark_timeseries_tpu/ops/pallas_kernels.py"
 REPLACES = {
-    "css_fwd": "spark_timeseries_tpu/ops/pallas_kernels.py:229",
-    "css_bwd": "spark_timeseries_tpu/ops/pallas_kernels.py:303",
-    "hr_moments": "spark_timeseries_tpu/ops/pallas_kernels.py:1816",
+    "css_fwd": f"{_PK}:229",
+    "css_bwd": f"{_PK}:303",
+    "hr_moments": f"{_PK}:1816",
+    "fill_chain": f"{_PK}:1607",
+    "autocorr": f"{_PK}:2004",
+    "garch_fwd": f"{_PK}:716",
+    "garch_bwd": f"{_PK}:769",
 }
+_CSRC = "spark_timeseries_tpu_torch/csrc"
 SOURCES = {
-    "css_fwd": "spark_timeseries_tpu_torch/csrc/css.cu",
-    "css_bwd": "spark_timeseries_tpu_torch/csrc/css.cu",
-    "hr_moments": "spark_timeseries_tpu_torch/csrc/hr.cu",
+    "css_fwd": f"{_CSRC}/css.cu",
+    "css_bwd": f"{_CSRC}/css.cu",
+    "hr_moments": f"{_CSRC}/hr.cu",
+    "fill_chain": f"{_CSRC}/fill.cu",
+    "autocorr": f"{_CSRC}/autocorr.cu",
+    "garch_fwd": f"{_CSRC}/garch.cu",
+    "garch_bwd": f"{_CSRC}/garch.cu",
 }
 
 
@@ -84,8 +109,13 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 
 def rel_err(got, ref) -> tuple[float, float]:
-    """(max abs error, max abs error / max(1, max |ref|))."""
+    """(max abs error, max abs error / max(1, max |ref|)) over the entries
+    where ``ref`` is not NaN; infinite when the NaNs do not match."""
     got, ref = got.double(), ref.double()
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf"), float("inf")
+    got, ref = got[~nan], ref[~nan]
     err = float((got - ref).abs().max()) if ref.numel() else 0.0
     scale = max(1.0, float(ref.abs().max()) if ref.numel() else 0.0)
     return err, err / scale
@@ -208,7 +238,7 @@ def phase_main(chk: Checks, rows: int, t: int, device) -> dict:
     from spark_timeseries_tpu_torch.reliability import status_counts
     from spark_timeseries_tpu_torch.utils import optim
 
-    log(f"phase 4: main path, ARIMA(1,1,1) fit + forecast of {rows} x {t}")
+    log(f"phase 4: ARIMA path, ARIMA(1,1,1) fit + forecast of {rows} x {t}")
     t0 = time.perf_counter()
     y = entry.gen_panel(rows, t, seed=0, device=device)
     torch.cuda.synchronize()
@@ -236,9 +266,10 @@ def phase_main(chk: Checks, rows: int, t: int, device) -> dict:
     log(f"  status {counts}; converged share {conv:.4f}; iterations max "
         f"{int(res.iters.max())}")
     log(f"  optimizer host reads {reads}")
-    log(f"  kernel launches on the main path {launches}")
-    for name, n in launches.items():
-        chk.require(n > 0, f"{name} launched on the main path ({n})")
+    log(f"  kernel launches on the ARIMA path {launches}")
+    for name in ("css_fwd", "css_bwd", "hr_moments"):
+        chk.require(launches[name] > 0,
+                    f"{name} launched on the ARIMA path ({launches[name]})")
     chk.require(tuple(res.params.shape) == (rows, 3)
                 and bool(torch.isfinite(res.params).all()),
                 "fit params finite, shape [B, 3]")
@@ -269,7 +300,8 @@ def phase_main(chk: Checks, rows: int, t: int, device) -> dict:
         f"rel={rel:.3e}")
     chk.require(bool(torch.allclose(fc[:n], f_eager, rtol=2e-4, atol=2e-4)),
                 "forecast cuda vs eager within 2e-4")
-    profile_fit(y, device)
+    profile_fit(lambda: arima.fit(y, entry.ORDER, device=device),
+                "ARIMA fit")
     return {"launches": launches, "fit_s": fit_s, "forecast_s": fc_s,
             "host_reads": reads, "rows": rows, "time": t}
 
@@ -279,30 +311,350 @@ def _device_us(evt) -> float:
             or getattr(evt, "cuda_time_total", 0) or 0)
 
 
-def profile_fit(y, device) -> None:
-    """Where a warm fit's time goes: torch.profiler over one more fit of
-    the same panel; device busy share and the top operations by device
-    time (launch counts above are already read, so these do not count)."""
+def profile_fit(run, what: str) -> None:
+    """Where a warm fit's time goes: torch.profiler over one more ``run()``;
+    device busy share and the top operations by device time (launch counts
+    are read before this, so these launches do not count)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from spark_timeseries_tpu_torch import entry
-    from spark_timeseries_tpu_torch.models import arima
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        arima.fit(y, entry.ORDER, device=device)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side events only: each CPU op's device time repeats its kernels'
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
-    log(f"  profiled warm fit: wall {wall_ms:.1f} ms, device busy "
+    log(f"  profiled warm {what}: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for e in sorted(kernels, key=_device_us, reverse=True)[:12]:
         log(f"    {_device_us(e) / 1e3:9.3f} ms device  {e.count:6d} calls"
             f"  {e.key[:90]}")
+
+
+def _ragged_prices(b: int, t: int, seed: int, device):
+    """Time-major ``[T, B]`` 100 x log-price panel with leading, interior
+    and trailing NaN runs, plus an all-NaN row 0, a constant row 1 and a
+    trailing-NaN row 2."""
+    from spark_timeseries_tpu_torch import entry
+
+    y = 100.0 * entry.gen_garch_prices(b, t, seed=seed, device=device)
+    y[0] = float("nan")
+    y[1] = 461.0
+    y[2, t // 3:] = float("nan")
+    return y.t().contiguous()
+
+
+def phase_kernels_volatility(chk: Checks, device,
+                             shapes=((65_537, 1_000), (4_097, 3_000))):
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    for b, t in shapes:
+        log(f"phase 3: volatility kernels vs plain at B={b} T={t}")
+        yt = _ragged_prices(b, t, seed=b, device=device)
+        for which in ((True, True, True), (False, True, False),
+                      (True, False, True), (False, False, True)):
+            got = ck.fill_chain(yt, which)
+            ref = ck.fill_chain_plain(yt, which)
+            for i, (g, r) in enumerate(zip(got, ref)):
+                chk.compare("fill_chain", f"outputs {which} #{i}", g, r)
+        (rt,) = ck.fill_chain(yt, (False, True, False))  # returns, NaN edges
+        del yt
+        for nl in (1, 20, 40):
+            chk.compare("autocorr", f"returns, {nl} lags",
+                        ck.autocorr(rt, nl), ck.autocorr_plain(rt, nl))
+        chk.compare("autocorr", "squared returns, 20 lags",
+                    ck.autocorr(rt * rt, 20), ck.autocorr_plain(rt * rt, 20))
+        # GARCH: returns zeroed outside a ragged live span, a few rows live
+        # from 0 and one never live
+        gen = torch.Generator(device=device)
+        gen.manual_seed(t)
+        r = torch.randn(t, b, generator=gen, device=device)
+        zb = torch.randint(0, t // 2, (b,), generator=gen,
+                           device=device).float()
+        zb[:3] = 0.0
+        zb[3] = t + 1.0
+        r.masked_fill_(torch.arange(t, device=device)[:, None] < zb, 0.0)
+        u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+            b, generator=gen, device=device)
+        params = torch.stack([u(0.01, 0.2), u(0.02, 0.2), u(0.5, 0.78)],
+                             dim=1).contiguous()
+        h0 = u(0.5, 1.5)
+        for mode in ("e", "sum", "last"):
+            chk.compare("garch_fwd", f"mode {mode}",
+                        ck.garch_fwd(r, params, h0, zb, mode),
+                        ck.garch_fwd_plain(r, params, h0, zb, mode))
+        h, s_both = ck.garch_fwd(r, params, h0, zb, "both")
+        s_sum = ck.garch_fwd(r, params, h0, zb, "sum")
+        chk.require(torch.equal(s_both, s_sum),
+                    "garch_fwd sum == both bitwise")
+        chk.compare("garch_fwd", "mode both (variances)", h,
+                    ck.garch_fwd_plain(r, params, h0, zb, "e"))
+        gbar = torch.rand(b, generator=gen, device=device) / t
+        gpan = torch.randn(t, b, generator=gen, device=device)
+        for g, name in ((gbar, "per-series"), (gpan, "[T, B] panel")):
+            for want in (False, True):
+                got = ck.garch_bwd(r, params, h0, zb, h, g, want)
+                ref = ck.garch_bwd_plain(r, params, h0, zb, h, g, want)
+                what = f"{name} cotangent{', with dr' if want else ''}"
+                chk.compare("garch_bwd", f"gparams, {what}", got[0], ref[0])
+                chk.compare("garch_bwd", f"gh0, {what}", got[1], ref[1])
+                if want:
+                    chk.compare("garch_bwd", f"dr, {what}", got[2], ref[2])
+        del r, h, gpan, rt
+        torch.cuda.synchronize()
+
+
+def phase_pipeline(chk: Checks, rows: int, t: int, device) -> dict:
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch.models import garch
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.ops import layout
+    from spark_timeseries_tpu_torch.ops import univariate as uv
+    from spark_timeseries_tpu_torch.reliability import status_counts
+    from spark_timeseries_tpu_torch.utils import optim
+
+    log(f"phase 5: volatility pipeline on {rows} x {t} daily log prices")
+    t0 = time.perf_counter()
+    prices = entry.gen_garch_prices(rows, t, seed=0, device=device)
+    torch.cuda.synchronize()
+    log(f"  panel built on the card in {time.perf_counter() - t0:.3f} s; "
+        f"NaN share {float(torch.isnan(prices).float().mean()):.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    walls, stage_launches = {}, {}
+
+    def timed(name, fn):
+        before = dict(ck.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        stage_launches[name] = {k: v - before[k] for k, v in
+                                ck.LAUNCHES.items() if v > before[k]}
+        return out
+
+    ck.reset_launch_counts()
+    optim.host_reads.count = 0
+    fp = timed("fold", lambda: layout.fold_panel(100.0 * prices))
+    (ret_fp,) = timed("fill_chain", lambda: uv.batch_fill_linear_chain(
+        fp, outputs=("diff",)))
+    del fp
+    acf_r = timed("autocorr", lambda: uv.batch_autocorr(20)(ret_fp))
+    acf_sq = timed("autocorr_sq", lambda: uv.batch_autocorr(20)(
+        layout.FoldedPanel(ret_fp.data * ret_fp.data, rows, t)))
+    returns = timed("unfold", lambda: layout.unfold_panel(ret_fp))
+    del ret_fp
+    res = timed("garch_fit", lambda: garch.fit(returns, device=device))
+    reads = optim.host_reads.count
+    fc = timed("garch_forecast", lambda: garch.forecast(
+        res.params, returns, 30, device=device))
+    ares = timed("argarch_fit", lambda: garch.fit_argarch(returns,
+                                                          device=device))
+    launches = dict(ck.LAUNCHES)
+
+    log("  walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
+    log(f"  kernel launches on the pipeline {launches}; by stage "
+        f"{stage_launches}")
+    for name in ("fill_chain", "autocorr", "garch_fwd", "garch_bwd"):
+        chk.require(launches[name] > 0,
+                    f"{name} launched on the pipeline ({launches[name]})")
+    # the transforms: GARCH returns are uncorrelated, their squares are not
+    med_r = float(acf_r.abs().nanmedian())
+    med_sq1 = float(acf_sq[:, 0].nanmedian())
+    log(f"  autocorr: median |r_k| of returns {med_r:.4f}; median lag-1 "
+        f"autocorrelation of squares {med_sq1:.4f}")
+    chk.require(tuple(acf_r.shape) == (rows, 20) and med_r < 0.05,
+                "returns' autocorrelation [B, 20], median |r_k| < 0.05")
+    chk.require(med_sq1 > 0.05, "squared returns autocorrelated (ARCH "
+                "effect): median lag-1 > 0.05")
+    # the GARCH fit against the generating parameters
+    omega, alpha, beta = entry.GARCH_PARAMS
+    counts = status_counts(res.status.cpu().numpy())
+    conv = float(res.converged.float().mean())
+    med = res.params.nanmedian(dim=0).values.tolist()
+    log(f"  garch.fit: {walls['garch_fit']:.3f} s = "
+        f"{rows / walls['garch_fit']:.1f} series/s; status {counts}; "
+        f"converged share {conv:.4f}; iterations max {int(res.iters.max())};"
+        f" host reads {reads}")
+    log(f"  median [omega, alpha, beta] = {med} (panel made with "
+        f"{list(entry.GARCH_PARAMS)})")
+    chk.require(tuple(res.params.shape) == (rows, 3), "fit params [B, 3]")
+    chk.require(conv > 0.9, f"GARCH converged share {conv:.4f} > 0.9")
+    chk.require(abs(med[1] - alpha) < 0.03 and abs(med[2] - beta) < 0.03,
+                "median alpha, beta within 0.03 of the generating values")
+    # the forecast decays toward omega / (1 - alpha - beta), row by row
+    good = torch.isfinite(res.params).all(1)
+    p = res.params
+    uncond = p[:, 0] / (1.0 - p[:, 1] - p[:, 2])
+    decays = ((fc[:, -1] - uncond).abs()
+              <= (fc[:, 0] - uncond).abs() * (1 + 1e-5) + 1e-6)
+    chk.require(tuple(fc.shape) == (rows, 30)
+                and bool(torch.isfinite(fc[good]).all()),
+                "forecast [B, 30], finite wherever the fit is")
+    chk.require(bool(decays[good].all()),
+                "forecast decays toward omega / (1 - alpha - beta)")
+    log(f"  forecast: median h_1 {float(fc[good, 0].median()):.4f}, median "
+        f"h_30 {float(fc[good, -1].median()):.4f}, median unconditional "
+        f"{float(uncond[good].median()):.4f}")
+    # ARGARCH: the AR(1) mean is 0 on these returns
+    aconv = float(ares.converged.float().mean())
+    amed = ares.params.nanmedian(dim=0).values.tolist()
+    afin = float(torch.isfinite(ares.params).all(1).float().mean())
+    log(f"  garch.fit_argarch: {walls['argarch_fit']:.3f} s; status "
+        f"{status_counts(ares.status.cpu().numpy())}; converged share "
+        f"{aconv:.4f}; median [c, phi, omega, alpha, beta] = {amed}")
+    chk.require(tuple(ares.params.shape) == (rows, 5) and afin > 0.9,
+                "ARGARCH params [B, 5], finite share > 0.9")
+    chk.require(abs(amed[3] - alpha) < 0.05 and abs(amed[4] - beta) < 0.05,
+                "ARGARCH median alpha, beta within 0.05")
+
+    # the kernel path against the eager path on a slice
+    n = min(4096, rows)
+    rs = returns[:n].contiguous()
+    (r_e,) = uv.batch_fill_linear_chain(100.0 * prices[:n], "eager",
+                                        ("diff",))
+    err, rel = rel_err(rs, r_e)
+    log(f"  fill chain cuda vs eager on {n} rows: max_abs={err:.3e}")
+    chk.require(rel <= 1e-5, "fill chain cuda vs eager within 1e-5")
+    err, rel = rel_err(acf_r[:n], uv.batch_autocorr(20, "eager")(rs))
+    log(f"  autocorr cuda vs eager on {n} rows: max_abs={err:.3e}")
+    chk.require(rel <= 1e-4, "autocorr cuda vs eager within 1e-4")
+    for name, fit in (("garch.fit", garch.fit),
+                      ("garch.fit_argarch", garch.fit_argarch)):
+        t0 = time.perf_counter()
+        r_cuda = fit(rs, backend="cuda", device=device)
+        t1 = time.perf_counter()
+        r_eager = fit(rs, backend="eager", device=device)
+        t2 = time.perf_counter()
+        dconv, med_dp = _parity(r_cuda, r_eager)
+        log(f"  {name} cuda vs eager on {n} rows ({t1 - t0:.2f} s vs "
+            f"{t2 - t1:.2f} s): converged share differs by {dconv:.4f}, "
+            f"median |param diff| {med_dp:.2e}")
+        chk.require(dconv < 0.02 and med_dp < 1e-2,
+                    f"{name} cuda vs eager within slice 1's parity bar")
+    f_eager = garch.forecast(res.params[:n], rs, 30, backend="eager",
+                             device=device)
+    err, rel = rel_err(fc[:n], f_eager)
+    log(f"  forecast cuda vs eager on {n} rows: max_abs={err:.3e} "
+        f"rel={rel:.3e}")
+    chk.require(rel <= 1e-4, "forecast cuda vs eager within 1e-4")
+    del prices, r_e
+    profile_fit(lambda: garch.fit(returns, device=device), "GARCH fit")
+    return {"launches": launches, "walls": walls, "rows": rows, "time": t}
+
+
+def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    rows, t = pipe["rows"], pipe["time"]
+    log(f"phase 6: volatility kernel times at the pipeline's shape [T, B] = "
+        f"[{t}, {rows}]")
+    yt = _ragged_prices(rows, t, seed=1, device=device)
+    B, n_el, f = rows, t * rows, 4
+    nl = 20
+    (rt,) = ck.fill_chain(yt, (False, True, False))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    zb = torch.randint(0, t // 2, (B,), generator=gen, device=device).float()
+    rz = torch.nan_to_num(rt).masked_fill_(
+        torch.arange(t, device=device)[:, None] < zb, 0.0)
+    params = torch.tensor([0.05, 0.08, 0.9], device=device).repeat(B, 1)
+    h0 = torch.full((B,), 2.5, device=device)
+    gbar = torch.full((B,), 0.5 / t, device=device)
+    h = ck.garch_fwd(rz, params, h0, zb, "e")
+    # each kernel against its plain version once more, at this shape
+    chk.compare("fill_chain", "diff only, pipeline shape", rt,
+                ck.fill_chain_plain(yt, (False, True, False))[0])
+    chk.compare("autocorr", "20 lags, pipeline shape", ck.autocorr(rt, nl),
+                ck.autocorr_plain(rt, nl))
+    # every variant the pipeline launches: sum (line-search trials), both
+    # (gradient evaluations), last (the forecast), and the adjoint's three
+    # outputs (dr carries ARGARCH's gradient)
+    for mode in ("sum", "last"):
+        chk.compare("garch_fwd", f"mode {mode}, pipeline shape",
+                    ck.garch_fwd(rz, params, h0, zb, mode),
+                    ck.garch_fwd_plain(rz, params, h0, zb, mode))
+    got, ref = (ck.garch_fwd(rz, params, h0, zb, "both"),
+                ck.garch_fwd_plain(rz, params, h0, zb, "both"))
+    for i, what in enumerate(("variances", "sum")):
+        chk.compare("garch_fwd", f"mode both ({what}), pipeline shape",
+                    got[i], ref[i])
+    del got, ref
+    got = ck.garch_bwd(rz, params, h0, zb, h, gbar, True)
+    ref = ck.garch_bwd_plain(rz, params, h0, zb, h, gbar, True)
+    for i, what in enumerate(("gparams", "gh0", "dr")):
+        chk.compare("garch_bwd", f"{what}, with dr, pipeline shape",
+                    got[i], ref[i])
+    del got, ref
+
+    out = {}
+    # fill chain as the pipeline calls it (the difference only): reads the
+    # panel, writes one output; a compare, a subtract and a select per
+    # element (the gap arithmetic touches ~2 % of them)
+    which = (False, True, False)
+    ms = cuda_ms(lambda: ck.fill_chain(yt, which))
+    plain = cuda_ms(lambda: ck.fill_chain_plain(yt, which), reps=1)
+    out["fill_chain"] = (ms, plain, *_bound(f * 2 * n_el, 3 * n_el))
+    ms3 = cuda_ms(lambda: ck.fill_chain(yt))
+    log(f"  fill_chain, all three outputs: {ms3:.3f} ms (bound "
+        f"{_bound(f * 4 * n_el, 5 * n_el)[0]:.3f} ms)")
+    del yt
+    # autocorrelation: one read of the panel, nl outputs per series; per
+    # element the valid test and mean sum, the centring, the square and nl
+    # lag products (2 flops each)
+    ms = cuda_ms(lambda: ck.autocorr(rt, nl))
+    plain = cuda_ms(lambda: ck.autocorr_plain(rt, nl), reps=1)
+    out["autocorr"] = (ms, plain, *_bound(f * (n_el + nl * B),
+                                          (2 * nl + 5) * n_el))
+    del rt
+    # GARCH forward, mode sum (every line-search trial): reads r, the
+    # parameters, h0 and zb, writes ll; per element the square, the
+    # recursion (2 multiply-adds), the clamp, the log, a multiply, a
+    # divide and two adds
+    ms = cuda_ms(lambda: ck.garch_fwd(rz, params, h0, zb, "sum"))
+    plain = cuda_ms(lambda: ck.garch_fwd_plain(rz, params, h0, zb, "sum"),
+                    reps=1)
+    out["garch_fwd"] = (ms, plain, *_bound(f * (n_el + 6 * B), 11 * n_el))
+    log("  garch_fwd mode both: "
+        f"{cuda_ms(lambda: ck.garch_fwd(rz, params, h0, zb, 'both')):.3f} ms"
+        f" (bound {_bound(f * (2 * n_el + 6 * B), 11 * n_el)[0]:.3f} ms)")
+    # GARCH adjoint with the per-series cotangent (the fit's gradient):
+    # reads r and h, writes 4 sums per series; ~20 flops per element
+    ms = cuda_ms(lambda: ck.garch_bwd(rz, params, h0, zb, h, gbar))
+    plain = cuda_ms(lambda: ck.garch_bwd_plain(rz, params, h0, zb, h, gbar),
+                    reps=1)
+    out["garch_bwd"] = (ms, plain, *_bound(f * (2 * n_el + 10 * B),
+                                           20 * n_el))
+    ms_dr = cuda_ms(lambda: ck.garch_bwd(rz, params, h0, zb, h, gbar, True))
+    log(f"  garch_bwd with the returns' cotangent (ARGARCH): {ms_dr:.3f} ms "
+        f"(bound {_bound(f * (3 * n_el + 10 * B), 24 * n_el)[0]:.3f} ms)")
+    for name, (ms, plain, bms, by) in out.items():
+        log(f"  {name:10s} {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
+            f"{bms:.3f} ms ({by})  library: none (no single PyTorch call "
+            "computes this function)")
+    # one thread per series keeps one 4-byte load in flight per thread:
+    # the same kernel over 4x the series shows how far the rate is set by
+    # the number of threads rather than by the memory
+    del h, rz
+    b4 = 4 * B
+    r4 = torch.randn(t, b4, device=device)
+    p4, z4 = params.repeat(4, 1), zb.repeat(4)
+    ms4 = cuda_ms(lambda: ck.garch_fwd(r4, p4, h0.repeat(4), z4, "sum"))
+    log(f"  garch_fwd sum at B={b4}: {ms4:.3f} ms = "
+        f"{4 * t * b4 / ms4 / 1e9:.3f} TB/s (at B={B}: "
+        f"{4 * n_el / out['garch_fwd'][0] / 1e9:.3f} TB/s)")
+    return out
+
+
+def _bound(nbytes, flops):
+    """(least ms for the work, what bounds it): bytes over the memory rate
+    or flops over the float32 rate, whichever is larger."""
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
 def phase_timing(chk: Checks, main: dict, device) -> dict:
@@ -310,7 +662,7 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
 
     rows, t = main["rows"], main["time"]
     p, q, k = 1, 1, 3
-    log(f"phase 5: kernel times at the main path's shape [T, B] = "
+    log(f"phase 6: kernel times at the ARIMA path's shape [T, B] = "
         f"[{t - 1}, {rows}] (ARIMA(1,1,1) after differencing)")
     T = t - 1
     yt, zb, start, params = ragged_panel(rows, T, p, seed=1, device=device)
@@ -334,10 +686,7 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
                 ck.hr_moments(yt, start, p, q, True, m + q, m, beta),
                 ck.hr_moments_plain(yt, start, p, q, True, m + q, m, beta))
 
-    def bound(nbytes, flops):
-        tb, to = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-        return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
-
+    bound = _bound
     out = {}
     # css_fwd, mode "sum": the objective every line-search trial evaluates.
     # reads y [T,B], params [B,k], zb [B]; writes sse [B]; per element
@@ -386,17 +735,10 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+def build() -> None:
+    """Phase 2: every source at once, then load each library."""
     from spark_timeseries_tpu_torch.ops import _build
 
-    device = torch.device("cuda", 0)
-    card = card_line()
-    log(f"phase 1: card {card}; torch {torch.__version__} CUDA "
-        f"{torch.version.cuda}")
     t0 = time.perf_counter()
     logs = _build.build_all()
     for name in _build.SOURCES:
@@ -411,22 +753,42 @@ def main() -> int:
             f"{min(regs, default=0)}..{max(regs, default=0)}, largest stack "
             f"frame {max(frame, default=0)} B, spill stores {sum(spill)} B")
 
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    device = torch.device("cuda", 0)
+    card = card_line()
+    log(f"phase 1: card {card}; torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}")
+    t_start = time.perf_counter()
+    build()
+
     chk = Checks()
     phase_kernels(chk, device)
+    phase_kernels_volatility(chk, device)
     if chk.failures:  # a kernel that disagrees makes the rest meaningless
         log("FAILED: " + "; ".join(chk.failures))
         return 1
     main_run = phase_main(chk, ROWS, TIME, device)
+    pipe = phase_pipeline(chk, VOL_ROWS, VOL_TIME, device)
     times = phase_timing(chk, main_run, device)
+    times.update(phase_timing_volatility(chk, pipe, device))
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))
         return 1
+    launches = {**main_run["launches"],
+                **{k: pipe["launches"][k] for k in
+                   ("fill_chain", "autocorr", "garch_fwd", "garch_bwd")}}
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
-        "replaces": REPLACES[name], "launches": main_run["launches"][name],
+        "replaces": REPLACES[name], "launches": launches[name],
         "max_abs_err": chk.max_abs[name], "ms": ms, "plain_ms": plain,
         "bound_ms": bms, "bound_by": by, "library_ms": None,
     } for name, (ms, plain, bms, by) in times.items()]
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,10 +1,17 @@
 """Carry fitted parameters from the JAX package into the port.
 
-The JAX package returns ``FitResult`` fields as arrays; the parameter rows
-use the layout of ``spark_timeseries_tpu.models.arima._split_params``:
-``[c (if intercept), phi_1..phi_p, theta_1..theta_q]``, which is the port's
-layout too.  :func:`from_jax_params` turns them into the port's tensors, so
-a model fitted by either package forecasts in the other.
+The JAX package returns ``FitResult`` fields as arrays.  Each model family
+keeps its parameter rows in one layout, the same in both packages:
+
+- ARIMA (``models.arima``): ``[c (if intercept), phi_1..phi_p,
+  theta_1..theta_q]``;
+- GARCH(1,1) (``models.garch.fit``): ``[omega, alpha, beta]``;
+- AR(1)+GARCH(1,1) (``models.garch.fit_argarch``): ``[c, phi, omega,
+  alpha, beta]``.
+
+:func:`from_jax_params` takes any of them (it does not reorder columns) and
+turns them into the port's tensors, so a model fitted by either package
+forecasts in the other.
 """
 
 from __future__ import annotations

@@ -40,6 +40,14 @@ void with_cap8(int n, F&& f) {
   else f(std::integral_constant<int, 8>{});
 }
 
+// The same for capacities {1, 2, 4, 8, 16, 32}; the caller takes n <= 32.
+template <class F>
+void with_cap32(int n, F&& f) {
+  if (n <= 8) with_cap8(n, f);
+  else if (n <= 16) f(std::integral_constant<int, 16>{});
+  else f(std::integral_constant<int, 32>{});
+}
+
 __device__ __forceinline__ size_t at(int t, int B, int b) {
   return static_cast<size_t>(t) * static_cast<size_t>(B) + b;
 }

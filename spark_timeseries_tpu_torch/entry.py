@@ -4,10 +4,13 @@ Counterpart of ``__graft_entry__.entry()``: ``entry()`` returns the fit
 step and its example arguments, placed on ``device`` (the card unless the
 caller asks for the CPU).  :func:`gen_panel` builds an ARIMA(1,1,1) panel on
 the device from a seeded ``torch.Generator``, for panels too large for a
-host loop.
+host loop; :func:`gen_garch_prices` builds the volatility pipeline's ragged
+price panel the same way.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -15,6 +18,10 @@ from .models import arima
 from .models.base import to_device
 
 ORDER = (1, 1, 1)
+# GARCH(1,1) of the price panel's percent returns: omega, alpha, beta
+GARCH_PARAMS = (0.05, 0.08, 0.90)
+# share of the price panel's positions that fall in interior gaps
+GAP_SHARE = 0.02
 
 
 def gen_panel(batch: int, time: int, seed: int = 0,
@@ -46,3 +53,48 @@ def entry(device="cuda"):
         return arima.fit(y, ORDER, max_iters=20, tol=1e-4, device=device)
 
     return fit_step, (gen_panel(64, 128, device=device),)
+
+
+def gen_garch_prices(batch: int, time: int, seed: int = 0,
+                     device="cuda") -> torch.Tensor:
+    """``[batch, time]`` float32 log prices: daily closes whose percent
+    log returns follow GARCH(1,1) with :data:`GARCH_PARAMS` (started at the
+    unconditional variance), priced from 100; ``log p_t = log 100 +
+    cumsum(r)_t / 100``.
+
+    Missing data, as a daily equity panel has it: up to half of the rows
+    list late (a leading NaN run of 1 .. time/2 days), about
+    :data:`GAP_SHARE` of the positions fall in interior gaps of 1-5 days
+    (holidays, halts), and about 1 % of the rows delist early (a trailing
+    NaN run).  Built
+    time-major on ``device`` from a seeded ``torch.Generator``, then
+    transposed."""
+    device = to_device(torch.zeros(0), device).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    omega, alpha, beta = GARCH_PARAMS
+    r = torch.randn(time, batch, generator=gen, device=device)
+    h = torch.full((batch,), omega / (1.0 - alpha - beta), device=device)
+    r_prev = torch.zeros(batch, device=device)
+    for t in range(time):  # r[t] <- sqrt(h_t) z_t in place
+        h = omega + alpha * r_prev * r_prev + beta * h
+        r_prev = r[t].mul_(torch.sqrt(h))
+    logp = torch.cumsum(r, dim=0).div_(100.0).add_(math.log(100.0))
+    del r
+    u = lambda: torch.rand(batch, generator=gen, device=device)  # noqa: E731
+    start = torch.where(u() < 0.5, torch.randint(
+        1, max(time // 2, 2), (batch,), generator=gen, device=device), 0)
+    end = torch.where(u() < 0.01, torch.randint(
+        time // 2, time, (batch,), generator=gen, device=device), time)
+    t_idx = torch.arange(time, device=device)[:, None]
+    logp.masked_fill_((t_idx < start[None, :]) | (t_idx >= end[None, :]),
+                      float("nan"))
+    # interior gaps: runs of 1-5 days from ~GAP_SHARE/3 of the positions
+    opens = torch.rand(time, batch, generator=gen, device=device) \
+        < GAP_SHARE / 3.0
+    length = torch.randint(1, 6, (time, batch), generator=gen, device=device,
+                           dtype=torch.int8)
+    for k in range(5):
+        run = opens[:time - k] & (length[:time - k] > k)
+        logp[k:].masked_fill_(run, float("nan"))
+    return logp.t().contiguous()

@@ -26,7 +26,7 @@ import torch
 from ..ops import cuda_kernels as ck
 from ..utils import optim
 from ..utils.linalg import ridge_solve as _ridge_solve
-from .base import (FitResult, align_mode_on_host, debatch_fit, derive_status,
+from .base import (FitResult, align_mode_on_host, debatch, derive_status,
                    ensure_batched, maybe_align, resolve_align_mode,
                    resolve_backend, to_device)
 
@@ -222,8 +222,8 @@ def fit(
         raise ValueError(f"unknown method {method!r}")
     if seasonal is not None and any(int(v) for v in tuple(seasonal)[:3]):
         raise NotImplementedError(
-            "seasonal ARIMA is not ported yet: it is slice 3 of the PyTorch "
-            "port (ROADMAP.md queue 1, item 9); use spark_timeseries_tpu")
+            "seasonal ARIMA is not ported yet (ROADMAP.md queue 1, item "
+            "9); use spark_timeseries_tpu")
     p, d, q = order
     yb, single = ensure_batched(to_device(y, device))
     if tol is None:
@@ -236,7 +236,7 @@ def fit(
         out = _fit_css(yb, order, include_intercept, method, backend,
                        max_iters, float(tol), init_params, align_mode,
                        compact)
-    return debatch_fit(out, single)
+    return debatch(out, single)
 
 
 def _css_prep(yb, init_params, order: Order, include_intercept: bool,

@@ -103,11 +103,15 @@ def ensure_batched(y: torch.Tensor) -> tuple[torch.Tensor, bool]:
                      f"{tuple(y.shape)}")
 
 
-def debatch_fit(out: FitResult, single: bool) -> FitResult:
-    """Drop the batch axis of a fit of one ``[time]`` series."""
+def debatch(x, single: bool):
+    """Drop the batch axis of one ``[time]`` series' result: a tensor, or
+    each field of a named tuple such as :class:`FitResult` (``None``
+    fields stay ``None``)."""
     if not single:
-        return out
-    return FitResult(*(None if a is None else a[0] for a in out))
+        return x
+    if isinstance(x, torch.Tensor):
+        return x[0]
+    return type(x)(*(None if a is None else a[0] for a in x))
 
 
 ALIGN_MODES = ("dense", "no-trailing", "general")

@@ -1,5 +1,6 @@
-"""Panel layout and the hand-written CUDA kernels."""
+"""Panel layout, the per-series transforms and the hand-written CUDA
+kernels."""
 
-from . import cuda_kernels, layout
+from . import cuda_kernels, lagmat, layout, univariate
 
-__all__ = ["cuda_kernels", "layout"]
+__all__ = ["cuda_kernels", "lagmat", "layout", "univariate"]

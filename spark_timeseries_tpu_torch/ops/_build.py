@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("css", "hr")
+SOURCES = ("css", "hr", "fill", "autocorr", "garch")
 # -Xptxas=-v: the build log reports each kernel's registers and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -39,6 +39,17 @@ SIGNATURES = {
     "hr": {
         "sts_hr_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+    },
+    "fill": {
+        "sts_fill_chain": [_P, _P, _P, _P, _I, _I, _P],
+    },
+    "autocorr": {
+        "sts_autocorr": [_P, _P, _I, _I, _I, _P],
+    },
+    "garch": {
+        "sts_garch_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "sts_garch_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _P],
     },
 }
 

@@ -1,15 +1,21 @@
-"""Hand-written CUDA kernels for the ARIMA fit path, with their wrappers.
+"""Hand-written CUDA kernels of the port, with their wrappers.
 
-Port of ``spark_timeseries_tpu/ops/pallas_kernels.py`` (the CSS and
-Hannan-Rissanen parts).  Three kernels, sources in ``csrc/``:
+Port of ``spark_timeseries_tpu/ops/pallas_kernels.py``.  Seven kernels,
+sources in ``csrc/``:
 
-==============  ==============  =============================================
-wrapper         source          replaces (pallas_kernels.py)
-==============  ==============  =============================================
-``css_fwd``     ``css.cu``      ``_css_fwd_kernel`` via ``_css_fwd_call_f``
-``css_bwd``     ``css.cu``      ``_css_bwd_kernel`` via ``_css_errors_bwd_f``
-``hr_moments``  ``hr.cu``       ``_hr_kernel`` via ``_hr_moments``
-==============  ==============  =============================================
+==============  ===============  ==============================================
+wrapper         source           replaces (pallas_kernels.py)
+==============  ===============  ==============================================
+``css_fwd``     ``css.cu``       ``_css_fwd_kernel`` via ``_css_fwd_call_f``
+``css_bwd``     ``css.cu``       ``_css_bwd_kernel`` via ``_css_errors_bwd_f``
+``hr_moments``  ``hr.cu``        ``_hr_kernel`` via ``_hr_moments``
+``fill_chain``  ``fill.cu``      ``_fillchain_fused_kernel`` via
+                                 ``_fill_linear_call_folded``
+``autocorr``    ``autocorr.cu``  ``_autocorr_kernel`` via
+                                 ``_batch_autocorr_call``
+``garch_fwd``   ``garch.cu``     ``_garch_fwd_kernel`` via ``_garch_fwd_call``
+``garch_bwd``   ``garch.cu``     ``_garch_bwd_kernel`` via ``_garch_h_bwd``
+==============  ===============  ==============================================
 
 Each wrapper checks device, dtype (float32), shape and contiguity and raises
 on anything else; it launches its kernel for CUDA tensors (counting the
@@ -18,10 +24,13 @@ launch in :data:`LAUNCHES`) and runs the kernel's plain PyTorch version
 summation order) only for CPU tensors.  No path catches a failed build or
 launch.  Panels are time-major ``[T, B]`` (``ops.layout``).
 
-Above the wrappers sit the reference's entry points (``css_neg_loglik``,
-``css_neg_loglik_folded``, ``css_errors``, ``css_last_errors``, ``hr_init``)
-with its signatures, minus ``interpret``.  The CSS objective is a
-``torch.autograd.Function`` whose backward is the adjoint kernel.
+Above the wrappers sit the reference's entry points with its signatures,
+minus ``interpret``: ``css_neg_loglik``, ``css_neg_loglik_folded``,
+``css_errors``, ``css_last_errors``, ``hr_init``; ``fill_linear_chain``,
+``fill_linear``, ``fill_linear_chain_folded``; ``batch_autocorr``,
+``batch_autocorr_folded``; ``garch_variances``, ``garch_neg_loglik``.  The
+CSS and GARCH objectives are ``torch.autograd.Function``s whose backward is
+the adjoint kernel.
 """
 
 from __future__ import annotations
@@ -31,21 +40,29 @@ import math
 import torch
 
 from . import _build
-from .layout import css_prefold, time_major
+from .layout import FoldedPanel, css_prefold, time_major
 
 __all__ = [
     "LAUNCHES", "reset_launch_counts", "supported", "css_structural_ok",
     "hr_structural_ok", "css_fwd", "css_fwd_plain", "css_bwd",
     "css_bwd_plain", "hr_moments", "hr_moments_plain", "css_errors",
     "css_last_errors", "css_neg_loglik", "css_neg_loglik_folded", "hr_init",
-    "css_prefold",
+    "css_prefold", "autocorr_structural_ok", "fill_chain",
+    "fill_chain_plain", "autocorr", "autocorr_plain", "garch_fwd",
+    "garch_fwd_plain", "garch_bwd", "garch_bwd_plain", "fill_linear_chain",
+    "fill_linear", "fill_linear_chain_folded", "batch_autocorr",
+    "batch_autocorr_folded", "garch_variances", "garch_neg_loglik",
+    "garch_h0_folded", "garch_neg_loglik_folded", "garch_prefold",
+    "CHAIN_OUTPUTS",
 ]
 
 # kernel launches by wrapper name (plain-version calls are not counted)
-LAUNCHES = {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0}
+LAUNCHES = {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0, "fill_chain": 0,
+            "autocorr": 0, "garch_fwd": 0, "garch_bwd": 0}
 
 _MODES = {"e": 0, "sum": 1, "both": 2, "tail": 3}
 _MAX_CSS_LAG = 512
+_MAX_ACF_LAG = 1024
 
 
 def reset_launch_counts() -> None:
@@ -67,6 +84,12 @@ def css_structural_ok(p: int, q: int) -> bool:
 def hr_structural_ok(p: int, q: int) -> bool:
     """Orders the moment kernel takes: p, q <= 8 (at most 32 columns)."""
     return 0 <= p <= 8 and 0 <= q <= 8
+
+
+def autocorr_structural_ok(num_lags: int, n_time: int) -> bool:
+    """Lag counts the autocorrelation kernel takes: ``0 < num_lags <
+    min(T, 1024)`` (the reference's bound)."""
+    return 0 < num_lags < min(n_time, _MAX_ACF_LAG)
 
 
 # ---------------------------------------------------------------------------
@@ -360,6 +383,262 @@ def hr_moments_plain(yt, zb, lag_y: int, lag_e: int, intercept: bool,
 
 
 # ---------------------------------------------------------------------------
+# fill-linear chain: (filled, lag-1 difference, lag-1 shift)
+# ---------------------------------------------------------------------------
+
+CHAIN_OUTPUTS = ("filled", "diff", "lag")
+
+
+def _panel_shape(name: str, x) -> tuple:
+    if not isinstance(x, torch.Tensor) or x.dim() != 2:
+        raise ValueError(f"{name} must be a [T, B] tensor")
+    return tuple(x.shape)
+
+
+def fill_chain(yt, which=(True, True, True)):
+    """Linear fill of the interior NaN gaps of the ``[T, B]`` panel ``yt``,
+    with its lag-1 difference and lag-1 shift -> the ``[T, B]`` outputs that
+    ``which`` (flags for ``(filled, diff, lag)``) asks for, in that order.
+
+    Leading and trailing NaN runs stay NaN; the difference and the shift
+    are NaN at t = 0, and a NaN fill at t-1 makes the difference NaN.
+    """
+    which = tuple(bool(w) for w in which)
+    if len(which) != 3 or not any(which):
+        raise ValueError(f"which must flag 1-3 of {CHAIN_OUTPUTS}, got "
+                         f"{which!r}")
+    T, B = _panel_shape("yt", yt)
+    dev = yt.device
+    _check("yt", yt, (T, B), dev)
+    if not _on_cuda(dev):
+        return fill_chain_plain(yt, which)
+    outs = [torch.empty_like(yt) if w else None for w in which]
+    if B and T:
+        _launch("fill", "sts_fill_chain", "fill_chain", dev, _ptr(yt),
+                *(_ptr(o) for o in outs), B, T)
+    return tuple(o for o in outs if o is not None)
+
+
+def fill_chain_plain(yt, which=(True, True, True)):
+    """Plain PyTorch version of :func:`fill_chain`: a backward sweep for the
+    next valid (value, index), then the forward fill with the kernel's
+    arithmetic (the kernel finds the next valid value when it closes a
+    gap; the values are the same)."""
+    T, B = yt.shape
+    nan = yt.new_full((B,), float("nan"))
+    nxt = [None] * T  # (next valid value, its index) at or after t
+    nv, ni = yt.new_zeros(B), yt.new_full((B,), 1e30)
+    for t in reversed(range(T)):
+        valid = ~torch.isnan(yt[t])
+        nv = torch.where(valid, yt[t], nv)
+        ni = torch.where(valid, float(t), ni)
+        nxt[t] = (nv, ni)
+    pv, pi, fprev = yt.new_zeros(B), yt.new_full((B,), -1e30), nan
+    outs = ([], [], [])
+    for t in range(T):
+        yv = yt[t]
+        valid = ~torch.isnan(yv)
+        nv, ni = nxt[t]
+        interior = (pi >= 0.0) & (ni < 1e30)
+        w = (t - pi) / torch.clamp(ni - pi, min=1.0)
+        interp = pv * (1.0 - w) + nv * w
+        fill = torch.where(valid, yv, torch.where(interior, interp, nan))
+        for out, v in zip(outs, (fill, fill - fprev, fprev)):
+            out.append(v)
+        pv = torch.where(valid, yv, pv)
+        pi = torch.where(valid, float(t), pi)
+        fprev = fill
+    return tuple((torch.stack(o) if T else yt.new_empty(0, B))
+                 for o, w in zip(outs, which) if w)
+
+
+# ---------------------------------------------------------------------------
+# multi-lag autocorrelation with the valid-sample mean
+# ---------------------------------------------------------------------------
+
+
+def autocorr(yt, num_lags: int):
+    """Sample autocorrelation at lags ``1..num_lags`` of each series of the
+    ``[T, B]`` panel -> ``[B, num_lags]`` (valid-sample mean and
+    denominator; a constant or all-NaN series gives NaN)."""
+    T, B = _panel_shape("yt", yt)
+    if not autocorr_structural_ok(num_lags, T):
+        raise ValueError(f"num_lags must be in (0, min(T, {_MAX_ACF_LAG})) "
+                         f"= (0, {min(T, _MAX_ACF_LAG)}), got {num_lags}")
+    dev = yt.device
+    _check("yt", yt, (T, B), dev)
+    if not _on_cuda(dev):
+        return autocorr_plain(yt, num_lags)
+    out = yt.new_empty(num_lags, B)
+    if B:
+        _launch("autocorr", "sts_autocorr", "autocorr", dev, _ptr(yt),
+                _ptr(out), B, T, num_lags)
+    return out.t()
+
+
+def autocorr_plain(yt, num_lags: int):
+    """Plain PyTorch version of :func:`autocorr` (the kernel's two passes
+    and summation order)."""
+    T, B = yt.shape
+    zero = yt.new_zeros(B)
+    n, s = zero, zero
+    for t in range(T):
+        valid = ~torch.isnan(yt[t])
+        n = n + valid.to(yt.dtype)
+        s = s + torch.where(valid, yt[t], 0.0)
+    mean = s / torch.clamp(n, min=1.0)
+    dl = [zero] * num_lags  # dl[k] = d_{t-1-k}
+    acc = [zero] * num_lags
+    a0 = zero
+    for t in range(T):
+        d = torch.where(torch.isnan(yt[t]), 0.0, yt[t] - mean)
+        a0 = a0 + d * d
+        acc = [a + d * dk for a, dk in zip(acc, dl)]
+        dl = [d] + dl[:-1]
+    return torch.stack(acc, dim=1) / a0[:, None]
+
+
+# ---------------------------------------------------------------------------
+# GARCH(1,1): h_t = omega + alpha r_{t-1}^2 + beta h_{t-1}, and its adjoint
+# ---------------------------------------------------------------------------
+
+_GARCH_MODES = {"e": 0, "sum": 1, "both": 2, "last": 3}
+_H_MIN = 1e-12
+_TWO_PI = 2.0 * math.pi
+
+
+def garch_fwd(rt, params, h0, zb, mode: str):
+    """GARCH(1,1) variances of the ``[T, B]`` returns ``rt`` under ``params
+    [B, 3]`` (``[omega, alpha, beta]``), start variance ``h0 [B]`` and
+    first live step ``zb [B]`` (before it ``h = h0``; at it ``h0`` stands
+    in for the unobserved squared return).
+
+    ``mode``: ``"e"`` -> ``h [T, B]``; ``"sum"`` -> the per-series Gaussian
+    sum ``sum_live log(2 pi h) + r^2 / h`` ``[B]``; ``"both"`` -> ``(h,
+    sum)`` with the sum bitwise equal to ``"sum"``; ``"last"`` -> ``h`` at
+    the last step ``[B]``.
+    """
+    if mode not in _GARCH_MODES:
+        raise ValueError(f"unknown garch_fwd mode {mode!r}")
+    T, B = _panel_shape("rt", rt)
+    dev = rt.device
+    _check("rt", rt, (T, B), dev)
+    _check("params", params, (B, 3), dev)
+    _check("h0", h0, (B,), dev)
+    _check("zb", zb, (B,), dev)
+    if not _on_cuda(dev):
+        return garch_fwd_plain(rt, params, h0, zb, mode)
+    h = torch.empty_like(rt) if mode in ("e", "both") else None
+    ll = rt.new_empty(B) if mode in ("sum", "both") else None
+    hl = rt.new_empty(B) if mode == "last" else None
+    if B:
+        par_t = params.t().contiguous()
+        _launch("garch", "sts_garch_fwd", "garch_fwd", dev, _ptr(rt),
+                _ptr(par_t), _ptr(h0), _ptr(zb), _ptr(h), _ptr(ll), _ptr(hl),
+                B, T, _GARCH_MODES[mode])
+    return {"e": h, "sum": ll, "both": (h, ll), "last": hl}[mode]
+
+
+def garch_fwd_plain(rt, params, h0, zb, mode: str):
+    """Plain PyTorch version of :func:`garch_fwd` (same recursion, same
+    summation order)."""
+    T, B = rt.shape
+    omega, alpha, beta = params.unbind(1)
+    hprev, r2p, acc = h0, rt.new_zeros(B), rt.new_zeros(B)
+    hs = []
+    for t in range(T):
+        r2 = rt[t] * rt[t]
+        r2in = torch.where(zb == t, h0, r2p)
+        live = zb <= t
+        hv = torch.where(live, omega + alpha * r2in + beta * hprev, h0)
+        if mode in ("e", "both"):
+            hs.append(hv)
+        if mode in ("sum", "both"):
+            hc = torch.clamp(hv, min=_H_MIN)
+            acc = acc + torch.where(live, torch.log(_TWO_PI * hc) + r2 / hc,
+                                    0.0)
+        hprev, r2p = hv, r2
+    h = (torch.stack(hs) if T else rt.new_empty(0, B)) \
+        if mode in ("e", "both") else None
+    return {"e": h, "sum": acc, "both": (h, acc), "last": hprev}[mode]
+
+
+def garch_bwd(rt, params, h0, zb, ht, g, want_gr: bool = False):
+    """Adjoint of :func:`garch_fwd` -> ``(gparams [B, 3], gh0 [B], gr [T, B]
+    or None)``.
+
+    ``ht`` is the forward's variance panel.  ``g`` is either a cotangent of
+    ``h`` (``[T, B]``) or, for the likelihood sum, its per-series cotangent
+    ``[B]`` (the per-step cotangent ``g (1/h - r^2/h^2)`` is formed in the
+    kernel, zero through the 1e-12 clamp, and the sum's direct dependence
+    on ``r`` joins ``gr``).  ``gr``, the cotangent of the returns ``rt``,
+    is computed only with ``want_gr``.
+    """
+    T, B = _panel_shape("rt", rt)
+    dev = rt.device
+    _check("rt", rt, (T, B), dev)
+    _check("params", params, (B, 3), dev)
+    _check("h0", h0, (B,), dev)
+    _check("zb", zb, (B,), dev)
+    _check("ht", ht, (T, B), dev)
+    g_is_ll = g.dim() == 1
+    _check("g", g, (B,) if g_is_ll else (T, B), dev)
+    if not _on_cuda(dev):
+        return garch_bwd_plain(rt, params, h0, zb, ht, g, want_gr)
+    gpar = rt.new_empty(3, B)
+    gh0 = rt.new_empty(B)
+    gr = torch.empty_like(rt) if want_gr else None
+    if B:
+        par_t = params.t().contiguous()
+        _launch("garch", "sts_garch_bwd", "garch_bwd", dev, _ptr(rt),
+                _ptr(par_t), _ptr(h0), _ptr(zb), _ptr(ht), _ptr(g),
+                _ptr(gpar), _ptr(gh0), _ptr(gr), B, T, int(g_is_ll))
+    return gpar.t(), gh0, gr
+
+
+def garch_bwd_plain(rt, params, h0, zb, ht, g, want_gr: bool = False):
+    """Plain PyTorch version of :func:`garch_bwd` (the kernel's order: t
+    descending)."""
+    T, B = rt.shape
+    g_is_ll = g.dim() == 1
+    alpha, beta = params[:, 1], params[:, 2]
+    zero = rt.new_zeros(B)
+    lam_next, dw, da, db, dh0 = zero, zero, zero, zero, zero
+    grs = [None] * T
+    for t in reversed(range(T)):
+        rv, hv = rt[t], ht[t]
+        rp = rt[t - 1] if t >= 1 else zero
+        hp = ht[t - 1] if t >= 1 else h0
+        live = zb <= t
+        hc = torch.clamp(hv, min=_H_MIN)
+        if g_is_ll:
+            gt = torch.where(live & (hv >= _H_MIN),
+                             g * (1.0 / hc - (rv * rv) / (hc * hc)), 0.0)
+        else:
+            gt = g[t]
+        next_live = (zb < t + 1) & (t + 1 < T)
+        gr2 = torch.where(next_live, alpha * lam_next, 0.0)
+        lam = torch.where(live, gt + beta * lam_next, 0.0)
+        dh0 = dh0 + torch.where(live, 0.0, gt)
+        seed = zb == t
+        dw = dw + lam
+        da = da + lam * torch.where(seed, h0, rp * rp)
+        db = db + lam * hp
+        dh0 = dh0 + torch.where(live & seed, alpha * lam, 0.0)
+        dh0 = dh0 + torch.where(live & (zb > t - 1), beta * lam, 0.0)
+        if want_gr:
+            v = gr2 * 2.0 * rv
+            if g_is_ll:
+                v = v + torch.where(live, g * 2.0 * rv / hc, 0.0)
+            grs[t] = v
+        lam_next = lam
+    gr = None
+    if want_gr:
+        gr = torch.stack(grs) if T else rt.new_empty(0, B)
+    return torch.stack([dw, da, db], dim=1), dh0, gr
+
+
+# ---------------------------------------------------------------------------
 # entry points (the reference's signatures, without ``interpret``)
 # ---------------------------------------------------------------------------
 
@@ -513,3 +792,162 @@ def hr_init(yd, order, include_intercept: bool, n_valid=None, *, yt=None):
     acc2 = hr_moments(yt, zb, p, q, include_intercept, m + q, m,
                       beta1.contiguous())
     return _solve_moments(acc2, ncols2)
+
+
+# -- fill chain and autocorrelation (forward-only transforms) ---------------
+
+
+def _chain_flags(outputs) -> tuple:
+    outputs = tuple(outputs)
+    if not outputs or any(o not in CHAIN_OUTPUTS for o in outputs):
+        raise ValueError(f"outputs must be a non-empty subset of "
+                         f"{CHAIN_OUTPUTS}, got {outputs!r}")
+    return outputs, tuple(o in outputs for o in CHAIN_OUTPUTS)
+
+
+def fill_linear_chain_folded(fp: FoldedPanel, outputs=CHAIN_OUTPUTS):
+    """Fill chain on a resident :class:`~.layout.FoldedPanel`, computing
+    ONLY the requested outputs -> a tuple of folded panels in the order of
+    ``outputs`` (an ordered subset of ``("filled", "diff", "lag")``)."""
+    outputs, which = _chain_flags(outputs)
+    outs = fill_chain(fp.data, which)
+    by_name = dict(zip([o for o, w in zip(CHAIN_OUTPUTS, which) if w], outs))
+    return tuple(FoldedPanel(by_name[o], fp.b, fp.t) for o in outputs)
+
+
+def fill_linear_chain(y):
+    """Fill chain on a ``[B, T]`` panel -> ``(filled, lag-1 difference,
+    lag-1 shift)``, each ``[B, T]`` (views of time-major storage).
+
+    Matches ``fill_linear``, ``differences_at_lag(., 1)`` and ``lag(., 1)``
+    composed: edge NaNs survive the fill; position 0 of the difference and
+    of the shift is NaN."""
+    return tuple(o.t() for o in fill_chain(time_major(y)))
+
+
+def fill_linear(y):
+    """Linear-interpolation fill ``[B, T]`` (the fill output only)."""
+    return fill_chain(time_major(y), (True, False, False))[0].t()
+
+
+def batch_autocorr(y, num_lags: int):
+    """Sample autocorrelation ``[B, num_lags]`` of a ``[B, T]`` panel;
+    matches ``univariate.autocorr`` row by row (valid-sample mean and
+    denominator)."""
+    return autocorr(time_major(y), num_lags)
+
+
+def batch_autocorr_folded(fp: FoldedPanel, num_lags: int):
+    """:func:`batch_autocorr` on a resident :class:`~.layout.FoldedPanel`,
+    with no layout conversion."""
+    return autocorr(fp.data, num_lags)
+
+
+# -- GARCH(1,1) objective ----------------------------------------------------
+
+
+class _GarchH(torch.autograd.Function):
+    """Conditional variances ``[T, B]`` of the time-major returns,
+    differentiable in the parameters, the returns and ``h0`` through the
+    adjoint kernel (``zb`` is a constant)."""
+
+    @staticmethod
+    def forward(ctx, params, rt, h0, zb):
+        h = garch_fwd(rt, params, h0, zb, "e")
+        ctx.save_for_backward(params, rt, h0, zb, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        params, rt, h0, zb, h = ctx.saved_tensors
+        gpar, gh0, gr = garch_bwd(rt, params, h0, zb, h, g.contiguous(),
+                                  ctx.needs_input_grad[1])
+        return (gpar if ctx.needs_input_grad[0] else None, gr,
+                gh0 if ctx.needs_input_grad[2] else None, None)
+
+
+class _GarchLL(torch.autograd.Function):
+    """Unscaled Gaussian log-likelihood sum ``[B]`` of the GARCH recursion,
+    ``sum_live log(2 pi h_t) + r_t^2 / h_t``.
+
+    Forward runs ``both`` (saving the variances) when a gradient is wanted
+    and ``sum`` otherwise; the two sums are bitwise equal.  Backward is the
+    adjoint kernel fed the per-series cotangent directly; the returns'
+    cotangent is computed only when the returns require a gradient (the
+    ARGARCH objective), and the ``h0`` cotangent flows on through PyTorch
+    autograd into whatever computed ``h0``."""
+
+    @staticmethod
+    def forward(ctx, params, rt, h0, zb, save):
+        if not save:
+            return garch_fwd(rt, params, h0, zb, "sum")
+        h, ll = garch_fwd(rt, params, h0, zb, "both")
+        ctx.save_for_backward(params, rt, h0, zb, h)
+        return ll
+
+    @staticmethod
+    def backward(ctx, gbar):
+        params, rt, h0, zb, h = ctx.saved_tensors
+        gpar, gh0, gr = garch_bwd(rt, params, h0, zb, h, gbar.contiguous(),
+                                  ctx.needs_input_grad[1])
+        return (gpar if ctx.needs_input_grad[0] else None, gr,
+                gh0 if ctx.needs_input_grad[2] else None, None, None)
+
+
+def garch_variances(params, r, h0, zb):
+    """Batched GARCH(1,1) conditional variances ``[B, T]`` (a view of
+    time-major storage).
+
+    ``params``: ``[B, 3]`` rows ``[omega, alpha, beta]``; ``r``: ``[B, T]``
+    returns with the invalid prefix zeroed; ``h0``: ``[B]`` start variance;
+    ``zb``: ``[B]`` first live position.  Differentiable in ``params``,
+    ``r`` and ``h0`` through the adjoint kernel (``zb`` is constant)."""
+    zb = zb.to(r.dtype).contiguous()
+    return _GarchH.apply(params.contiguous(), time_major(r),
+                         h0.to(r.dtype).contiguous(), zb).t()
+
+
+def garch_h0_folded(rzt, mask, nvf):
+    """The start variance ``h0 [B]``: the masked sample variance of the
+    time-major returns ``rzt`` (zero outside ``mask``, the ``[T, B]``
+    valid span) over ``nvf`` valid steps.  Differentiable in ``rzt``."""
+    mean = rzt.sum(0) / nvf
+    return torch.where(mask, (rzt - mean) ** 2, 0.0).sum(0) / nvf
+
+
+def garch_neg_loglik_folded(params, rzt, h0, zb):
+    """GARCH(1,1) Gaussian negative log-likelihood ``[B]`` from time-major
+    returns ``rzt`` (zero outside each valid span), the start variance
+    ``h0`` and the first live step ``zb``; matches
+    :func:`garch_neg_loglik`.  Differentiable in ``params``, ``rzt`` and
+    ``h0`` through the adjoint kernel."""
+    return 0.5 * _GarchLL.apply(params, rzt, h0, zb,
+                                _needs_grad(params, rzt, h0))
+
+
+def garch_prefold(r, n_valid=None):
+    """A ``[B, T]`` returns panel in the GARCH kernels' layout -> ``(rzt,
+    mask, nvf, zb)``: the time-major copy zeroed outside each right-aligned
+    valid span, that span as a ``[T, B]`` mask, the clamped valid count and
+    the first live step (float ``[B]``)."""
+    b, n = r.shape
+    nv = (torch.full((b,), n, dtype=torch.int32, device=r.device)
+          if n_valid is None else n_valid.to(torch.int32))
+    zb = (n - nv).to(r.dtype)
+    mask = torch.arange(n, dtype=r.dtype, device=r.device)[:, None] \
+        >= zb[None, :]
+    rzt = time_major(r).masked_fill_(~mask, 0.0)  # a copy
+    return rzt, mask, torch.clamp(nv, min=1).to(r.dtype), zb
+
+
+def garch_neg_loglik(params, r, n_valid=None):
+    """Batched GARCH(1,1) Gaussian negative log-likelihood ``[B]`` of the
+    ``[B, T]`` returns ``r``.
+
+    Matches ``models.garch.neg_log_likelihood`` row by row: h0 is the
+    masked sample variance of the valid span, the prefix is dead, and the
+    likelihood sums over valid steps.  Differentiable in ``params`` and
+    (through the returns and the variance seed) in ``r``."""
+    rzt, mask, nvf, zb = garch_prefold(r, n_valid)
+    h0 = garch_h0_folded(rzt, mask, nvf)
+    return garch_neg_loglik_folded(params.contiguous(), rzt, h0, zb)

@@ -1,0 +1,362 @@
+"""Per-series transforms (port of ``ops/univariate.py``), NaN-aware.
+
+Every function takes a series ``[time]`` with NaN marking missing data and
+works along the last axis, so a panel ``[keys, time]`` goes through the same
+code with its rows independent (what the reference gets from ``jax.vmap``).
+:func:`batched` lifts any ``[time]`` function to a panel with
+``torch.vmap``.  The ``batch_*`` functions dispatch to the hand-written CUDA
+kernels (``ops.cuda_kernels``) by structure only: ``backend="auto"`` takes
+the kernel for a float32 panel on a CUDA device whose shape the kernel
+takes, ``"cuda"`` insists (and raises where it cannot run), ``"eager"``
+runs the plain PyTorch functions here on any device.
+
+Not ported yet (ROADMAP queue 1): ``fill_spline``, ``pacf``,
+``cross_corr``, ``trim_leading`` / ``trim_trailing`` and the resampling
+functions.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..models.base import BACKENDS, resolve_backend
+from . import cuda_kernels as ck
+from .layout import FoldedPanel, fold_panel, unfold_panel
+
+__all__ = [
+    "first_not_nan_loc",
+    "last_not_nan_loc",
+    "autocorr",
+    "lag",
+    "lags",
+    "differences_at_lag",
+    "differences_of_order",
+    "quotients",
+    "price2ret",
+    "fill_value",
+    "fill_with_default",
+    "fill_previous",
+    "fill_next",
+    "fill_nearest",
+    "fill_linear",
+    "fillts",
+    "batched",
+    "batch_autocorr",
+    "batch_fill",
+    "batch_fill_linear_chain",
+]
+
+
+def _isvalid(x):
+    return ~torch.isnan(x)
+
+
+# ---------------------------------------------------------------------------
+# Locations of valid data
+# ---------------------------------------------------------------------------
+
+
+def first_not_nan_loc(x: torch.Tensor) -> torch.Tensor:
+    """Index of the first non-NaN element, or ``size`` if all NaN."""
+    valid = _isvalid(x)
+    first = valid.to(torch.int8).argmax(-1)
+    return torch.where(valid.any(-1), first, x.shape[-1])
+
+
+def last_not_nan_loc(x: torch.Tensor) -> torch.Tensor:
+    """Index of the last non-NaN element, or -1 if all NaN."""
+    valid = _isvalid(x)
+    rev = valid.flip(-1).to(torch.int8).argmax(-1)
+    return torch.where(valid.any(-1), x.shape[-1] - 1 - rev, -1)
+
+
+# ---------------------------------------------------------------------------
+# Correlation
+# ---------------------------------------------------------------------------
+
+
+def autocorr(x: torch.Tensor, num_lags: int) -> torch.Tensor:
+    """Sample autocorrelation at lags ``1..num_lags`` -> ``[num_lags]``.
+
+    r_k = sum_{t=k}^{n-1} (x_t - m)(x_{t-k} - m) / sum_t (x_t - m)^2, over
+    the valid (non-NaN) entries; the denominator uses the full valid sample.
+    """
+    n_t = x.shape[-1]
+    if not 0 < num_lags < n_t:
+        raise ValueError(
+            f"num_lags must be in (0, series length {n_t}), got {num_lags}")
+    valid = _isvalid(x)
+    n = valid.sum(-1, keepdim=True)
+    mean = torch.where(valid, x, 0.0).sum(-1, keepdim=True) \
+        / torch.clamp(n, min=1)
+    d = torch.where(valid, x - mean, 0.0)
+    denom = (d * d).sum(-1)
+    return torch.stack([(d[..., k:] * d[..., :n_t - k]).sum(-1) / denom
+                        for k in range(1, num_lags + 1)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Lags and differences
+# ---------------------------------------------------------------------------
+
+
+def lag(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Shift right by ``k``; the first ``k`` entries become NaN."""
+    n = x.shape[-1]
+    if not 0 <= k < n:
+        raise ValueError(f"lag {k} must be in [0, {n}) for series length {n}")
+    if k == 0:
+        return x
+    head = x.new_full((*x.shape[:-1], k), float("nan"))
+    return torch.cat([head, x[..., :-k]], dim=-1)
+
+
+def lags(x: torch.Tensor, max_lag: int,
+         include_original: bool = True) -> torch.Tensor:
+    """Lagged copies as columns -> ``[time, max_lag (+1)]``: the original
+    first (if included), then lag 1, lag 2, ..."""
+    cols = (([x] if include_original else [])
+            + [lag(x, k) for k in range(1, max_lag + 1)])
+    return torch.stack(cols, dim=-1)
+
+
+def differences_at_lag(x: torch.Tensor, k: int) -> torch.Tensor:
+    """``out[t] = x[t] - x[t-k]``; the first ``k`` entries are NaN."""
+    return x - lag(x, k)
+
+
+def differences_of_order(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Order-``d`` differencing (d lag-1 differences); the first ``d``
+    entries are NaN."""
+    for _ in range(d):
+        x = differences_at_lag(x, 1)
+    return x
+
+
+def quotients(x: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """``out[t] = x[t] / x[t-k]``; the first ``k`` entries are NaN."""
+    return x / lag(x, k)
+
+
+def price2ret(x: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """Simple returns ``x[t] / x[t-k] - 1``; the first ``k`` entries NaN."""
+    return quotients(x, k) - 1.0
+
+
+# ---------------------------------------------------------------------------
+# Fill family
+# ---------------------------------------------------------------------------
+
+
+def fill_value(x: torch.Tensor, value) -> torch.Tensor:
+    """Replace every NaN with ``value``."""
+    return torch.where(_isvalid(x), x,
+                       torch.as_tensor(value, dtype=x.dtype, device=x.device))
+
+
+def fill_with_default(x: torch.Tensor, default=0.0) -> torch.Tensor:
+    return fill_value(x, default)
+
+
+def _prev_valid_idx(valid: torch.Tensor) -> torch.Tensor:
+    """For each t, the index of the latest valid position <= t, or -1."""
+    t = torch.arange(valid.shape[-1], device=valid.device)
+    return torch.cummax(torch.where(valid, t, -1), dim=-1).values
+
+
+def _next_valid_idx(valid: torch.Tensor) -> torch.Tensor:
+    """For each t, the index of the earliest valid position >= t, or size."""
+    n = valid.shape[-1]
+    t = torch.arange(n, device=valid.device)
+    cand = torch.where(valid, t, n).flip(-1)
+    return torch.cummin(cand, dim=-1).values.flip(-1)
+
+
+def _carry_valid_vals(valid, x, reverse: bool = False):
+    """-> (value, seen): the value of the nearest valid position at-or-before
+    t (``reverse=False``) or at-or-after t (``reverse=True``), 0.0 where
+    there is none, and whether one exists on that side.  Values pass
+    through ``nan_to_num`` as in the reference."""
+    n = x.shape[-1]
+    idx = _next_valid_idx(valid) if reverse else _prev_valid_idx(valid)
+    seen = (idx < n) if reverse else (idx >= 0)
+    vals = torch.where(valid, torch.nan_to_num(x), 0.0)
+    got = torch.gather(vals, -1, torch.clamp(idx, 0, n - 1))
+    return torch.where(seen, got, 0.0), seen
+
+
+def fill_previous(x: torch.Tensor) -> torch.Tensor:
+    """Forward fill (last observation carried forward); leading NaNs
+    remain."""
+    prev_val, seen = _carry_valid_vals(_isvalid(x), x)
+    return torch.where(seen, prev_val, float("nan"))
+
+
+def fill_next(x: torch.Tensor) -> torch.Tensor:
+    """Backward fill (next observation carried backward); trailing NaNs
+    remain."""
+    next_val, seen = _carry_valid_vals(_isvalid(x), x, reverse=True)
+    return torch.where(seen, next_val, float("nan"))
+
+
+def fill_nearest(x: torch.Tensor) -> torch.Tensor:
+    """Fill each NaN with the nearest valid value (ties -> previous)."""
+    valid = _isvalid(x)
+    n = x.shape[-1]
+    t = torch.arange(n, device=x.device)
+    ip = _prev_valid_idx(valid)
+    inx = _next_valid_idx(valid)
+    dp = torch.where(ip >= 0, t - ip, n + 1)
+    dn = torch.where(inx < n, inx - t, n + 1)
+    prev_val, _ = _carry_valid_vals(valid, x)
+    next_val, _ = _carry_valid_vals(valid, x, reverse=True)
+    filled = torch.where(dp <= dn, prev_val, next_val)
+    any_side = (ip >= 0) | (inx < n)
+    return torch.where(valid, x,
+                       torch.where(any_side, filled, float("nan")))
+
+
+def fill_linear(x: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation across interior NaN gaps; edge NaNs remain."""
+    valid = _isvalid(x)
+    n = x.shape[-1]
+    t = torch.arange(n, device=x.device)
+    ip = _prev_valid_idx(valid)
+    inx = _next_valid_idx(valid)
+    interior = (ip >= 0) & (inx < n)
+    ip_c = torch.clamp(ip, min=0)
+    in_c = torch.clamp(inx, max=n - 1)
+    span = torch.clamp(in_c - ip_c, min=1).to(x.dtype)
+    w = (t - ip_c).to(x.dtype) / span
+    prev_val, _ = _carry_valid_vals(valid, x)
+    next_val, _ = _carry_valid_vals(valid, x, reverse=True)
+    interp = prev_val * (1.0 - w) + next_val * w
+    return torch.where(valid, x,
+                       torch.where(interior, interp, float("nan")))
+
+
+_FILLS: dict = {
+    "value": None,  # needs an argument; handled in fillts
+    "previous": fill_previous,
+    "next": fill_next,
+    "nearest": fill_nearest,
+    "linear": fill_linear,
+    "spline": None,  # not ported yet
+    "zero": lambda x: fill_value(x, 0.0),
+}
+
+
+def fillts(x: torch.Tensor, method: str, value=None) -> torch.Tensor:
+    """Dispatch on the fill-method name (``UnivariateTimeSeries.fillts``)."""
+    if method == "value":
+        if value is None:
+            raise ValueError("fill method 'value' requires a value")
+        return fill_value(x, value)
+    if method not in _FILLS:
+        raise ValueError(f"unknown fill method {method!r}; options: "
+                         f"{sorted(_FILLS)}")
+    if method == "spline":
+        raise NotImplementedError(
+            "fill_spline is not ported yet (ROADMAP.md queue 1); use "
+            "spark_timeseries_tpu")
+    return _FILLS[method](x)
+
+
+# ---------------------------------------------------------------------------
+# Batched (panel) variants: the kernel dispatch
+# ---------------------------------------------------------------------------
+
+
+def batched(fn: Callable, *static_args, **static_kwargs) -> Callable:
+    """Lift a ``[time] -> ...`` function to ``[keys, time] -> ...``."""
+    return torch.vmap(lambda v: fn(v, *static_args, **static_kwargs))
+
+
+def _as_panel(panel):
+    if isinstance(panel, (torch.Tensor, FoldedPanel)):
+        return panel
+    return torch.as_tensor(panel)
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r} (one of {BACKENDS})")
+
+
+def _use_kernel(backend: str, x: torch.Tensor, structural_ok: bool = True):
+    return resolve_backend(backend, x, structural_ok) == "cuda"
+
+
+def batch_autocorr(num_lags: int, backend: str = "auto") -> Callable:
+    """``[keys, time] -> [keys, num_lags]`` autocorrelation.
+
+    The CUDA kernel (``cuda_kernels.batch_autocorr``) runs for a float32
+    panel on the card with ``0 < num_lags < min(T, 1024)``; elsewhere the
+    plain :func:`autocorr` does.  A resident :class:`~.layout.FoldedPanel`
+    goes to the kernel with no layout conversion.
+    """
+    _check_backend(backend)
+
+    def run(panel):
+        panel = _as_panel(panel)
+        if isinstance(panel, FoldedPanel):
+            if _use_kernel(backend, panel.data,
+                           ck.autocorr_structural_ok(num_lags, panel.t)):
+                return ck.batch_autocorr_folded(panel, num_lags)
+            return autocorr(unfold_panel(panel), num_lags)
+        if panel.ndim == 2 and _use_kernel(
+                backend, panel,
+                ck.autocorr_structural_ok(num_lags, panel.shape[1])):
+            return ck.batch_autocorr(panel, num_lags)
+        return autocorr(panel, num_lags)
+
+    return run
+
+
+def batch_fill(method: str, backend: str = "auto") -> Callable:
+    """``[keys, time] -> [keys, time]`` fill; the CUDA kernel for
+    ``"linear"`` on a float32 panel on the card."""
+    _check_backend(backend)
+
+    def run(panel):
+        panel = _as_panel(panel)
+        if (method == "linear" and panel.ndim == 2
+                and _use_kernel(backend, panel)):
+            return ck.fill_linear(panel)
+        return fillts(panel, method)
+
+    return run
+
+
+def batch_fill_linear_chain(panel, backend: str = "auto", outputs=None):
+    """fillLinear -> (filled, lag-1 difference, lag-1 shift) on a panel.
+
+    On the kernel path (a float32 panel on the card) one pass computes the
+    chain; elsewhere the plain functions compose it.  ``outputs`` (default
+    all three) selects which results to compute AND return, in order:
+    ``("diff",)`` writes only the difference.  A resident
+    :class:`~.layout.FoldedPanel` input yields folded outputs with no layout
+    conversion.
+    """
+    sel = ck.CHAIN_OUTPUTS if outputs is None else tuple(outputs)
+    if not sel or any(o not in ck.CHAIN_OUTPUTS for o in sel):
+        raise ValueError(f"outputs must be a non-empty subset of "
+                         f"{ck.CHAIN_OUTPUTS}, got {outputs!r}")
+    panel = _as_panel(panel)
+    if isinstance(panel, FoldedPanel):
+        if _use_kernel(backend, panel.data):
+            return ck.fill_linear_chain_folded(panel, sel)
+        nat = batch_fill_linear_chain(unfold_panel(panel), "eager", sel)
+        return tuple(fold_panel(o) for o in nat)
+    if panel.ndim == 2 and _use_kernel(backend, panel):
+        fps = ck.fill_linear_chain_folded(fold_panel(panel), sel)
+        return tuple(fp.data.t() for fp in fps)
+    f = fill_linear(panel)
+    by_name = {
+        "filled": lambda: f,
+        "diff": lambda: differences_at_lag(f, 1),
+        "lag": lambda: lag(f, 1),
+    }
+    return tuple(by_name[o]() for o in sel)

@@ -272,7 +272,7 @@ def test_entry_step_on_cpu():
 
 def test_seasonal_and_unknown_method_raise():
     y = _arma_panel(2, 50, d_int=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         tarima.fit(y, (1, 1, 1), seasonal=(1, 0, 0, 4), device="cpu")
     with pytest.raises(ValueError):
         tarima.fit(y, (1, 1, 1), method="newton", device="cpu")

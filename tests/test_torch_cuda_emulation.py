@@ -1,0 +1,222 @@
+"""The CUDA kernels' own source, run on the CPU against the plain versions.
+
+A host without ``nvcc`` cannot build ``spark_timeseries_tpu_torch/csrc``
+for the card, but the kernels use no shared memory, barriers or atomics,
+so g++ compiles the same source against a small header that defines the
+CUDA names it uses, with every launch a loop over blocks and threads.  Each
+kernel, loaded with ctypes through the wrappers of ``ops.cuda_kernels``,
+is then held against its plain PyTorch version on the same inputs.  This
+checks the kernels' logic (indexing, masks, modes, ring capacities);
+``chip_smoke.py`` checks the code ``nvcc`` builds on the card.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from spark_timeseries_tpu_torch.ops import _build
+from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+_HEADER = r"""
+#pragma once
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+using std::isnan;
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() {}
+  dim3(unsigned a) : x(a) {}
+};
+inline dim3 blockIdx, threadIdx, blockDim;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return 0; }
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+namespace emu {
+template <class K> struct Launcher {
+  dim3 g;
+  K k;
+  template <class... A> void operator()(A... a) const {
+    blockDim = dim3(256);
+    for (unsigned bx = 0; bx < g.x; ++bx)
+      for (unsigned tx = 0; tx < 256; ++tx) {
+        blockIdx = dim3(bx);
+        threadIdx = dim3(tx);
+        k(a...);
+      }
+  }
+};
+}  // namespace emu
+#define STS_LAUNCH(grid, stream, ...) \
+  ::emu::Launcher<decltype(&__VA_ARGS__)>{(grid), &__VA_ARGS__}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """``{source: ctypes library}`` built by g++ from ``csrc``."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed: the emulated kernels cannot be "
+                    "built")
+    d = tmp_path_factory.mktemp("cuda_emu")
+    (d / "cuda_runtime.h").write_text(_HEADER)
+    jobs = {name: subprocess.Popen(
+        [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         f"-I{d}", "-x", "c++", str(_build.CSRC / f"{name}.cu"), "-o",
+         str(d / f"lib{name}.so")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name in _build.SOURCES}
+    libs = {}
+    for name, proc in jobs.items():
+        out, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, out
+        lib = ctypes.CDLL(str(d / f"lib{name}.so"))
+        for fn, argtypes in _build.SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+@pytest.fixture
+def kernels(emulated, monkeypatch):
+    """Route the wrappers of ``ops.cuda_kernels`` to the emulated kernels
+    for CPU tensors; returns the launch counter."""
+    def launch(lib_name, fn, counter, device, *args):
+        assert getattr(emulated[lib_name], fn)(*args, None) == 0
+        ck.LAUNCHES[counter] += 1
+
+    monkeypatch.setattr(ck, "_on_cuda", lambda device: True)
+    monkeypatch.setattr(ck, "_launch", launch)
+    ck.reset_launch_counts()
+    yield ck.LAUNCHES
+    ck.reset_launch_counts()
+
+
+def _close(got, ref, rtol=1e-5):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert np.array_equal(np.isnan(got), np.isnan(ref))
+    ok = ~np.isnan(ref)
+    scale = max(1.0, float(np.abs(ref[ok]).max()) if ok.any() else 0.0)
+    err = float(np.abs(got[ok] - ref[ok]).max()) if ok.any() else 0.0
+    assert err <= rtol * scale, (err, scale)
+
+
+def _ragged(t, b, seed, gap=0.1):
+    """Time-major random walks with NaN gaps and the edge rows: a leading
+    run, a trailing run, all-NaN, constant, one valid value."""
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn(t, b, generator=g).cumsum(0)
+    y[torch.rand(t, b, generator=g) < gap] = float("nan")
+    y[:7, 0] = float("nan")
+    y[-5:, 1] = float("nan")
+    y[:, 2] = float("nan")
+    y[:, 3] = 4.0
+    y[:, 4] = float("nan")
+    y[t // 2, 4] = 1.0
+    return y.contiguous()
+
+
+@pytest.mark.parametrize("t,b", [(1, 9), (2, 9), (37, 300), (513, 70)])
+@pytest.mark.parametrize("which", [(True, True, True), (False, True, False),
+                                   (True, False, True), (False, False, True)])
+def test_fill_chain_source(kernels, t, b, which):
+    y = _ragged(t, b, seed=t)
+    ref = ck.fill_chain_plain(y, which)
+    got = ck.fill_chain(y, which)
+    assert kernels["fill_chain"] == 1
+    for g, r in zip(got, ref):  # the same bits: _rn intrinsics throughout
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("nl", [1, 2, 7, 20, 32, 33, 40])
+def test_autocorr_source(kernels, nl):
+    y = _ragged(300, 130, seed=nl)
+    got = ck.autocorr(y, nl)
+    assert kernels["autocorr"] == 1
+    _close(got, ck.autocorr_plain(y, nl))
+
+
+def _garch_inputs(t, b, seed):
+    g = torch.Generator().manual_seed(seed)
+    r = torch.randn(t, b, generator=g)
+    zb = torch.randint(0, max(t // 2, 1), (b,), generator=g).float()
+    zb[0], zb[1] = 0.0, t + 1.0
+    r[torch.arange(t)[:, None] < zb[None, :]] = 0.0
+    par = torch.stack([torch.rand(b, generator=g) * 0.2 + 0.01,
+                       torch.rand(b, generator=g) * 0.2,
+                       torch.rand(b, generator=g) * 0.7], 1).contiguous()
+    return r, par, torch.rand(b, generator=g) + 0.5, zb
+
+
+@pytest.mark.parametrize("t", [1, 45, 300])
+def test_garch_fwd_source(kernels, t):
+    r, par, h0, zb = _garch_inputs(t, 270, seed=t)
+    for mode in ("e", "sum", "last"):
+        _close(ck.garch_fwd(r, par, h0, zb, mode),
+               ck.garch_fwd_plain(r, par, h0, zb, mode))
+    h, s = ck.garch_fwd(r, par, h0, zb, "both")
+    assert torch.equal(s, ck.garch_fwd(r, par, h0, zb, "sum"))
+    assert torch.equal(h, ck.garch_fwd(r, par, h0, zb, "e"))
+    assert kernels["garch_fwd"] == 6
+
+
+@pytest.mark.parametrize("t", [1, 45, 300])
+@pytest.mark.parametrize("cotangent", ["per-series", "panel"])
+@pytest.mark.parametrize("want_gr", [False, True])
+def test_garch_bwd_source(kernels, t, cotangent, want_gr):
+    r, par, h0, zb = _garch_inputs(t, 270, seed=t + 1)
+    h = ck.garch_fwd_plain(r, par, h0, zb, "e")
+    g = torch.Generator().manual_seed(t)
+    cot = (torch.rand(270, generator=g) if cotangent == "per-series"
+           else torch.randn(t, 270, generator=g))
+    got = ck.garch_bwd(r, par, h0, zb, h, cot, want_gr)
+    ref = ck.garch_bwd_plain(r, par, h0, zb, h, cot, want_gr)
+    assert kernels["garch_bwd"] == 1
+    assert (got[2] is None) == (not want_gr)
+    for a, e in zip(got, ref):
+        if e is not None:
+            _close(a, e)
+
+
+@pytest.mark.parametrize("p,q", [(1, 1), (3, 2), (0, 2), (10, 3)])
+def test_css_sources(kernels, p, q):
+    # the slice-1 kernels through the same emulation: register rings and
+    # the local-memory rings past 8 lags
+    b, t = 130, 90
+    g = torch.Generator().manual_seed(p * 10 + q)
+    yt = torch.randn(t, b, generator=g)
+    zb = torch.randint(p, t // 2, (b,), generator=g).float()
+    params = (0.2 * torch.randn(b, 1 + p + q, generator=g)).contiguous()
+    for mode in ("e", "sum", "tail"):
+        _close(ck.css_fwd(yt, params, zb, p, q, mode),
+               ck.css_fwd_plain(yt, params, zb, p, q, mode))
+    e = ck.css_fwd_plain(yt, params, zb, p, q, "e")
+    for cot in (torch.rand(b, generator=g), torch.randn(t, b, generator=g)):
+        got = ck.css_bwd(yt, e, params, zb, cot, p, q, True)
+        ref = ck.css_bwd_plain(yt, e, params, zb, cot, p, q, True)
+        for a, r in zip(got, ref):
+            _close(a, r)
+    m = 3
+    _close(ck.hr_moments(yt, zb, m, 0, True, m),
+           ck.hr_moments_plain(yt, zb, m, 0, True, m))
+    if p <= 8:
+        beta = (0.2 * torch.randn(b, m + 1, generator=g)).contiguous()
+        _close(ck.hr_moments(yt, zb, p, q, True, m + q, m, beta),
+               ck.hr_moments_plain(yt, zb, p, q, True, m + q, m, beta))
+    assert kernels["css_fwd"] == 3 and kernels["css_bwd"] == 2

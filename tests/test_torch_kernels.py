@@ -1,4 +1,6 @@
-"""The PyTorch port's kernel module against the JAX package.
+"""The PyTorch port's kernel module against the JAX package (the CSS,
+Hannan-Rissanen and GARCH kernels; the transforms' kernels are in
+``test_torch_transforms.py``).
 
 On the CPU each wrapper of ``spark_timeseries_tpu_torch.ops.cuda_kernels``
 runs its kernel's plain PyTorch version (same arithmetic, same summation
@@ -15,9 +17,11 @@ import pytest
 import torch
 
 from spark_timeseries_tpu.models import arima as jarima
+from spark_timeseries_tpu.models import garch as jgarch
 from spark_timeseries_tpu.ops import pallas_kernels as pk
 from spark_timeseries_tpu.utils import linalg as jlinalg
 from spark_timeseries_tpu_torch.models import arima as tarima
+from spark_timeseries_tpu_torch.models import garch as tgarch
 from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
 from spark_timeseries_tpu_torch.ops import layout
 from spark_timeseries_tpu_torch.utils import linalg as tlinalg
@@ -36,7 +40,7 @@ def _arma_panel(b, t, phi=0.6, theta=0.3, d_int=False, seed=0):
 
 
 def _t(x, dtype=torch.float32):
-    return torch.as_tensor(np.asarray(x)).to(dtype)
+    return torch.as_tensor(np.array(x)).to(dtype)
 
 
 ORDERS = [(1, 0, 1), (2, 0, 1), (1, 0, 0), (0, 0, 2)]
@@ -284,6 +288,31 @@ def test_wrappers_reject_bad_arguments(bad):
         yt = torch.zeros(b, t).t()
     with pytest.raises((TypeError, ValueError)):
         ck.css_fwd(yt, params, zb, 1, 1, "sum")
+    with pytest.raises((TypeError, ValueError)):
+        ck.garch_fwd(yt, params, zb, zb, "sum")
+    with pytest.raises((TypeError, ValueError)):
+        ck.garch_bwd(yt, params, zb, zb, torch.zeros(t, b), zb)
+    if bad != "shape":
+        with pytest.raises((TypeError, ValueError)):
+            ck.fill_chain(yt)
+        with pytest.raises((TypeError, ValueError)):
+            ck.autocorr(yt, 2)
+
+
+def test_new_wrappers_reject_bad_modes_and_shapes():
+    yt = torch.zeros(10, 4)
+    with pytest.raises(ValueError):
+        ck.garch_fwd(yt, torch.zeros(4, 3), torch.zeros(4), torch.zeros(4),
+                     "tail")
+    with pytest.raises(ValueError):
+        ck.fill_chain(yt, (False, False, False))
+    with pytest.raises(ValueError):
+        ck.fill_chain(torch.zeros(10))
+    with pytest.raises(ValueError):
+        ck.autocorr(yt, 10)
+    with pytest.raises(ValueError):  # a [T, B] cotangent of the wrong shape
+        ck.garch_bwd(yt, torch.zeros(4, 3), torch.zeros(4), torch.zeros(4),
+                     yt, torch.zeros(9, 4))
 
 
 def test_launch_counts_only_move_on_the_card():
@@ -292,4 +321,177 @@ def test_launch_counts_only_move_on_the_card():
     yt = torch.randn(20, 3)
     ck.css_fwd(yt, torch.zeros(3, 3), torch.ones(3), 1, 1, "sum")
     ck.hr_moments(yt, torch.zeros(3), 2, 0, True, 2)
-    assert ck.LAUNCHES == {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0}
+    ck.fill_chain(yt)
+    ck.autocorr(yt, 3)
+    par = torch.tensor([[0.1, 0.1, 0.8]] * 3)
+    h, _ = ck.garch_fwd(yt, par, torch.ones(3), torch.zeros(3), "both")
+    ck.garch_bwd(yt, par, torch.ones(3), torch.zeros(3), h, torch.ones(3),
+                 True)
+    assert ck.LAUNCHES == {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0,
+                           "fill_chain": 0, "autocorr": 0, "garch_fwd": 0,
+                           "garch_bwd": 0}
+
+
+# -- GARCH(1,1) kernels -------------------------------------------------------
+
+
+def _returns(b, t, seed):
+    rng = np.random.default_rng(seed)
+    return rng.normal(scale=0.5, size=(b, t)).astype(np.float32)
+
+
+def _garch_params(b, seed):
+    rng = np.random.default_rng(seed)
+    return np.column_stack([rng.uniform(0.01, 0.2, b),
+                            rng.uniform(0.05, 0.2, b),
+                            rng.uniform(0.5, 0.8, b)]).astype(np.float32)
+
+
+def _prefix_zeroed(r, nv):
+    t = r.shape[1]
+    return np.where(np.arange(t)[None, :] >= (t - nv)[:, None], r, 0.0
+                    ).astype(np.float32)
+
+
+def _jax_nll_scan(P, rz, nv):
+    return jax.vmap(lambda pr, rv, n: jgarch.neg_log_likelihood(pr, rv, n))(
+        P, rz, nv)
+
+
+@pytest.mark.parametrize("t", [47, 2100])
+def test_garch_neg_loglik_matches_reference(t):
+    b = 5
+    nv = np.array([t, t - 4, t, t - 9, t - 1], np.int32)
+    if t > 1024:
+        nv[1] = t - 1200  # the start sits past the first 1024-step chunk
+    rz = _prefix_zeroed(_returns(b, t, 11), nv)
+    params = _garch_params(b, 12)
+    ref = _jax_nll_scan(jnp.asarray(params), jnp.asarray(rz), jnp.asarray(nv))
+    got = ck.garch_neg_loglik(_t(params), _t(rz), _t(nv, torch.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
+    if t < 1024:  # the Pallas kernel in interpret mode, at a short length
+        ref_pallas = pk.garch_neg_loglik(jnp.asarray(params), jnp.asarray(rz),
+                                         jnp.asarray(nv), interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref_pallas),
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("t", [37, 2100])
+def test_garch_variances_match_reference(t):
+    b = 4
+    nv = np.array([t, t - 5, t, t - 2], np.int32)
+    r = _returns(b, t, 7)
+    params = np.tile([[0.1, 0.15, 0.7]], (b, 1)).astype(np.float32)
+    start = (t - nv).astype(np.float32)
+    rz = _prefix_zeroed(r, nv)
+    h0 = np.asarray(jax.vmap(jgarch._masked_var)(jnp.asarray(r),
+                                                 jnp.asarray(nv)))
+    ref = jax.vmap(lambda pr, rv, n: jgarch.variances(pr, rv, n))(
+        jnp.asarray(params), jnp.asarray(r), jnp.asarray(nv))
+    got = ck.garch_variances(_t(params), _t(rz), _t(h0), _t(start))
+    mask = np.arange(t)[None, :] >= start[:, None]
+    np.testing.assert_allclose(np.where(mask, got.numpy(), 0.0),
+                               np.where(mask, np.asarray(ref), 0.0),
+                               rtol=1e-5, atol=1e-6)
+    if t < 1024:
+        ref_pallas = pk.garch_variances(jnp.asarray(params), jnp.asarray(rz),
+                                        jnp.asarray(h0), jnp.asarray(start),
+                                        interpret=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref_pallas),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_garch_sum_and_both_bitwise():
+    # the optimizer compares f across the value-only and variance-saving
+    # passes, so they must agree bit for bit
+    b, t = 6, 300
+    rt = _t(_returns(b, t, 3).T.copy())
+    zb = _t(np.array([0, 5, 0, 40, 299, 301], np.float32))
+    rt[torch.arange(t)[:, None] < zb[None, :]] = 0.0
+    params = _t(_garch_params(b, 4))
+    h0 = _t(np.full(b, 0.3, np.float32))
+    s = ck.garch_fwd(rt, params, h0, zb, "sum")
+    h, s2 = ck.garch_fwd(rt, params, h0, zb, "both")
+    assert torch.equal(s, s2)
+    assert torch.equal(h, ck.garch_fwd(rt, params, h0, zb, "e"))
+    assert torch.equal(h[-1], ck.garch_fwd(rt, params, h0, zb, "last"))
+
+
+@pytest.mark.parametrize("t", [39, 2100])
+def test_garch_param_gradient_matches_jax_grad(t):
+    b = 4
+    nv = np.array([t, t - 5, t - 2, t], np.int32)
+    rz = _prefix_zeroed(_returns(b, t, 13), nv)
+    params = _garch_params(b, 14)
+    g_ref = jax.grad(lambda P: jnp.sum(_jax_nll_scan(
+        P, jnp.asarray(rz), jnp.asarray(nv))))(jnp.asarray(params))
+    P = _t(params).requires_grad_(True)
+    ck.garch_neg_loglik(P, _t(rz), _t(nv, torch.int32)).sum().backward()
+    np.testing.assert_allclose(P.grad.numpy(), np.asarray(g_ref), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_garch_variances_vjp_matches_reference_kernel():
+    # the [T, B] cotangent entry of the adjoint, with gradients to the
+    # parameters, the returns and the start variance
+    b, t = 4, 33
+    nv = np.array([t, t - 6, t, t - 1], np.int32)
+    rz = _prefix_zeroed(_returns(b, t, 21), nv)
+    params = _garch_params(b, 22)
+    h0 = np.random.default_rng(23).uniform(0.2, 0.4, b).astype(np.float32)
+    start = (t - nv).astype(np.float32)
+    w = np.random.default_rng(24).normal(size=(b, t)).astype(np.float32)
+
+    def loss(P, R, H0):
+        return jnp.sum(jnp.asarray(w) * pk.garch_variances(
+            P, R, H0, jnp.asarray(start), interpret=True))
+
+    refs = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(params), jnp.asarray(rz), jnp.asarray(h0))
+    P, R, H0 = (_t(a).requires_grad_(True) for a in (params, rz, h0))
+    (_t(w) * ck.garch_variances(P, R, H0, _t(start))).sum().backward()
+    for got, ref in zip((P.grad, R.grad, H0.grad), refs):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("t", [45, 2100])
+def test_argarch_objective_gradient_matches_jax_grad(t):
+    """The returns and h0 cotangents of the adjoint: the AR(1) mean reaches
+    the variance recursion through the residuals and the variance seed."""
+    b = 4
+    pars_nat = np.tile([[0.05, 0.4, 0.02, 0.1, 0.7]], (b, 1))
+    y = np.asarray(jax.vmap(lambda pr, k: jgarch.argarch_sample(pr, k, t))(
+        jnp.asarray(pars_nat, jnp.float32),
+        jax.random.split(jax.random.PRNGKey(0), b))).astype(np.float32)
+    nv = np.array([t, t - 3, t, t - 7], np.int32)
+    start = (t - nv)[:, None]
+    ti = np.arange(t)[None, :]
+    ya = np.where(ti >= start, y, 0.0).astype(np.float32)
+    u = (np.random.default_rng(15).normal(scale=0.3, size=(b, 5))
+         ).astype(np.float32)
+
+    def loss_scan(U):
+        nat = jax.vmap(jgarch._argarch_to_natural)(U)
+        return jnp.sum(jax.vmap(
+            lambda pr, yv, n: jgarch.argarch_neg_log_likelihood(pr, yv, n))(
+            nat, jnp.asarray(ya), jnp.asarray(nv)))
+
+    def loss_port(U):
+        nat = tgarch._argarch_to_natural(U)
+        Y = _t(ya)
+        prev = torch.cat([Y[:, :1], Y[:, :-1]], dim=1)
+        r = Y - nat[:, 0:1] - nat[:, 1:2] * prev
+        r = torch.where(_t(ti <= start, torch.bool), 0.0, r)
+        return ck.garch_neg_loglik(nat[:, 2:].contiguous(), r,
+                                   _t(nv - 1, torch.int32)).sum()
+
+    U = _t(u).requires_grad_(True)
+    val = loss_port(U)
+    np.testing.assert_allclose(float(val.detach()),
+                               float(loss_scan(jnp.asarray(u))),
+                               rtol=1e-5)
+    val.backward()
+    g_ref = jax.grad(loss_scan)(jnp.asarray(u))
+    np.testing.assert_allclose(U.grad.numpy(), np.asarray(g_ref), rtol=1e-4,
+                               atol=1e-4)
