@@ -6,12 +6,15 @@
 Phases; each failure makes the script exit non-zero with no result line:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the CUDA kernels from the five sources in
+2. build the CUDA kernels from the seven sources in
    ``spark_timeseries_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once) and print the build seconds;
-3. hold each of the seven kernels against its plain PyTorch version on the
+   once) and print the build seconds and each source's registers, stack
+   frames and spills (per instantiation for the Holt-Winters kernels);
+3. hold each of the eleven kernels against its plain PyTorch version on the
    card, at B = 65,537 x T = 1,000 and B = 4,097 x T = 3,000 (ragged
-   panels; for the transforms also all-NaN, constant and trailing-NaN rows);
+   panels; for the transforms also all-NaN, constant and trailing-NaN rows;
+   for the smoothing kernels a never-live row, a row shorter than two
+   seasons and the register-ring and global-ring Holt-Winters routes);
 4. drive the ARIMA path: ``arima.fit`` of a 1,000,000 x 1,000 float32
    ARIMA(1,1,1) panel (the BASELINE.json headline) built on the card from a
    seeded generator, then ``arima.forecast(..., 30)``, with the kernel
@@ -25,9 +28,19 @@ Phases; each failure makes the script exit non-zero with no result line:
    ``garch.fit_argarch``; check the estimates against the generating
    parameters and the kernel path against the eager path on a 4,096-row
    slice; profile a warm GARCH fit;
-6. time each kernel at its path's shape with CUDA events, beside its plain
+6. drive the hourly path the same way (BASELINE config 5): a 1,000,000 x
+   960 ragged hourly panel drawn from additive Holt-Winters (period 24),
+   then ``ewma.fit`` + ``ewma.forecast(..., 48)``, ``holtwinters.fit``
+   (additive) + ``holtwinters.forecast(..., 48)`` and the multiplicative
+   fit of the first 100,000 rows (three seeded starts); check the estimates
+   against the generating parameters and the kernel path against the eager
+   path on 2,048 rows (1,024 rows and one start for the multiplicative
+   fit); fit SES on a local-level panel whose optimum alpha is interior
+   (both backends); profile a warm additive fit;
+7. time each kernel at its path's shape with CUDA events, beside its plain
    version and its bound (bytes over 3.35 TB/s, flops over the float32
-   rate, whichever is larger).
+   rate, whichever is larger); at the hourly path's shape first hold every
+   smoothing-kernel variant that path runs against its plain version.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -36,6 +49,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -46,6 +60,7 @@ import torch
 
 ROWS, TIME = 1_000_000, 1_000  # the ARIMA path's panel
 VOL_ROWS, VOL_TIME = 100_000, 2_520  # the volatility pipeline's panel
+HOURLY_ROWS, HOURLY_TIME = 1_000_000, 960  # the hourly path's panel
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
@@ -53,11 +68,12 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # of the plain result (NaNs must sit at the same places).  The two differ
 # only in rounding: the kernels' fused multiply-adds against PyTorch's
 # separate multiply and add, over sums of up to T terms.  The fill chain
-# rounds every operation as PyTorch does (_rn intrinsics), so it is held
-# tighter.
+# and the smoothing kernels round every operation as PyTorch does (_rn
+# intrinsics), so they are held tighter.
 TOL = {"css_fwd": 1e-5, "css_bwd": 1e-5, "hr_moments": 1e-5,
        "fill_chain": 1e-6, "autocorr": 1e-5, "garch_fwd": 1e-5,
-       "garch_bwd": 1e-5}
+       "garch_bwd": 1e-5, "ewma_fwd": 1e-6, "ewma_bwd": 1e-6,
+       "hw_fwd": 1e-6, "hw_bwd": 1e-6}
 
 _PK = "spark_timeseries_tpu/ops/pallas_kernels.py"
 REPLACES = {
@@ -68,6 +84,10 @@ REPLACES = {
     "autocorr": f"{_PK}:2004",
     "garch_fwd": f"{_PK}:716",
     "garch_bwd": f"{_PK}:769",
+    "ewma_fwd": f"{_PK}:1016",
+    "ewma_bwd": f"{_PK}:1062",
+    "hw_fwd": f"{_PK}:1328",
+    "hw_bwd": f"{_PK}:1387",
 }
 _CSRC = "spark_timeseries_tpu_torch/csrc"
 SOURCES = {
@@ -78,6 +98,10 @@ SOURCES = {
     "autocorr": f"{_CSRC}/autocorr.cu",
     "garch_fwd": f"{_CSRC}/garch.cu",
     "garch_bwd": f"{_CSRC}/garch.cu",
+    "ewma_fwd": f"{_CSRC}/ewma.cu",
+    "ewma_bwd": f"{_CSRC}/ewma.cu",
+    "hw_fwd": f"{_CSRC}/hw.cu",
+    "hw_bwd": f"{_CSRC}/hw.cu",
 }
 
 
@@ -110,14 +134,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
 
 def rel_err(got, ref) -> tuple[float, float]:
     """(max abs error, max abs error / max(1, max |ref|)) over the entries
-    where ``ref`` is not NaN; infinite when the NaNs do not match."""
-    got, ref = got.double(), ref.double()
-    nan = torch.isnan(ref)
-    if not torch.equal(torch.isnan(got), nan):
+    where ``ref`` is not NaN; infinite when the NaNs do not match.  Walks
+    the tensors in pieces of 2^26 elements: a [960, 1M] panel in float64
+    would take 7.7 GB a copy."""
+    if got.shape != ref.shape:
         return float("inf"), float("inf")
-    got, ref = got[~nan], ref[~nan]
-    err = float((got - ref).abs().max()) if ref.numel() else 0.0
-    scale = max(1.0, float(ref.abs().max()) if ref.numel() else 0.0)
+    err, scale = 0.0, 1.0
+    for g, r in zip(got.reshape(-1).split(1 << 26),
+                    ref.reshape(-1).split(1 << 26)):
+        if not r.numel():
+            continue
+        g, r = g.double(), r.double()
+        nan = torch.isnan(r)
+        if not torch.equal(torch.isnan(g), nan):
+            return float("inf"), float("inf")
+        e = float((g - r).masked_fill_(nan, 0.0).abs().max())
+        if not math.isfinite(e):  # an infinity on either side
+            return float("inf"), float("inf")
+        err = max(err, e)
+        scale = max(scale, float(r.abs().masked_fill_(nan, 0.0).max()))
     return err, err / scale
 
 
@@ -551,7 +586,7 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
 
     rows, t = pipe["rows"], pipe["time"]
-    log(f"phase 6: volatility kernel times at the pipeline's shape [T, B] = "
+    log(f"phase 7: volatility kernel times at the pipeline's shape [T, B] = "
         f"[{t}, {rows}]")
     yt = _ragged_prices(rows, t, seed=1, device=device)
     B, n_el, f = rows, t * rows, 4
@@ -650,6 +685,419 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     return out
 
 
+def _seasonal_rows(b: int, t: int, seed: int, device):
+    """A positive hourly panel (level, trend, a daily sine of random
+    amplitude and phase, unit noise), aligned as the fits align it ->
+    ``(ya [B, T], nv)``: the valid span right-aligned, the prefix zeroed.
+    Starts are ragged; row 0 is all NaN (never live), row 1 forty hours
+    long (shorter than two days: clamped seed windows), row 2 dense."""
+    from spark_timeseries_tpu_torch.models import base
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+        b, 1, generator=gen, device=device)
+    tt = torch.arange(t, device=device, dtype=torch.float32)[None, :]
+    y = (u(400.0, 600.0) + u(-0.02, 0.02) * tt
+         + u(10.0, 50.0) * torch.sin(2 * math.pi * tt / 24 + u(0.0, 6.3))
+         + torch.randn(b, t, generator=gen, device=device))
+    nv = torch.randint(t // 2, t + 1, (b,), generator=gen, device=device)
+    nv[0], nv[1], nv[2] = 0, 40, t
+    y.masked_fill_(tt < (t - nv)[:, None], float("nan"))
+    return base.align_right(y)
+
+
+def _local_level_rows(b: int, t: int, seed: int, device):
+    """``([B, T] panel, optimal SES alpha)``: a random-walk level (steps of
+    sd 0.5) plus unit noise around 100, ragged like the hourly panel
+    (leading NaN runs of 0 to 28 % of T)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    q = 0.25  # level variance over noise variance
+    y = (100.0 + (q ** 0.5 * torch.randn(b, t, generator=gen, device=device)
+                  ).cumsum(1)
+         + torch.randn(b, t, generator=gen, device=device))
+    nv = torch.randint(t * 700 // 960, t + 1, (b,), generator=gen,
+                       device=device)
+    tt = torch.arange(t, device=device)[None, :]
+    y.masked_fill_(tt < (t - nv)[:, None], float("nan"))
+    return y, ((q * q + 4 * q) ** 0.5 - q) / 2
+
+
+def phase_kernels_smoothing(chk: Checks, device,
+                            shapes=((65_537, 1_000), (4_097, 3_000))):
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.ops import layout
+
+    for i, (b, t) in enumerate(shapes):
+        log(f"phase 3: smoothing kernels vs plain at B={b} T={t}")
+        ya, nv = _seasonal_rows(b, t, seed=b, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(t)
+        # EWMA: every mode, both cotangents, with and without the data's
+        xt, zb = ck.ewma_prefold(ya, nv)
+        alpha = 0.05 + 0.9 * torch.rand(b, generator=gen, device=device)
+        for mode in ("e", "sum"):
+            chk.compare("ewma_fwd", f"mode {mode}",
+                        ck.ewma_fwd(xt, alpha, zb, mode),
+                        ck.ewma_fwd_plain(xt, alpha, zb, mode))
+        s, s_both = ck.ewma_fwd(xt, alpha, zb, "both")
+        chk.require(torch.equal(s_both, ck.ewma_fwd(xt, alpha, zb, "sum")),
+                    "ewma_fwd sum == both bitwise")
+        chk.compare("ewma_fwd", "mode both (smoothed)", s,
+                    ck.ewma_fwd_plain(xt, alpha, zb, "e"))
+        gbar = torch.rand(b, generator=gen, device=device) / t
+        gpan = torch.randn(t, b, generator=gen, device=device)
+        for g, name in ((gbar, "per-series"), (gpan, "[T, B] panel")):
+            for want in (False, True):
+                got = ck.ewma_bwd(xt, s, alpha, zb, g, want)
+                ref = ck.ewma_bwd_plain(xt, s, alpha, zb, g, want)
+                what = f"{name} cotangent{', with gx' if want else ''}"
+                chk.compare("ewma_bwd", f"galpha, {what}", got[0], ref[0])
+                if want:
+                    chk.compare("ewma_bwd", f"gx, {what}", got[1], ref[1])
+        del xt, s, gpan, got, ref
+        # Holt-Winters: both model types on the register-ring route (the
+        # path's period 24, and 7) and the global-ring route (period 10)
+        yt = layout.time_major(ya)
+        for m in ((24, 7, 10) if i == 0 else (24, 10)):
+            route = ("registers" if ck.hw_ring_in_registers(m)
+                     else "global ring")
+            for mult in (False, True):
+                # inside the stable region (alpha + gamma < 1): an
+                # unstable recursion overflows the SSE over 3,000 steps
+                par = (torch.tensor([0.05, 0.01, 0.05], device=device)
+                       + torch.tensor([0.4, 0.3, 0.4], device=device)
+                       * torch.rand(b, 3, generator=gen, device=device))
+                hold_hw(chk, yt, par, ck.hw_seeds(ya, m, mult, nv), m, mult,
+                        gen, f"m={m} {route}, {'mult' if mult else 'add'}")
+        del ya, yt
+        torch.cuda.synchronize()
+
+
+def hold_hw(chk: Checks, yt, par, seeds, m: int, mult: bool, gen,
+            kind: str) -> None:
+    """Both Holt-Winters kernels against their plain versions on one
+    panel: the forward's five save_resid outputs, its value-only SSE
+    bitwise equal to save_resid's, and the adjoint from the per-series and
+    from a [T, B] cotangent."""
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    t, b = yt.shape
+    l0, t0, _, zbh = seeds
+    got = ck.hw_fwd(yt, par, *seeds, m, mult, True)
+    ref = ck.hw_fwd_plain(yt, par, *seeds, m, mult, True)
+    for name, a, r in zip(("e", "L", "T", "S_old", "sse"), got, ref):
+        chk.compare("hw_fwd", f"{name}, {kind}", a, r)
+    del ref
+    chk.require(torch.equal(got[-1], ck.hw_fwd(yt, par, *seeds, m, mult)),
+                f"hw_fwd sum == save_resid bitwise, {kind}")
+    e, lv, tr, so, _ = got
+    del got
+    gbar = torch.rand(b, generator=gen, device=yt.device) / t
+    gpan = torch.randn(t, b, generator=gen, device=yt.device)
+    for g, name in ((gbar, "per-series"), (gpan, "[T, B]")):
+        chk.compare("hw_bwd", f"gparams, {name} cotangent, {kind}",
+                    ck.hw_bwd(yt, par, l0, t0, zbh, lv, tr, so, e, g, m,
+                              mult),
+                    ck.hw_bwd_plain(yt, par, l0, t0, zbh, lv, tr, so, e, g,
+                                    m, mult))
+
+
+def phase_hourly(chk: Checks, rows: int, t: int, device) -> dict:
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch.models import ewma
+    from spark_timeseries_tpu_torch.models import holtwinters as hw
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.reliability import status_counts
+    from spark_timeseries_tpu_torch.utils import optim
+
+    m, horizon = entry.HW_PERIOD, 48
+    n_mult = min(100_000, rows)
+    log(f"phase 6: hourly path on {rows} x {t}: EWMA (SES) and Holt-Winters "
+        f"(period {m}) fit + {horizon}-step forecast")
+    t0 = time.perf_counter()
+    y = entry.gen_hourly_panel(rows, t, seed=0, device=device)
+    torch.cuda.synchronize()
+    log(f"  panel built on the card in {time.perf_counter() - t0:.3f} s; "
+        f"NaN share {float(torch.isnan(y).float().mean()):.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    walls, stage_launches, stage_reads, stage_loops = {}, {}, {}, {}
+    # the optimizer's lockstep loops, as (rows, first iteration): a second
+    # loop over the straggler cap shows that compaction engaged
+    loops = []
+    real_run = optim._run
+
+    def spy_run(fb, state, k, *args):
+        loops.append((int(state.x.shape[0]), k))
+        return real_run(fb, state, k, *args)
+
+    def timed(name, fn):
+        before, reads = dict(ck.LAUNCHES), optim.host_reads.count
+        n_loops = len(loops)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        stage_launches[name] = {k: v - before[k] for k, v in
+                                ck.LAUNCHES.items() if v > before[k]}
+        stage_reads[name] = optim.host_reads.count - reads
+        stage_loops[name] = loops[n_loops:]
+        return out
+
+    ck.reset_launch_counts()
+    optim.host_reads.count = 0
+    optim._run = spy_run
+    try:
+        es = timed("ewma_fit", lambda: ewma.fit(y, device=device))
+        efc = timed("ewma_forecast", lambda: ewma.forecast(
+            es.params, y, horizon, device=device))
+        hs = timed("hw_fit", lambda: hw.fit(y, m, "additive", device=device))
+        hfc = timed("hw_forecast", lambda: hw.forecast(
+            hs.params, y, m, horizon, device=device))
+        hm = timed("hw_mult_fit", lambda: hw.fit(
+            y[:n_mult], m, "multiplicative", device=device))
+    finally:
+        optim._run = real_run
+    launches = dict(ck.LAUNCHES)
+
+    log("  walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items())
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        "GiB")
+    log(f"  kernel launches on the hourly path {launches}; by stage "
+        f"{stage_launches}; optimizer host reads by stage {stage_reads}")
+    log(f"  optimizer loops (rows, first iteration) by stage {stage_loops}")
+    for name in ("ewma_fwd", "ewma_bwd", "hw_fwd", "hw_bwd"):
+        chk.require(launches[name] > 0,
+                    f"{name} launched on the hourly path ({launches[name]})")
+    for stage, names in (("ewma_fit", ("ewma_fwd", "ewma_bwd")),
+                         ("ewma_forecast", ("ewma_fwd",)),
+                         ("hw_fit", ("hw_fwd", "hw_bwd")),
+                         ("hw_mult_fit", ("hw_fwd", "hw_bwd"))):
+        chk.require(all(stage_launches[stage].get(n, 0) > 0 for n in names),
+                    f"{stage} went through {', '.join(names)}")
+    for name, res, shape in (("ewma.fit", es, (rows, 1)),
+                             ("holtwinters.fit add.", hs, (rows, 3)),
+                             ("holtwinters.fit mult.", hm, (n_mult, 3))):
+        conv = float(res.converged.float().mean())
+        med = res.params.nanmedian(dim=0).values.tolist()
+        log(f"  {name}: status {status_counts(res.status.cpu().numpy())}; "
+            f"converged share {conv:.4f}; iterations max "
+            f"{int(res.iters.max())}; median params {med}")
+        chk.require(tuple(res.params.shape) == shape,
+                    f"{name} params {list(shape)}")
+        chk.require(conv > 0.9, f"{name} converged share {conv:.4f} > 0.9")
+    # SES on this strongly seasonal panel follows the last value: alpha
+    # near 1 for most rows (the interior case is held below)
+    alpha_in = float((es.params[:, 0] < 0.99).float().mean())
+    log(f"  ewma.fit: share of rows with alpha < 0.99: {alpha_in:.4f}")
+    # SES: a flat forecast at the last level, finite wherever the fit is
+    good = torch.isfinite(es.params).all(1)
+    chk.require(tuple(efc.shape) == (rows, horizon)
+                and bool(torch.isfinite(efc[good]).all())
+                and bool((efc[:, 0] == efc[:, -1])[good].all()),
+                "EWMA forecast [B, 48], flat and finite wherever the fit is")
+    # Holt-Winters additive: the generating parameters, a finite forecast
+    a, b_, g = entry.HW_PARAMS
+    med = hs.params.nanmedian(dim=0).values.tolist()
+    log(f"  additive median [alpha, beta, gamma] = {med} (panel made with "
+        f"{list(entry.HW_PARAMS)})")
+    chk.require(abs(med[0] - a) < 0.05 and abs(med[2] - g) < 0.05,
+                "additive median alpha, gamma within 0.05 of the generating "
+                "values")
+    good = torch.isfinite(hs.params).all(1)
+    chk.require(tuple(hfc.shape) == (rows, horizon)
+                and bool(torch.isfinite(hfc[good]).all()),
+                "Holt-Winters forecast [B, 48], finite wherever the fit is")
+    # the forecast's daily profile follows the series' last day
+    day = torch.nan_to_num(y[:, -m:] - y[:, -m:].mean(1, keepdim=True))
+    prof = hfc[:, :m] - hfc[:, :m].mean(1, keepdim=True)
+    corr = float(torch.nn.functional.cosine_similarity(
+        day[good], prof[good], dim=1).median())
+    log(f"  forecast vs last day's profile: median cosine {corr:.4f}")
+    chk.require(corr > 0.9, "forecast keeps the daily profile (cosine > 0.9)")
+
+    # the kernel path against the eager path on slices
+    n_a, n_m = min(2048, rows), min(1024, rows)
+    ys = y[:n_a].contiguous()
+    for name, fit, n in (
+            ("ewma.fit", lambda yv, be: ewma.fit(yv, backend=be,
+                                                 device=device), n_a),
+            ("holtwinters.fit add.", lambda yv, be: hw.fit(
+                yv, m, "additive", backend=be, device=device), n_a),
+            # one seeded start: the eager fit runs ~70k small launches a
+            # gradient, and the three-start selection is the main path's
+            ("holtwinters.fit mult., 1 start", lambda yv, be: hw.fit(
+                yv, m, "multiplicative", backend=be, n_starts=1,
+                device=device), n_m)):
+        t0 = time.perf_counter()
+        r_cuda = fit(ys[:n], "cuda")
+        t1 = time.perf_counter()
+        r_eager = fit(ys[:n], "eager")
+        t2 = time.perf_counter()
+        dconv, med_dp = _parity(r_cuda, r_eager)
+        log(f"  {name} cuda vs eager on {n} rows ({t1 - t0:.2f} s vs "
+            f"{t2 - t1:.2f} s): converged share differs by {dconv:.4f}, "
+            f"median |param diff| {med_dp:.2e}")
+        chk.require(dconv < 0.02 and med_dp < 1e-2,
+                    f"{name} cuda vs eager within slice 1's parity bar")
+    # SES where its optimum is interior: a local-level panel (random-walk
+    # level plus noise, signal-to-noise q = 0.25), whose one-step-optimal
+    # alpha is the steady Kalman gain (sqrt(q^2 + 4q) - q) / 2 = 0.390
+    yl, a_star = _local_level_rows(n_a, t, seed=3, device=device)
+    r_cuda = ewma.fit(yl, backend="cuda", device=device)
+    r_eager = ewma.fit(yl, backend="eager", device=device)
+    dconv, med_dp = _parity(r_cuda, r_eager)
+    for be, r in (("cuda", r_cuda), ("eager", r_eager)):
+        a_fit = r.params[:, 0]
+        inside = float(((a_fit > 0.05) & (a_fit < 0.95)).float().mean())
+        med = float(a_fit.nanmedian())
+        log(f"  ewma.fit ({be}) on a {n_a}-row local-level panel: median "
+            f"alpha {med:.4f} (optimum {a_star:.4f}), share in (0.05, 0.95) "
+            f"{inside:.4f}, converged {float(r.converged.float().mean()):.4f}")
+        chk.require(abs(med - a_star) < 0.05 and inside > 0.9,
+                    f"ewma.fit ({be}) finds the interior SES optimum")
+    log(f"  ewma.fit cuda vs eager there: converged share differs by "
+        f"{dconv:.4f}, median |param diff| {med_dp:.2e}")
+    chk.require(dconv < 0.02 and med_dp < 1e-2,
+                "ewma.fit interior optimum cuda vs eager within slice 1's "
+                "parity bar")
+    del yl
+    f_eager = ewma.forecast(es.params[:n_a], ys, horizon, backend="eager",
+                            device=device)
+    err, rel = rel_err(efc[:n_a], f_eager)
+    log(f"  EWMA forecast cuda vs eager on {n_a} rows: max_abs={err:.3e}")
+    chk.require(rel <= 1e-5, "EWMA forecast cuda vs eager within 1e-5")
+    f_cpu = hw.forecast(hs.params[:n_a].cpu(), ys.cpu(), m, horizon,
+                        device="cpu")
+    err, rel = rel_err(hfc[:n_a].cpu(), f_cpu)
+    log(f"  Holt-Winters forecast card vs host on {n_a} rows: "
+        f"max_abs={err:.3e}")
+    chk.require(rel <= 1e-5, "Holt-Winters forecast card vs host within 1e-5")
+    del ys, es, efc, hfc, hm
+    profile_fit(lambda: hw.fit(y, m, "additive", device=device),
+                "additive Holt-Winters fit")
+    return {"launches": launches, "walls": walls, "rows": rows, "time": t,
+            "n_mult": n_mult}
+
+
+def phase_timing_hourly(chk: Checks, hourly: dict, device) -> dict:
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch.models import base
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.ops import layout
+
+    rows, t, m = hourly["rows"], hourly["time"], entry.HW_PERIOD
+    n_mult = hourly["n_mult"]
+    log(f"phase 7: smoothing kernels at the hourly path's shape [T, B] = "
+        f"[{t}, {rows}]: every variant the path runs against its plain "
+        "version, then times")
+    torch.cuda.reset_peak_memory_stats()
+    ya, nv = base.maybe_align(
+        entry.gen_hourly_panel(rows, t, seed=1, device=device), "no-trailing")
+    B, n_el, f = rows, t * rows, 4
+    gen = torch.Generator(device=device)
+    gen.manual_seed(t)
+    gbar = torch.full((B,), 1.0 / t, device=device)
+    out = {}
+    # EWMA, every mode the path runs: sum (line-search trials), both
+    # (gradient evaluations), e (the forecast); the adjoint with the
+    # per-series cotangent (the fit's gradient)
+    xt, zb = ck.ewma_prefold(ya, nv)
+    alpha = 0.05 + 0.9 * torch.rand(B, generator=gen, device=device)
+    s_ref, sse_ref = ck.ewma_fwd_plain(xt, alpha, zb, "both")
+    s = ck.ewma_fwd(xt, alpha, zb, "e")
+    chk.compare("ewma_fwd", "mode e, hourly shape", s, s_ref)
+    sse = ck.ewma_fwd(xt, alpha, zb, "sum")
+    chk.compare("ewma_fwd", "mode sum, hourly shape", sse, sse_ref)
+    s_both, sse_both = ck.ewma_fwd(xt, alpha, zb, "both")
+    chk.compare("ewma_fwd", "mode both (smoothed), hourly shape", s_both,
+                s_ref)
+    chk.compare("ewma_fwd", "mode both (sum), hourly shape", sse_both,
+                sse_ref)
+    chk.require(torch.equal(sse_both, sse),
+                "ewma_fwd sum == both bitwise, hourly shape")
+    del s_ref, s_both
+    chk.compare("ewma_bwd", "galpha, per-series, hourly shape",
+                ck.ewma_bwd(xt, s, alpha, zb, gbar)[0],
+                ck.ewma_bwd_plain(xt, s, alpha, zb, gbar)[0])
+    # forward sum: reads x, alpha, zb, writes the SSE; 6 flops an element
+    ms = cuda_ms(lambda: ck.ewma_fwd(xt, alpha, zb, "sum"))
+    plain = cuda_ms(lambda: ck.ewma_fwd_plain(xt, alpha, zb, "sum"), reps=1)
+    out["ewma_fwd"] = (ms, plain, *_bound(f * (n_el + 3 * B), 6 * n_el))
+    log("  ewma_fwd mode both: "
+        f"{cuda_ms(lambda: ck.ewma_fwd(xt, alpha, zb, 'both')):.3f} ms "
+        f"(bound {_bound(f * (2 * n_el + 3 * B), 6 * n_el)[0]:.3f} ms)")
+    # adjoint, per-series cotangent: reads x and s, alpha, zb, g, writes
+    # galpha; ~12 flops an element
+    ms = cuda_ms(lambda: ck.ewma_bwd(xt, s, alpha, zb, gbar))
+    plain = cuda_ms(lambda: ck.ewma_bwd_plain(xt, s, alpha, zb, gbar), reps=1)
+    out["ewma_bwd"] = (ms, plain, *_bound(f * (2 * n_el + 4 * B), 12 * n_el))
+    log("  ewma_bwd with the data's cotangent: "
+        f"{cuda_ms(lambda: ck.ewma_bwd(xt, s, alpha, zb, gbar, True)):.3f} "
+        f"ms (bound {_bound(f * (3 * n_el + 4 * B), 14 * n_el)[0]:.3f} ms)")
+    del xt, s
+    # Holt-Winters at the generating parameters: the additive model on the
+    # whole panel, the multiplicative one on the rows its fit takes, and
+    # the global-ring route through a period with no register instantiation
+    m_glob = 25
+    seeds = ck.hw_seeds(ya, m, False, nv)
+    seeds_mult = ck.hw_seeds(ya[:n_mult], m, True, nv[:n_mult])
+    seeds_glob = ck.hw_seeds(ya, m_glob, False, nv)
+    l0, t0, _, zbh = seeds
+    yt = layout.time_major(ya)
+    del ya
+    params = torch.tensor(entry.HW_PARAMS, device=device).repeat(B, 1)
+    hold_hw(chk, yt, params, seeds, m, False, gen, "add., hourly shape")
+    yt_mult = yt[:, :n_mult].contiguous()
+    hold_hw(chk, yt_mult, params[:n_mult], seeds_mult, m, True, gen,
+            f"mult., hourly shape on {n_mult} rows")
+    chk.require(not ck.hw_ring_in_registers(m_glob),
+                f"period {m_glob} takes the global-ring route")
+    chk.compare("hw_fwd", f"sse, m={m_glob} global ring, hourly shape",
+                ck.hw_fwd(yt, params, *seeds_glob, m_glob, False),
+                ck.hw_fwd_plain(yt, params, *seeds_glob, m_glob, False))
+    # forward sum: reads y, params, l0, t0, zb and the seed ring, writes the
+    # SSE; ~14 flops an element (additive)
+    ms = cuda_ms(lambda: ck.hw_fwd(yt, params, *seeds, m, False))
+    plain = cuda_ms(lambda: ck.hw_fwd_plain(yt, params, *seeds, m, False),
+                    reps=1)
+    out["hw_fwd"] = (ms, plain, *_bound(f * (n_el + (7 + m) * B), 14 * n_el))
+    # save_resid writes e, L, T and S_old; the adjoint could form e from
+    # the other three (the 4-panel bounds)
+    ms_save = cuda_ms(lambda: ck.hw_fwd(yt, params, *seeds, m, False, True))
+    log(f"  hw_fwd save_resid: {ms_save:.3f} ms (bound "
+        f"{_bound(f * (5 * n_el + (7 + m) * B), 14 * n_el)[0]:.3f} ms; "
+        f"without e {_bound(f * (4 * n_el + (7 + m) * B), 14 * n_el)[0]:.3f}"
+        " ms)")
+    ms_mult = cuda_ms(lambda: ck.hw_fwd(yt_mult, params[:n_mult],
+                                        *seeds_mult, m, True))
+    n_mel = t * n_mult
+    log(f"  hw_fwd sum, multiplicative on {n_mult} rows: {ms_mult:.3f} ms "
+        f"(bound {_bound(f * (n_mel + (7 + m) * n_mult), 16 * n_mel)[0]:.3f}"
+        " ms)")
+    log(f"  hw_fwd sum, global-ring route (m={m_glob}): "
+        f"{cuda_ms(lambda: ck.hw_fwd(yt, params, *seeds_glob, m_glob, False)):.3f}"
+        " ms")
+    del yt_mult, seeds_mult, seeds_glob
+    e, lv, tr, so, _ = ck.hw_fwd(yt, params, *seeds, m, False, True)
+    # adjoint, per-series cotangent: reads y, L, T, S_old and e, the
+    # parameters and l0, t0, zb, g, writes 3 sums; ~30 flops an element
+    ms = cuda_ms(lambda: ck.hw_bwd(yt, params, l0, t0, zbh, lv, tr, so, e,
+                                   gbar, m, False))
+    plain = cuda_ms(lambda: ck.hw_bwd_plain(yt, params, l0, t0, zbh, lv, tr,
+                                            so, e, gbar, m, False), reps=1)
+    out["hw_bwd"] = (ms, plain, *_bound(f * (5 * n_el + 10 * B), 30 * n_el))
+    log(f"  hw_bwd bound without reading e: "
+        f"{_bound(f * (4 * n_el + 10 * B), 30 * n_el)[0]:.3f} ms; peak memory "
+        f"of this phase {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, (ms, plain, bms, by) in out.items():
+        log(f"  {name:10s} {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
+            f"{bms:.3f} ms ({by})  library: none (no single PyTorch call "
+            "computes this function)")
+    return out
+
+
 def _bound(nbytes, flops):
     """(least ms for the work, what bounds it): bytes over the memory rate
     or flops over the float32 rate, whichever is larger."""
@@ -662,7 +1110,7 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
 
     rows, t = main["rows"], main["time"]
     p, q, k = 1, 1, 3
-    log(f"phase 6: kernel times at the ARIMA path's shape [T, B] = "
+    log(f"phase 7: kernel times at the ARIMA path's shape [T, B] = "
         f"[{t - 1}, {rows}] (ARIMA(1,1,1) after differencing)")
     T = t - 1
     yt, zb, start, params = ragged_panel(rows, T, p, seed=1, device=device)
@@ -752,6 +1200,31 @@ def build() -> None:
         log(f"  {name}: {len(regs)} kernels, registers per thread "
             f"{min(regs, default=0)}..{max(regs, default=0)}, largest stack "
             f"frame {max(frame, default=0)} B, spill stores {sum(spill)} B")
+        if name.startswith("libhw-"):  # one line per ring instantiation
+            for kern, info in _ptxas_entries(text):
+                log(f"    {kern}: {info}")
+
+
+def _ptxas_entries(text: str):
+    """(kernel, "R registers, F B stack frame, S B spill stores") for each
+    entry function of a ``-Xptxas=-v`` log, template arguments decoded
+    from the mangled name (``hw_fwd_k<24, 1>`` = period 24, multiplicative;
+    period 0 is the global-ring route)."""
+    out = []
+    for part in text.split("Compiling entry function '")[1:]:
+        mangled = part.split("'", 1)[0]
+        lm = re.search(r"\d([A-Za-z_]+_k)I((?:L[ib]\d+E)+)E", mangled)
+        kern = mangled
+        if lm is not None:
+            args = re.findall(r"L[ib](\d+)E", lm.group(2))
+            kern = f"{lm.group(1)}<{', '.join(args)}>"
+        regs = re.search(r"Used (\d+) registers", part)
+        frame = re.search(r"(\d+) bytes stack frame", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out.append((kern, f"{regs.group(1) if regs else '?'} registers, "
+                    f"{frame.group(1) if frame else '?'} B stack frame, "
+                    f"{spill.group(1) if spill else '?'} B spill stores"))
+    return out
 
 
 def main() -> int:
@@ -769,19 +1242,24 @@ def main() -> int:
     chk = Checks()
     phase_kernels(chk, device)
     phase_kernels_volatility(chk, device)
+    phase_kernels_smoothing(chk, device)
     if chk.failures:  # a kernel that disagrees makes the rest meaningless
         log("FAILED: " + "; ".join(chk.failures))
         return 1
     main_run = phase_main(chk, ROWS, TIME, device)
     pipe = phase_pipeline(chk, VOL_ROWS, VOL_TIME, device)
+    hourly = phase_hourly(chk, HOURLY_ROWS, HOURLY_TIME, device)
     times = phase_timing(chk, main_run, device)
     times.update(phase_timing_volatility(chk, pipe, device))
+    times.update(phase_timing_hourly(chk, hourly, device))
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))
         return 1
     launches = {**main_run["launches"],
                 **{k: pipe["launches"][k] for k in
-                   ("fill_chain", "autocorr", "garch_fwd", "garch_bwd")}}
+                   ("fill_chain", "autocorr", "garch_fwd", "garch_bwd")},
+                **{k: hourly["launches"][k] for k in
+                   ("ewma_fwd", "ewma_bwd", "hw_fwd", "hw_bwd")}}
     kernels = [{
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": launches[name],

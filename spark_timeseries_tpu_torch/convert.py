@@ -7,7 +7,9 @@ keeps its parameter rows in one layout, the same in both packages:
   theta_1..theta_q]``;
 - GARCH(1,1) (``models.garch.fit``): ``[omega, alpha, beta]``;
 - AR(1)+GARCH(1,1) (``models.garch.fit_argarch``): ``[c, phi, omega,
-  alpha, beta]``.
+  alpha, beta]``;
+- EWMA (``models.ewma.fit``): ``[alpha]``;
+- Holt-Winters (``models.holtwinters.fit``): ``[alpha, beta, gamma]``.
 
 :func:`from_jax_params` takes any of them (it does not reorder columns) and
 turns them into the port's tensors, so a model fitted by either package

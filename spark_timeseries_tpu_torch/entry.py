@@ -5,7 +5,8 @@ step and its example arguments, placed on ``device`` (the card unless the
 caller asks for the CPU).  :func:`gen_panel` builds an ARIMA(1,1,1) panel on
 the device from a seeded ``torch.Generator``, for panels too large for a
 host loop; :func:`gen_garch_prices` builds the volatility pipeline's ragged
-price panel the same way.
+price panel and :func:`gen_hourly_panel` the Holt-Winters path's ragged
+hourly panel the same way.
 """
 
 from __future__ import annotations
@@ -22,6 +23,12 @@ ORDER = (1, 1, 1)
 GARCH_PARAMS = (0.05, 0.08, 0.90)
 # share of the price panel's positions that fall in interior gaps
 GAP_SHARE = 0.02
+# additive Holt-Winters of the hourly panel: alpha, beta, gamma; period.
+# The fit's seeds (the first two valid days) carry about one noise unit of
+# error per seasonal slot, which pulls the estimated gamma upward; at this
+# gamma the pull stays well inside the smoke run's 0.05 bar.
+HW_PARAMS = (0.2, 0.01, 0.3)
+HW_PERIOD = 24
 
 
 def gen_panel(batch: int, time: int, seed: int = 0,
@@ -98,3 +105,52 @@ def gen_garch_prices(batch: int, time: int, seed: int = 0,
         run = opens[:time - k] & (length[:time - k] > k)
         logp[k:].masked_fill_(run, float("nan"))
     return logp.t().contiguous()
+
+
+def gen_hourly_panel(batch: int, time: int, seed: int = 0,
+                     device="cuda") -> torch.Tensor:
+    """``[batch, time]`` float32 hourly panel drawn from the additive
+    Holt-Winters model itself, period :data:`HW_PERIOD`, parameters
+    :data:`HW_PARAMS`: ``y_t = L + T + S_t + eps_t`` with unit-normal
+    ``eps``, then the fit's level, trend and seasonal updates.
+
+    Per row: level in [400, 600), trend in [-0.02, 0.02) per hour, a daily
+    sine profile of amplitude in [10, 50) and random phase, so every value
+    stays positive (the multiplicative fit needs that; checked, raising
+    otherwise).  Ragged like M4's hourly series: each row keeps its last
+    ``n`` observations, ``n`` drawn in [700/960 time, time] (700-960 at
+    time = 960), and the leading ones are NaN.  Built time-major on
+    ``device`` from a seeded ``torch.Generator``, then transposed."""
+    return _hourly_panel(batch, time, HW_PARAMS, seed, device)
+
+
+def _hourly_panel(batch: int, time: int, params, seed: int,
+                  device) -> torch.Tensor:
+    """:func:`gen_hourly_panel` under other generating ``params`` (alpha,
+    beta, gamma): the tests hold the estimator's bias at other values."""
+    device = to_device(torch.zeros(0), device).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    alpha, beta, gamma = params
+    m = HW_PERIOD
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+        batch, generator=gen, device=device)
+    level, trend = u(400.0, 600.0), u(-0.02, 0.02)
+    amp, phase = u(10.0, 50.0), u(0.0, 2.0 * math.pi)
+    hours = torch.arange(m, device=device, dtype=torch.float32)[:, None]
+    ring = amp * torch.sin(2.0 * math.pi * hours / m + phase)  # [m, batch]
+    y = torch.randn(time, batch, generator=gen, device=device)
+    for t in range(time):  # y[t] <- L + T + S + eps in place
+        s = ring[t % m]
+        yt = y[t].add_(level + trend + s)
+        new_level = alpha * (yt - s) + (1.0 - alpha) * (level + trend)
+        trend = beta * (new_level - level) + (1.0 - beta) * trend
+        ring[t % m] = gamma * (yt - new_level) + (1.0 - gamma) * s
+        level = new_level
+    if not bool((y > 0).all()):
+        raise RuntimeError("hourly panel has a non-positive value")
+    n = torch.randint(time * 700 // 960, time + 1, (batch,), generator=gen,
+                      device=device)
+    t_idx = torch.arange(time, device=device)[:, None]
+    y.masked_fill_(t_idx < (time - n)[None, :], float("nan"))
+    return y.t().contiguous()

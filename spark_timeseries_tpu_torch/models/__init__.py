@@ -1,6 +1,7 @@
-"""Model families (ported: ARIMA non-seasonal, GARCH and ARGARCH)."""
+"""Model families (ported: ARIMA non-seasonal, GARCH and ARGARCH, EWMA,
+Holt-Winters)."""
 
-from . import arima, base, garch
+from . import arima, base, ewma, garch, holtwinters
 from .base import FitResult
 
-__all__ = ["arima", "base", "garch", "FitResult"]
+__all__ = ["arima", "base", "ewma", "garch", "holtwinters", "FitResult"]

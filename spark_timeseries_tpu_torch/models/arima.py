@@ -283,15 +283,18 @@ def _objective(backend, order, include_intercept, yd, nvd, yt, zb, n_eff):
                                             include_intercept, nv) / ne
 
         def straggler(idxc):
-            # gather the stragglers' columns of the time-major panel
-            return lambda P: fb(P, yt[:, idxc].contiguous(), zb[idxc],
-                                nvd[idxc], n_eff[idxc])
+            # gather the stragglers' columns of the time-major panel once,
+            # not at every evaluation of their objective
+            sub = (yt[:, idxc].contiguous(), zb[idxc], nvd[idxc],
+                   n_eff[idxc])
+            return lambda P: fb(P, *sub)
     else:
         def fb(P, yd=yd, nv=nvd, ne=n_eff):
             return css_neg_loglik(P, yd, order, include_intercept, nv) / ne
 
         def straggler(idxc):
-            return lambda P: fb(P, yd[idxc], nvd[idxc], n_eff[idxc])
+            sub = (yd[idxc], nvd[idxc], n_eff[idxc])
+            return lambda P: fb(P, *sub)
     return fb, straggler
 
 

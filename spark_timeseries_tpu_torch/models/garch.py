@@ -200,14 +200,17 @@ def _garch_objective(backend, ra, nv, n_eff):
                                               zb) / ne
 
         def straggler(idxc):
-            return lambda u: fb(u, rzt[:, idxc].contiguous(), h0[idxc],
-                                zb[idxc], n_eff[idxc])
+            # gathered once, not at every evaluation of their objective
+            sub = (rzt[:, idxc].contiguous(), h0[idxc], zb[idxc],
+                   n_eff[idxc])
+            return lambda u: fb(u, *sub)
     else:
         def fb(u, ra=ra, nv=nv, ne=n_eff):
             return neg_log_likelihood(_to_natural(u), ra, nv) / ne
 
         def straggler(idxc):
-            return lambda u: fb(u, ra[idxc], nv[idxc], n_eff[idxc])
+            sub = (ra[idxc], nv[idxc], n_eff[idxc])
+            return lambda u: fb(u, *sub)
     return fb, straggler
 
 
@@ -427,7 +430,8 @@ def _argarch_objective(backend, ya, nv, n_eff):
                                               nv) / ne
 
         def straggler(idxc):
-            return lambda u: fb(u, ya[idxc], nv[idxc], n_eff[idxc])
+            sub = (ya[idxc], nv[idxc], n_eff[idxc])
+            return lambda u: fb(u, *sub)
         return fb, straggler
     T = ya.shape[1]
     yat = time_major(ya)
@@ -447,10 +451,10 @@ def _argarch_objective(backend, ya, nv, n_eff):
                                           zb) / ne
 
     def straggler(idxc):
-        return lambda u: fb(u, yat[:, idxc].contiguous(),
-                            prevt[:, idxc].contiguous(),
-                            keep[:, idxc].contiguous(), nvf[idxc],
-                            start[idxc] + 1, n_eff[idxc])
+        sub = (yat[:, idxc].contiguous(), prevt[:, idxc].contiguous(),
+               keep[:, idxc].contiguous(), nvf[idxc], start[idxc] + 1,
+               n_eff[idxc])
+        return lambda u: fb(u, *sub)
     return fb, straggler
 
 

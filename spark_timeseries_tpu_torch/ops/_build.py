@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("css", "hr", "fill", "autocorr", "garch")
+SOURCES = ("css", "hr", "fill", "autocorr", "garch", "ewma", "hw")
 # -Xptxas=-v: the build log reports each kernel's registers and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -50,6 +50,15 @@ SIGNATURES = {
         "sts_garch_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "sts_garch_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _P],
+    },
+    "ewma": {
+        "sts_ewma_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "sts_ewma_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "hw": {
+        "sts_hw_fwd": [_P] * 11 + [_I] * 5 + [_P],
+        "sts_hw_bwd": [_P] * 12 + [_I] * 4 + [_P],
+        "sts_hw_ring_in_registers": [_I],
     },
 }
 

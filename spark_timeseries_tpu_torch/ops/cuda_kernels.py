@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, with their wrappers.
 
-Port of ``spark_timeseries_tpu/ops/pallas_kernels.py``.  Seven kernels,
-sources in ``csrc/``:
+Port of ``spark_timeseries_tpu/ops/pallas_kernels.py``.  Eleven kernels,
+one for each of the reference's, sources in ``csrc/``:
 
 ==============  ===============  ==============================================
 wrapper         source           replaces (pallas_kernels.py)
@@ -15,6 +15,10 @@ wrapper         source           replaces (pallas_kernels.py)
                                  ``_batch_autocorr_call``
 ``garch_fwd``   ``garch.cu``     ``_garch_fwd_kernel`` via ``_garch_fwd_call``
 ``garch_bwd``   ``garch.cu``     ``_garch_bwd_kernel`` via ``_garch_h_bwd``
+``ewma_fwd``    ``ewma.cu``      ``_ewma_fwd_kernel`` via ``_ewma_fwd_call``
+``ewma_bwd``    ``ewma.cu``      ``_ewma_bwd_kernel`` via ``_ewma_bwd_call``
+``hw_fwd``      ``hw.cu``        ``_hw_fwd_kernel`` via ``_hw_fwd_call``
+``hw_bwd``      ``hw.cu``        ``_hw_bwd_kernel`` via ``_hw_e_bwd``
 ==============  ===============  ==============================================
 
 Each wrapper checks device, dtype (float32), shape and contiguity and raises
@@ -28,9 +32,10 @@ Above the wrappers sit the reference's entry points with its signatures,
 minus ``interpret``: ``css_neg_loglik``, ``css_neg_loglik_folded``,
 ``css_errors``, ``css_last_errors``, ``hr_init``; ``fill_linear_chain``,
 ``fill_linear``, ``fill_linear_chain_folded``; ``batch_autocorr``,
-``batch_autocorr_folded``; ``garch_variances``, ``garch_neg_loglik``.  The
-CSS and GARCH objectives are ``torch.autograd.Function``s whose backward is
-the adjoint kernel.
+``batch_autocorr_folded``; ``garch_variances``, ``garch_neg_loglik``;
+``ewma_smooth``, ``ewma_sse``; ``hw_seeds``, ``hw_sse_seeded``, ``hw_sse``.
+The CSS, GARCH, EWMA and Holt-Winters objectives are
+``torch.autograd.Function``s whose backward is the adjoint kernel.
 """
 
 from __future__ import annotations
@@ -53,16 +58,22 @@ __all__ = [
     "fill_linear", "fill_linear_chain_folded", "batch_autocorr",
     "batch_autocorr_folded", "garch_variances", "garch_neg_loglik",
     "garch_h0_folded", "garch_neg_loglik_folded", "garch_prefold",
-    "CHAIN_OUTPUTS",
+    "CHAIN_OUTPUTS", "ewma_fwd", "ewma_fwd_plain", "ewma_bwd",
+    "ewma_bwd_plain", "ewma_smooth", "ewma_prefold", "ewma_sse",
+    "ewma_sse_folded", "hw_ring_in_registers", "hw_structural_ok", "hw_fwd",
+    "hw_fwd_plain", "hw_bwd", "hw_bwd_plain", "hw_seeds", "hw_sse_folded",
+    "hw_sse_seeded", "hw_sse",
 ]
 
 # kernel launches by wrapper name (plain-version calls are not counted)
 LAUNCHES = {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0, "fill_chain": 0,
-            "autocorr": 0, "garch_fwd": 0, "garch_bwd": 0}
+            "autocorr": 0, "garch_fwd": 0, "garch_bwd": 0, "ewma_fwd": 0,
+            "ewma_bwd": 0, "hw_fwd": 0, "hw_bwd": 0}
 
 _MODES = {"e": 0, "sum": 1, "both": 2, "tail": 3}
 _MAX_CSS_LAG = 512
 _MAX_ACF_LAG = 1024
+_MAX_HW_PERIOD = 1024
 
 
 def reset_launch_counts() -> None:
@@ -90,6 +101,26 @@ def autocorr_structural_ok(num_lags: int, n_time: int) -> bool:
     """Lag counts the autocorrelation kernel takes: ``0 < num_lags <
     min(T, 1024)`` (the reference's bound)."""
     return 0 < num_lags < min(n_time, _MAX_ACF_LAG)
+
+
+def hw_structural_ok(period: int) -> bool:
+    """Seasonal periods the Holt-Winters kernels take: ``0 < period <=
+    1024`` (the reference's bound, ``pallas_kernels.hw_structural_ok``)."""
+    return 0 < period <= _MAX_HW_PERIOD
+
+
+def hw_ring_in_registers(period: int) -> bool:
+    """True when ``csrc/hw.cu`` instantiates ``period`` with its seasonal
+    rings in registers; any other period keeps them in a global ``[period,
+    B]`` scratch.  Asks the built library, which holds the one list."""
+    return bool(_build.load("hw").sts_hw_ring_in_registers(int(period)))
+
+
+def _hw_check_period(period: int) -> None:
+    if not hw_structural_ok(period):
+        raise ValueError(f"Holt-Winters kernel supports 0 < period <= "
+                         f"{_MAX_HW_PERIOD} (got {period}); use "
+                         "backend='eager'")
 
 
 # ---------------------------------------------------------------------------
@@ -639,6 +670,296 @@ def garch_bwd_plain(rt, params, h0, zb, ht, g, want_gr: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# EWMA: s_t = alpha x_t + (1 - alpha) s_{t-1}, seeded s_zb = x_zb
+# ---------------------------------------------------------------------------
+
+_EWMA_MODES = {"e": 0, "sum": 1, "both": 2}
+
+
+def ewma_fwd(xt, alpha, zb, mode: str):
+    """EWMA smoothing of the ``[T, B]`` panel ``xt`` (zero before each
+    series' first live step ``zb [B]``) under ``alpha [B]``: ``s`` is 0
+    before ``zb``, ``x_zb`` at it, ``alpha x_t + (1 - alpha) s_{t-1}``
+    after.
+
+    ``mode``: ``"e"`` -> ``s [T, B]``; ``"sum"`` -> the one-step-ahead SSE
+    ``sum_{t > zb} (x_t - s_{t-1})^2`` ``[B]``; ``"both"`` -> ``(s, sse)``
+    with the SSE bitwise equal to ``"sum"``.
+    """
+    if mode not in _EWMA_MODES:
+        raise ValueError(f"unknown ewma_fwd mode {mode!r}")
+    T, B = _panel_shape("xt", xt)
+    dev = xt.device
+    _check("xt", xt, (T, B), dev)
+    _check("alpha", alpha, (B,), dev)
+    _check("zb", zb, (B,), dev)
+    if not _on_cuda(dev):
+        return ewma_fwd_plain(xt, alpha, zb, mode)
+    s = torch.empty_like(xt) if mode != "sum" else None
+    sse = xt.new_empty(B) if mode != "e" else None
+    if B:
+        _launch("ewma", "sts_ewma_fwd", "ewma_fwd", dev, _ptr(xt),
+                _ptr(alpha), _ptr(zb), _ptr(s), _ptr(sse), B, T,
+                _EWMA_MODES[mode])
+    return {"e": s, "sum": sse, "both": (s, sse)}[mode]
+
+
+def ewma_fwd_plain(xt, alpha, zb, mode: str):
+    """Plain PyTorch version of :func:`ewma_fwd` (the kernel's operations,
+    each rounded once, in its order)."""
+    T, B = xt.shape
+    sp, acc = xt.new_zeros(B), xt.new_zeros(B)
+    ss = []
+    for t in range(T):
+        xv = xt[t]
+        s = torch.where(zb == t, xv, alpha * xv + (1.0 - alpha) * sp)
+        s = torch.where(zb <= t, s, 0.0)
+        e = torch.where(zb < t, xv - sp, 0.0)
+        acc = acc + e * e
+        if mode != "sum":
+            ss.append(s)
+        sp = s
+    s = (torch.stack(ss) if T else xt.new_empty(0, B)) \
+        if mode != "sum" else None
+    return {"e": s, "sum": acc, "both": (s, acc)}[mode]
+
+
+def ewma_bwd(xt, st, alpha, zb, g, want_gx: bool = False):
+    """Adjoint of :func:`ewma_fwd` -> ``(galpha [B], gx [T, B] or None)``.
+
+    ``st`` is the forward's smoothed panel.  ``g`` is either a cotangent of
+    ``s`` (``[T, B]``) or, for the SSE, its per-series cotangent ``[B]``
+    (the per-step cotangent ``-2 g err_{t+1}`` and the SSE's direct
+    dependence on ``x`` are formed in the kernel).  ``gx``, the cotangent
+    of ``xt``, is computed only with ``want_gx``.
+    """
+    T, B = _panel_shape("xt", xt)
+    dev = xt.device
+    _check("xt", xt, (T, B), dev)
+    _check("st", st, (T, B), dev)
+    _check("alpha", alpha, (B,), dev)
+    _check("zb", zb, (B,), dev)
+    g_is_sse = g.dim() == 1
+    _check("g", g, (B,) if g_is_sse else (T, B), dev)
+    if not _on_cuda(dev):
+        return ewma_bwd_plain(xt, st, alpha, zb, g, want_gx)
+    ga = xt.new_empty(B)
+    gx = torch.empty_like(xt) if want_gx else None
+    if B:
+        _launch("ewma", "sts_ewma_bwd", "ewma_bwd", dev, _ptr(xt), _ptr(st),
+                _ptr(alpha), _ptr(zb), _ptr(g), _ptr(ga), _ptr(gx), B, T,
+                int(g_is_sse))
+    return ga, gx
+
+
+def ewma_bwd_plain(xt, st, alpha, zb, g, want_gx: bool = False):
+    """Plain PyTorch version of :func:`ewma_bwd` (the kernel's order: t
+    descending)."""
+    T, B = xt.shape
+    g_is_sse = g.dim() == 1
+    zero = xt.new_zeros(B)
+    lam_next, da = zero, zero
+    gxs = [None] * T
+    for t in reversed(range(T)):
+        xv = xt[t]
+        sp = st[t - 1] if t >= 1 else zero
+        live, past = zb <= t, zb < t
+        if g_is_sse:
+            en = (torch.where(zb < t + 1, xt[t + 1] - st[t], 0.0)
+                  if t + 1 < T else zero)
+            gt = -2.0 * en * g
+        else:
+            gt = g[t]
+        lam = torch.where(live, gt + (1.0 - alpha) * lam_next, 0.0)
+        err = xv - sp
+        da = da + torch.where(live & past, lam * err, 0.0)
+        if want_gx:
+            v = torch.where(live, torch.where(past, alpha * lam, lam), 0.0)
+            if g_is_sse:
+                v = v + torch.where(past, 2.0 * err * g, 0.0)
+            gxs[t] = v
+        lam_next = torch.where(past, lam, 0.0)
+    gx = None
+    if want_gx:
+        gx = torch.stack(gxs) if T else xt.new_empty(0, B)
+    return da, gx
+
+
+# ---------------------------------------------------------------------------
+# Holt-Winters: level / trend / seasonal-ring recursion, and its adjoint
+# ---------------------------------------------------------------------------
+
+_HW_EPS = 1e-12
+
+
+def hw_fwd(yt, params, l0, t0, s0r, zb, period: int, mult: bool,
+           save_resid: bool = False):
+    """Holt-Winters one-step-ahead SSE ``[B]`` of the ``[T, B]`` panel
+    ``yt`` (zero before each series' first live step ``zb``) under
+    ``params [B, 3]`` (``[alpha, beta, gamma]``), additive or
+    multiplicative (``mult``), from the seeds ``l0``, ``t0 [B]`` and the
+    pre-rotated seasonal ring ``s0r [B, period]`` (slot ``t mod period``
+    is the seasonal value step ``t`` reads; :func:`hw_seeds`).
+
+    The state moves only from ``zb`` on; the error ``e_t`` is live from
+    ``zb + period``.  ``save_resid`` -> ``(e, L, T, S_old, sse)``: the
+    errors, the level and trend after each step and the seasonal value each
+    step read, all ``[T, B]``, with the SSE bitwise equal to the value-only
+    call.
+    """
+    _hw_check_period(period)
+    T, B = _panel_shape("yt", yt)
+    dev = yt.device
+    _check("yt", yt, (T, B), dev)
+    _check("params", params, (B, 3), dev)
+    _check("l0", l0, (B,), dev)
+    _check("t0", t0, (B,), dev)
+    _check("s0r", s0r, (B, period), dev)
+    _check("zb", zb, (B,), dev)
+    if not _on_cuda(dev):
+        return hw_fwd_plain(yt, params, l0, t0, s0r, zb, period, mult,
+                            save_resid)
+    ring = time_major(s0r)  # [period, B]; the global route's scratch too
+    sse = yt.new_empty(B)
+    outs = [torch.empty_like(yt) if save_resid else None for _ in range(4)]
+    if B:
+        par_t = params.t().contiguous()
+        _launch("hw", "sts_hw_fwd", "hw_fwd", dev, _ptr(yt), _ptr(par_t),
+                _ptr(l0), _ptr(t0), _ptr(ring), _ptr(zb),
+                *(_ptr(o) for o in outs), _ptr(sse), B, T, period, int(mult),
+                int(save_resid))
+    return (*outs, sse) if save_resid else sse
+
+
+def hw_fwd_plain(yt, params, l0, t0, s0r, zb, period: int, mult: bool,
+                 save_resid: bool = False):
+    """Plain PyTorch version of :func:`hw_fwd` (the kernel's operations,
+    each rounded once, in its order; the ring a list indexed by t mod m)."""
+    T, B = yt.shape
+    a, b, g = params.unbind(1)
+    oa, ob, og = 1.0 - a, 1.0 - b, 1.0 - g
+    ring = list(s0r.unbind(1))
+    level, trend, acc = l0, t0, yt.new_zeros(B)
+    zm = zb + period
+    outs = ([], [], [], [])
+    for t in range(T):
+        yv = yt[t]
+        slot = t % period
+        s = ring[slot]
+        lt = level + trend
+        if mult:
+            pred = lt * s
+            nl = a * yv / torch.clamp(s, min=_HW_EPS) + oa * lt
+            snew = g * yv / torch.clamp(nl, min=_HW_EPS) + og * s
+        else:
+            pred = lt + s
+            nl = a * (yv - s) + oa * lt
+            snew = g * (yv - nl) + og * s
+        nt = b * (nl - level) + ob * trend
+        e = torch.where(zm <= t, yv - pred, 0.0)
+        acc = acc + e * e
+        live = zb <= t
+        level = torch.where(live, nl, level)
+        trend = torch.where(live, nt, trend)
+        ring[slot] = torch.where(live, snew, s)
+        if save_resid:
+            for out, v in zip(outs, (e, level, trend, s)):
+                out.append(v)
+    if not save_resid:
+        return acc
+    return (*((torch.stack(o) if T else yt.new_empty(0, B)) for o in outs),
+            acc)
+
+
+def hw_bwd(yt, params, l0, t0, zb, lv, tr, so, e, g, period: int,
+           mult: bool):
+    """Adjoint of :func:`hw_fwd`'s errors -> ``gparams [B, 3]``.
+
+    ``lv``, ``tr``, ``so`` (and ``e``) are the trajectories of the forward
+    with ``save_resid``.  ``g`` is either a cotangent of the errors ``[T,
+    B]`` (``e`` is then not read and may be None) or, for the SSE, its
+    per-series cotangent ``[B]`` (the per-step ``2 e_t g`` is formed in
+    the kernel).  The seeds are constants: no cotangent flows to them.
+    """
+    _hw_check_period(period)
+    T, B = _panel_shape("yt", yt)
+    dev = yt.device
+    _check("yt", yt, (T, B), dev)
+    _check("params", params, (B, 3), dev)
+    _check("l0", l0, (B,), dev)
+    _check("t0", t0, (B,), dev)
+    _check("zb", zb, (B,), dev)
+    for name, x in (("lv", lv), ("tr", tr), ("so", so)):
+        _check(name, x, (T, B), dev)
+    g_is_sse = g.dim() == 1
+    if g_is_sse:
+        _check("e", e, (T, B), dev)
+    _check("g", g, (B,) if g_is_sse else (T, B), dev)
+    if not _on_cuda(dev):
+        return hw_bwd_plain(yt, params, l0, t0, zb, lv, tr, so, e, g, period,
+                            mult)
+    rho = None if hw_ring_in_registers(period) else yt.new_zeros(period, B)
+    gpar = yt.new_empty(3, B)
+    if B:
+        par_t = params.t().contiguous()
+        gpan, gbar = (e, g) if g_is_sse else (g, None)
+        _launch("hw", "sts_hw_bwd", "hw_bwd", dev, _ptr(yt), _ptr(par_t),
+                _ptr(l0), _ptr(t0), _ptr(zb), _ptr(lv), _ptr(tr), _ptr(so),
+                _ptr(gpan), _ptr(gbar), _ptr(rho), _ptr(gpar), B, T, period,
+                int(mult))
+    return gpar.t()
+
+
+def hw_bwd_plain(yt, params, l0, t0, zb, lv, tr, so, e, g, period: int,
+                 mult: bool):
+    """Plain PyTorch version of :func:`hw_bwd` (the kernel's order: t
+    descending; the adjoint ring a list indexed by t mod m)."""
+    T, B = yt.shape
+    a, b, gm = params.unbind(1)
+    oa, ob, og = 1.0 - a, 1.0 - b, 1.0 - gm
+    g_is_sse = g.dim() == 1
+    zero = yt.new_zeros(B)
+    rho = [zero] * period
+    lam_l, lam_t, da, db, dg = zero, zero, zero, zero, zero
+    zm = zb + period
+    for t in reversed(range(T)):
+        slot = t % period
+        us, ul, ut = rho[slot], lam_l, lam_t
+        gt = 2.0 * e[t] * g if g_is_sse else g[t]
+        gp = torch.where(zm <= t, -gt, 0.0)
+        lp = lv[t - 1] if t >= 1 else l0
+        tp = tr[t - 1] if t >= 1 else t0
+        s, lt, yv = so[t], lv[t], yt[t]
+        if mult:
+            sc = torch.clamp(s, min=_HW_EPS)
+            ltc = torch.clamp(lt, min=_HW_EPS)
+            s_pass = (s >= _HW_EPS).to(yt.dtype)
+            l_pass = (lt >= _HW_EPS).to(yt.dtype)
+            vl = ul + b * ut - gm * (yv / (ltc * ltc)) * us * l_pass
+            da_t = (yv / sc - lp - tp) * vl
+            dg_t = (yv / ltc - s) * us
+            new_l = -b * ut + oa * vl + s * gp
+            new_t = ob * ut + oa * vl + s * gp
+            rn = og * us - a * (yv / (sc * sc)) * vl * s_pass + (lp + tp) * gp
+        else:
+            vl = ul + b * ut - gm * us
+            da_t = (yv - s - lp - tp) * vl
+            dg_t = (yv - lt - s) * us
+            new_l = -b * ut + oa * vl + gp
+            new_t = ob * ut + oa * vl + gp
+            rn = og * us - a * vl + gp
+        db_t = (lt - lp - tp) * ut
+        live = zb <= t
+        da = da + torch.where(live, da_t, 0.0)
+        db = db + torch.where(live, db_t, 0.0)
+        dg = dg + torch.where(live, dg_t, 0.0)
+        lam_l = torch.where(live, new_l, ul)
+        lam_t = torch.where(live, new_t, ut)
+        rho[slot] = torch.where(live, rn, us)
+    return torch.stack([da, db, dg], dim=1)
+
+
+# ---------------------------------------------------------------------------
 # entry points (the reference's signatures, without ``interpret``)
 # ---------------------------------------------------------------------------
 
@@ -951,3 +1272,165 @@ def garch_neg_loglik(params, r, n_valid=None):
     rzt, mask, nvf, zb = garch_prefold(r, n_valid)
     h0 = garch_h0_folded(rzt, mask, nvf)
     return garch_neg_loglik_folded(params.contiguous(), rzt, h0, zb)
+
+
+# -- EWMA objective ----------------------------------------------------------
+
+
+class _EwmaS(torch.autograd.Function):
+    """Smoothed series ``[T, B]`` of the time-major panel, differentiable in
+    ``alpha`` and the data through the adjoint kernel (the data cotangent is
+    computed only when the data requires a gradient)."""
+
+    @staticmethod
+    def forward(ctx, alpha, xt, zb):
+        s = ewma_fwd(xt, alpha, zb, "e")
+        ctx.save_for_backward(alpha, xt, zb, s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha, xt, zb, s = ctx.saved_tensors
+        ga, gx = ewma_bwd(xt, s, alpha, zb, g.contiguous(),
+                          ctx.needs_input_grad[1])
+        return ga if ctx.needs_input_grad[0] else None, gx, None
+
+
+class _EwmaSSE(torch.autograd.Function):
+    """One-step-ahead SSE ``[B]`` of the EWMA recursion.  Forward runs
+    ``both`` (saving the smoothed series) when a gradient is wanted and
+    ``sum`` otherwise; the two SSEs are bitwise equal.  Backward is the
+    adjoint kernel fed the per-series cotangent directly."""
+
+    @staticmethod
+    def forward(ctx, alpha, xt, zb, save):
+        if not save:
+            return ewma_fwd(xt, alpha, zb, "sum")
+        s, sse = ewma_fwd(xt, alpha, zb, "both")
+        ctx.save_for_backward(alpha, xt, zb, s)
+        return sse
+
+    @staticmethod
+    def backward(ctx, gbar):
+        alpha, xt, zb, s = ctx.saved_tensors
+        ga, gx = ewma_bwd(xt, s, alpha, zb, gbar.contiguous(),
+                          ctx.needs_input_grad[1])
+        return ga if ctx.needs_input_grad[0] else None, gx, None, None
+
+
+def ewma_smooth(alpha, x, zb):
+    """Batched EWMA smoothing ``[B, T]`` (a view of time-major storage).
+
+    ``alpha``: ``[B]``; ``x``: ``[B, T]`` with the invalid prefix zeroed;
+    ``zb``: ``[B]`` first live position.  Differentiable in ``alpha`` and
+    ``x`` (the data cotangent is computed only when ``x`` requires one)."""
+    return _EwmaS.apply(alpha.contiguous(), time_major(x),
+                        zb.to(x.dtype).contiguous()).t()
+
+
+def ewma_prefold(x, n_valid=None):
+    """A ``[B, T]`` panel in the EWMA kernels' layout -> ``(xzt, zb)``: the
+    time-major copy zeroed before each right-aligned valid span, and the
+    span's first step (float ``[B]``).  Differentiable in ``x``."""
+    b, n = x.shape
+    nv = (torch.full((b,), n, dtype=torch.int32, device=x.device)
+          if n_valid is None else n_valid.to(torch.int32))
+    zb = (n - nv).to(x.dtype)
+    mask = torch.arange(n, dtype=x.dtype, device=x.device)[:, None] \
+        >= zb[None, :]
+    return torch.where(mask, time_major(x), 0.0), zb
+
+
+def ewma_sse_folded(alpha, xzt, zb):
+    """:func:`ewma_sse` from a panel already in the kernels' layout
+    (:func:`ewma_prefold`).  Differentiable in ``alpha`` and ``xzt``."""
+    return _EwmaSSE.apply(alpha.contiguous(), xzt, zb,
+                          _needs_grad(alpha, xzt))
+
+
+def ewma_sse(alpha, x, n_valid=None):
+    """Batched one-step-ahead EWMA SSE ``[B]`` of the ``[B, T]`` panel
+    ``x`` (matches ``models.ewma.sse`` row by row).  Differentiable in
+    ``alpha`` and ``x``."""
+    xzt, zb = ewma_prefold(x, n_valid)
+    return ewma_sse_folded(alpha, xzt, zb)
+
+
+# -- Holt-Winters objective ----------------------------------------------------
+
+
+class _HwSSE(torch.autograd.Function):
+    """Holt-Winters one-step-ahead SSE ``[B]``, differentiable in the
+    parameters (the seeds are constants of the objective).  Forward runs
+    with ``save_resid`` (the trajectories the adjoint replays) when a
+    gradient is wanted and value-only otherwise; the two SSEs are bitwise
+    equal.  Backward is the adjoint kernel fed the per-series cotangent."""
+
+    @staticmethod
+    def forward(ctx, params, yt, l0, t0, s0r, zb, period, mult, save):
+        if not save:
+            return hw_fwd(yt, params, l0, t0, s0r, zb, period, mult)
+        e, lv, tr, so, sse = hw_fwd(yt, params, l0, t0, s0r, zb, period,
+                                    mult, True)
+        ctx.save_for_backward(params, yt, l0, t0, zb, lv, tr, so, e)
+        ctx.hw = (period, mult)
+        return sse
+
+    @staticmethod
+    def backward(ctx, gbar):
+        params, yt, l0, t0, zb, lv, tr, so, e = ctx.saved_tensors
+        gpar = hw_bwd(yt, params, l0, t0, zb, lv, tr, so, e,
+                      gbar.contiguous(), *ctx.hw)
+        return (gpar,) + (None,) * 8
+
+
+def hw_seeds(y, period: int, multiplicative: bool = False, n_valid=None):
+    """Level / trend / seasonal-ring seeds for :func:`hw_sse_seeded` ->
+    ``(l0, t0, s0r, zb)``.
+
+    The first-two-valid-seasons scheme of ``models.holtwinters._init_state``
+    (windows clamped into the series, as the reference's ``dynamic_slice``
+    clamps them), with the seasonal ring PRE-ROTATED for the kernels'
+    ``t mod m`` indexing: ``ring[p] = s0[(p - start) mod m]``.  The seeds
+    depend on the data only: compute them once per fit.  ``n_valid=None``
+    asserts a dense panel (every row starts at t = 0): static windows, no
+    rotation, ``zb = 0``."""
+    from ..models.holtwinters import _init_state
+
+    b, t = y.shape
+    if n_valid is None:
+        l0, t0, s0 = _init_state(y, period, multiplicative)
+        return l0, t0, s0, y.new_zeros(b)
+    start = (t - n_valid).to(torch.long)
+    l0, t0, s0 = _init_state(y, period, multiplicative, start)
+    pos = (torch.arange(period, device=y.device)[None, :]
+           - start[:, None]) % period
+    return l0, t0, torch.gather(s0, 1, pos), start.to(y.dtype)
+
+
+def hw_sse_folded(params, yt, seeds, period: int,
+                  multiplicative: bool = False):
+    """:func:`hw_sse_seeded` on a panel already time-major (``[T, B]``,
+    invalid prefix zeroed): the fit-loop entry point.  Differentiable in
+    ``params``."""
+    l0, t0, s0r, zb = seeds
+    return _HwSSE.apply(params.contiguous(), yt, l0, t0, s0r, zb, period,
+                        bool(multiplicative), _needs_grad(params))
+
+
+def hw_sse_seeded(params, y, seeds, period: int,
+                  multiplicative: bool = False):
+    """Batched Holt-Winters one-step-ahead SSE ``[B]`` of the ``[B, T]``
+    panel ``y`` (invalid prefix zeroed) with precomputed :func:`hw_seeds`;
+    matches ``models.holtwinters.sse`` row by row, additive and
+    multiplicative.  Differentiable in ``params``."""
+    return hw_sse_folded(params, time_major(y), seeds, period,
+                         multiplicative)
+
+
+def hw_sse(params, y, period: int, multiplicative: bool = False,
+           n_valid=None):
+    """One-shot entry: :func:`hw_seeds`, then :func:`hw_sse_seeded`."""
+    _hw_check_period(period)
+    seeds = hw_seeds(y, period, multiplicative, n_valid)
+    return hw_sse_seeded(params, y, seeds, period, multiplicative)

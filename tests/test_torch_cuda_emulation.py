@@ -103,6 +103,8 @@ def kernels(emulated, monkeypatch):
 
     monkeypatch.setattr(ck, "_on_cuda", lambda device: True)
     monkeypatch.setattr(ck, "_launch", launch)
+    monkeypatch.setattr(ck, "hw_ring_in_registers", lambda m: bool(
+        emulated["hw"].sts_hw_ring_in_registers(m)))
     ck.reset_launch_counts()
     yield ck.LAUNCHES
     ck.reset_launch_counts()
@@ -220,3 +222,108 @@ def test_css_sources(kernels, p, q):
         _close(ck.hr_moments(yt, zb, p, q, True, m + q, m, beta),
                ck.hr_moments_plain(yt, zb, p, q, True, m + q, m, beta))
     assert kernels["css_fwd"] == 3 and kernels["css_bwd"] == 2
+
+
+def _ewma_inputs(t, b, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(t, b, generator=g).cumsum(0)
+    zb = torch.randint(0, max(t // 2, 1), (b,), generator=g).float()
+    zb[0], zb[1] = 0.0, t + 1.0  # a full row and a row never live
+    zb[2] = max(t - 1, 0)  # live at the last step only
+    x[torch.arange(t)[:, None] < zb[None, :]] = 0.0
+    return x, torch.rand(b, generator=g) * 0.9 + 0.05, zb
+
+
+@pytest.mark.parametrize("t", [1, 2, 45, 300])
+def test_ewma_fwd_source(kernels, t):
+    x, alpha, zb = _ewma_inputs(t, 270, seed=t)
+    for mode in ("e", "sum"):  # every operation rounded as PyTorch rounds it
+        np.testing.assert_array_equal(
+            ck.ewma_fwd(x, alpha, zb, mode).numpy(),
+            ck.ewma_fwd_plain(x, alpha, zb, mode).numpy())
+    s, sse = ck.ewma_fwd(x, alpha, zb, "both")
+    assert torch.equal(sse, ck.ewma_fwd(x, alpha, zb, "sum"))
+    assert torch.equal(s, ck.ewma_fwd(x, alpha, zb, "e"))
+    assert kernels["ewma_fwd"] == 5
+
+
+@pytest.mark.parametrize("t", [1, 45, 300])
+@pytest.mark.parametrize("cotangent", ["per-series", "panel"])
+@pytest.mark.parametrize("want_gx", [False, True])
+def test_ewma_bwd_source(kernels, t, cotangent, want_gx):
+    x, alpha, zb = _ewma_inputs(t, 270, seed=t + 1)
+    s = ck.ewma_fwd_plain(x, alpha, zb, "e")
+    g = torch.Generator().manual_seed(t)
+    cot = (torch.rand(270, generator=g) if cotangent == "per-series"
+           else torch.randn(t, 270, generator=g))
+    got = ck.ewma_bwd(x, s, alpha, zb, cot, want_gx)
+    ref = ck.ewma_bwd_plain(x, s, alpha, zb, cot, want_gx)
+    assert kernels["ewma_bwd"] == 1
+    assert (got[1] is None) == (not want_gx)
+    for a, e in zip(got, ref):
+        if e is not None:
+            _close(a, e)
+
+
+def _hw_inputs(t, b, m, mult, seed):
+    """Time-major seasonal panel (positive for the multiplicative model),
+    zeroed before ragged starts, with the kernels' seeds: some rows with
+    fewer than two valid seasons (clamped seed windows), one never live."""
+    g = torch.Generator().manual_seed(seed)
+    tt = torch.arange(t, dtype=torch.float32)[None, :]
+    y = (20.0 + 0.05 * tt + 3.0 * torch.sin(2 * np.pi * tt / m)
+         + 0.5 * torch.randn(b, t, generator=g))
+    nv = torch.randint(1, t + 1, (b,), generator=g)
+    nv[0], nv[1] = t, 0
+    y[tt.expand(b, t) < (t - nv)[:, None]] = 0.0
+    l0, t0, s0r, zb = ck.hw_seeds(y, m, mult, nv)
+    par = torch.rand(b, 3, generator=g) * 0.8 + 0.05
+    return y.t().contiguous(), par, l0, t0, s0r, zb
+
+
+# (period, T, ring route): every register-ring instantiation (T not a
+# multiple of the period in most, and one that is), and the global-scratch
+# ring, which every period without an instantiation takes
+HW_CASES = [(4, 45, "registers"), (6, 45, "registers"), (7, 101, "registers"),
+            (8, 50, "registers"), (12, 101, "registers"),
+            (24, 101, "registers"), (24, 48, "registers"), (5, 45, "global"),
+            (10, 101, "global"), (25, 60, "global")]
+
+
+def test_hw_cases_cover_every_ring_instantiation(kernels):
+    # the periods csrc/hw.cu instantiates with register rings, as it
+    # reports them, are the cases' register periods
+    assert {m for m in range(1, 1025) if ck.hw_ring_in_registers(m)} \
+        == {m for m, _, r in HW_CASES if r == "registers"}
+
+
+@pytest.mark.parametrize("m,t,route", HW_CASES)
+@pytest.mark.parametrize("mult", [False, True])
+def test_hw_fwd_source(kernels, m, t, route, mult):
+    assert ck.hw_ring_in_registers(m) == (route == "registers")
+    yt, par, l0, t0, s0r, zb = _hw_inputs(t, 130, m, mult, seed=m + t)
+    s0_before = s0r.clone()
+    got = ck.hw_fwd(yt, par, l0, t0, s0r, zb, m, mult, True)
+    ref = ck.hw_fwd_plain(yt, par, l0, t0, s0r, zb, m, mult, True)
+    for a, e in zip(got, ref):  # the same bits: _rn intrinsics throughout
+        np.testing.assert_array_equal(a.numpy(), e.numpy())
+    assert torch.equal(got[-1], ck.hw_fwd(yt, par, l0, t0, s0r, zb, m, mult))
+    assert torch.equal(s0r, s0_before)  # the caller's seeds stay untouched
+    assert kernels["hw_fwd"] == 2
+
+
+@pytest.mark.parametrize("m,t,route", HW_CASES)
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("cotangent", ["per-series", "panel"])
+def test_hw_bwd_source(kernels, m, t, route, mult, cotangent):
+    assert ck.hw_ring_in_registers(m) == (route == "registers")
+    yt, par, l0, t0, s0r, zb = _hw_inputs(t, 130, m, mult, seed=m * t)
+    e, lv, tr, so, _ = ck.hw_fwd_plain(yt, par, l0, t0, s0r, zb, m, mult,
+                                       True)
+    g = torch.Generator().manual_seed(t)
+    cot = (torch.rand(130, generator=g) if cotangent == "per-series"
+           else torch.randn(t, 130, generator=g))
+    got = ck.hw_bwd(yt, par, l0, t0, zb, lv, tr, so, e, cot, m, mult)
+    ref = ck.hw_bwd_plain(yt, par, l0, t0, zb, lv, tr, so, e, cot, m, mult)
+    assert kernels["hw_bwd"] == 1
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())

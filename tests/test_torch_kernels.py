@@ -1,6 +1,6 @@
 """The PyTorch port's kernel module against the JAX package (the CSS,
-Hannan-Rissanen and GARCH kernels; the transforms' kernels are in
-``test_torch_transforms.py``).
+Hannan-Rissanen, GARCH, EWMA and Holt-Winters kernels; the transforms'
+kernels are in ``test_torch_transforms.py``).
 
 On the CPU each wrapper of ``spark_timeseries_tpu_torch.ops.cuda_kernels``
 runs its kernel's plain PyTorch version (same arithmetic, same summation
@@ -17,7 +17,9 @@ import pytest
 import torch
 
 from spark_timeseries_tpu.models import arima as jarima
+from spark_timeseries_tpu.models import ewma as jewma
 from spark_timeseries_tpu.models import garch as jgarch
+from spark_timeseries_tpu.models import holtwinters as jhw
 from spark_timeseries_tpu.ops import pallas_kernels as pk
 from spark_timeseries_tpu.utils import linalg as jlinalg
 from spark_timeseries_tpu_torch.models import arima as tarima
@@ -327,9 +329,15 @@ def test_launch_counts_only_move_on_the_card():
     h, _ = ck.garch_fwd(yt, par, torch.ones(3), torch.zeros(3), "both")
     ck.garch_bwd(yt, par, torch.ones(3), torch.zeros(3), h, torch.ones(3),
                  True)
+    zb = torch.zeros(3)
+    s, _ = ck.ewma_fwd(yt, torch.full((3,), 0.5), zb, "both")
+    ck.ewma_bwd(yt, s, torch.full((3,), 0.5), zb, torch.ones(3), True)
+    out = ck.hw_fwd(yt, par, zb, zb, torch.zeros(3, 4), zb, 4, False, True)
+    ck.hw_bwd(yt, par, zb, zb, zb, *out[1:4], out[0], torch.ones(3), 4, False)
     assert ck.LAUNCHES == {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0,
                            "fill_chain": 0, "autocorr": 0, "garch_fwd": 0,
-                           "garch_bwd": 0}
+                           "garch_bwd": 0, "ewma_fwd": 0, "ewma_bwd": 0,
+                           "hw_fwd": 0, "hw_bwd": 0}
 
 
 # -- GARCH(1,1) kernels -------------------------------------------------------
@@ -495,3 +503,260 @@ def test_argarch_objective_gradient_matches_jax_grad(t):
     g_ref = jax.grad(loss_scan)(jnp.asarray(u))
     np.testing.assert_allclose(U.grad.numpy(), np.asarray(g_ref), rtol=1e-4,
                                atol=1e-4)
+
+
+# -- EWMA kernels ---------------------------------------------------------------
+
+
+def _ewma_panel(b, t, nv, seed):
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.normal(size=(b, t)), axis=1).astype(np.float32)
+    return (_prefix_zeroed(x, nv),
+            rng.uniform(0.1, 0.9, b).astype(np.float32))
+
+
+@pytest.mark.parametrize("t", [61, 2100])
+def test_ewma_sse_and_alpha_gradient_match_reference(t):
+    b = 5
+    nv = np.array([t, t - 6, t, t - 11, t - 1], np.int32)
+    if t > 1024:
+        nv[1] = t - 1100  # the start sits past the first 1024-step chunk
+    xz, alpha = _ewma_panel(b, t, nv, 21)
+    jx, jnv = jnp.asarray(xz), jnp.asarray(nv)
+
+    def ref_sse(a):
+        return pk.ewma_sse(a, jx, jnv, interpret=True)
+
+    A = _t(alpha).requires_grad_(True)
+    got = ck.ewma_sse(A, _t(xz), _t(nv, torch.int32))
+    ref_scan = jax.vmap(lambda a, v, n: jewma.sse(a, v, n))(
+        jnp.asarray(alpha), jx, jnv)
+    for ref in (ref_sse(jnp.asarray(alpha)), ref_scan):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                                   rtol=3e-5, atol=2e-5)
+    got.sum().backward()
+    g_ref = jax.grad(lambda a: jnp.sum(ref_sse(a)))(jnp.asarray(alpha))
+    np.testing.assert_allclose(A.grad.numpy(), np.asarray(g_ref), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("want_gx", [False, True])
+def test_ewma_data_gradient_matches_reference(monkeypatch, want_gx):
+    """The data cotangent, of the SSE and of the smoothed series, and that
+    the adjoint kernel is asked for it only when the data needs one."""
+    b, t = 4, 61
+    nv = np.array([t, t - 7, t - 1, 41], np.int32)
+    xz, alpha = _ewma_panel(b, t, nv, 23)
+    start = (t - nv).astype(np.float32)
+    w = np.random.default_rng(24).normal(size=(b, t)).astype(np.float32)
+    asked = []
+    real = ck.ewma_bwd
+
+    def spy(xt, st, a, zb, g, want=False):
+        asked.append(want)
+        return real(xt, st, a, zb, g, want)
+
+    monkeypatch.setattr(ck, "ewma_bwd", spy)
+    losses = {
+        "sse": (lambda a, x: jnp.sum(pk.ewma_sse(a, x, jnp.asarray(nv),
+                                                 interpret=True)),
+                lambda a, x: ck.ewma_sse(a, x, _t(nv, torch.int32)).sum()),
+        "smooth": (lambda a, x: jnp.sum(jnp.asarray(w) * pk.ewma_smooth(
+            a, x, jnp.asarray(start), interpret=True)),
+                   lambda a, x: (_t(w) * ck.ewma_smooth(a, x, _t(start))
+                                 ).sum()),
+    }
+    for name, (ref_loss, port_loss) in losses.items():
+        ga, gx = jax.grad(ref_loss, argnums=(0, 1))(jnp.asarray(alpha),
+                                                    jnp.asarray(xz))
+        A = _t(alpha).requires_grad_(True)
+        X = _t(xz).requires_grad_(want_gx)
+        port_loss(A, X).backward()
+        np.testing.assert_allclose(A.grad.numpy(), np.asarray(ga), rtol=1e-4,
+                                   atol=1e-4)
+        if want_gx:
+            np.testing.assert_allclose(X.grad.numpy(), np.asarray(gx),
+                                       rtol=1e-4, atol=1e-4)
+        else:
+            assert X.grad is None
+    assert asked == [want_gx, want_gx]
+
+
+def test_ewma_sum_and_both_bitwise():
+    b, t = 6, 300
+    xt = _t(np.cumsum(_returns(b, t, 5), axis=1).T.copy())
+    zb = _t(np.array([0, 5, 0, 40, 299, 301], np.float32))
+    xt[torch.arange(t)[:, None] < zb[None, :]] = 0.0
+    alpha = _t(np.linspace(0.05, 0.95, b, dtype=np.float32))
+    sse = ck.ewma_fwd(xt, alpha, zb, "sum")
+    s, sse2 = ck.ewma_fwd(xt, alpha, zb, "both")
+    assert torch.equal(sse, sse2)
+    assert torch.equal(s, ck.ewma_fwd(xt, alpha, zb, "e"))
+    assert float(sse[5]) == 0.0 and not s[:, 5].any()  # never live
+
+
+# -- Holt-Winters kernels -------------------------------------------------------
+
+
+def _seasonal(b, t, m, seed, level=10.0):
+    rng = np.random.default_rng(seed)
+    tt = np.arange(t)
+    return (level + 0.05 * tt[None, :] + 2.0 * np.sin(2 * np.pi * tt / m)
+            + rng.normal(scale=0.3, size=(b, t))).astype(np.float32)
+
+
+def _hw_params(b, seed):
+    return np.random.default_rng(seed).uniform(0.05, 0.9, (b, 3)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_hw_sse_and_gradient_match_reference(mult, ragged):
+    b, t, m = 5, 80, 6
+    y = _seasonal(b, t, m, 37, level=25.0 if mult else 10.0)
+    nv = None
+    if ragged:  # the last row is shorter than two seasons: clamped seeds
+        nv = np.array([t, t - 11, t - 29, t - 3, 2 * m - 2], np.int32)
+        y = _prefix_zeroed(y, nv)
+    params = _hw_params(b, 38)
+    jy = jnp.asarray(y)
+    jnv = None if nv is None else jnp.asarray(nv)
+
+    def ref_sse(P):
+        return pk.hw_sse(P, jy, m, mult, jnv, interpret=True)
+
+    P = _t(params).requires_grad_(True)
+    got = ck.hw_sse(P, _t(y), m, mult,
+                    None if nv is None else _t(nv, torch.int32))
+    if nv is None:
+        ref_scan = jax.vmap(lambda pr, v: jhw.sse(pr, v, m, mult))(
+            jnp.asarray(params), jy)
+    else:
+        ref_scan = jax.vmap(lambda pr, v, n: jhw.sse(pr, v, m, mult, n))(
+            jnp.asarray(params), jy, jnv)
+    # the reference's own bars between its kernel and scan backends
+    for ref in (ref_sse(jnp.asarray(params)), ref_scan):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                                   rtol=2e-4, atol=1e-3)
+    got.sum().backward()
+    g_ref = jax.grad(lambda P_: jnp.sum(ref_sse(P_)))(jnp.asarray(params))
+    np.testing.assert_allclose(P.grad.numpy(), np.asarray(g_ref), rtol=1e-3,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("mult", [False, True])
+def test_hw_long_series_matches_reference(mult):
+    # T past the reference's 1024-step time chunk, the path's period 24
+    b, t, m = 3, 1100, 24
+    nv = np.array([t, t - 1050, t - 13], np.int32)
+    y = _prefix_zeroed(_seasonal(b, t, m, 45, level=25.0), nv)
+    params = np.tile([[0.3, 0.02, 0.2]], (b, 1)).astype(np.float32)
+    params[1] = [0.1, 0.01, 0.5]
+    jy, jnv = jnp.asarray(y), jnp.asarray(nv)
+
+    def loss_scan(P):
+        return jax.vmap(lambda pr, v, n: jhw.sse(pr, v, m, mult, n))(
+            P, jy, jnv)
+
+    P = _t(params).requires_grad_(True)
+    got = ck.hw_sse(P, _t(y), m, mult, _t(nv, torch.int32))
+    np.testing.assert_allclose(got.detach().numpy(),
+                               np.asarray(loss_scan(jnp.asarray(params))),
+                               rtol=5e-4)
+    got.sum().backward()
+    g_ref = jax.grad(lambda P_: jnp.sum(loss_scan(P_)))(jnp.asarray(params))
+    np.testing.assert_allclose(P.grad.numpy(), np.asarray(g_ref), rtol=2e-3,
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("mult", [False, True])
+def test_hw_error_cotangent_matches_jax_grad(mult):
+    """The adjoint fed a [T, B] cotangent of the errors (no per-series
+    SSE): against jax.grad of the reference's scan through its errors."""
+    b, t, m = 4, 50, 6
+    nv = np.array([t, t - 7, t - 20, 2 * m + 1], np.int32)
+    y = _prefix_zeroed(_seasonal(b, t, m, 51, level=25.0), nv)
+    params = _hw_params(b, 52)
+    w = np.random.default_rng(53).normal(size=(b, t)).astype(np.float32)
+
+    def errors(P):
+        def one(pr, v, n):
+            preds, _ = jhw._run(pr, v, m, mult, n)
+            return jnp.where(jnp.arange(t) >= t - n + m, v - preds, 0.0)
+        return jax.vmap(one)(P, jnp.asarray(y), jnp.asarray(nv))
+
+    e_ref = errors(jnp.asarray(params))
+    g_ref = jax.grad(lambda P: jnp.sum(jnp.asarray(w) * errors(P)))(
+        jnp.asarray(params))
+    l0, t0, s0r, zb = ck.hw_seeds(_t(y), m, mult, _t(nv, torch.int32))
+    yt = layout.time_major(_t(y))
+    e, lv, tr, so, _ = ck.hw_fwd(yt, _t(params), l0, t0, s0r, zb, m, mult,
+                                 True)
+    np.testing.assert_allclose(e.t().numpy(), np.asarray(e_ref), rtol=1e-4,
+                               atol=1e-3)
+    gpar = ck.hw_bwd(yt, _t(params), l0, t0, zb, lv, tr, so, None,
+                     layout.time_major(_t(w)), m, mult)
+    np.testing.assert_allclose(gpar.numpy(), np.asarray(g_ref), rtol=1e-3,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("mult", [False, True])
+@pytest.mark.parametrize("path", ["dense", "general"])
+def test_hw_seeds_match_reference(mult, path):
+    b, t, m = 7, 120, 24
+    y = _seasonal(b, t, m, 41)
+    nv = None
+    if path == "general":  # incl. spans shorter than two and one season
+        nv = np.array([t, 100, 50, 47, 20, 3, 0], np.int32)
+        y = _prefix_zeroed(y, nv)
+    ref = pk.hw_seeds(jnp.asarray(y), m, mult,
+                      None if nv is None else jnp.asarray(nv))
+    got = ck.hw_seeds(_t(y), m, mult,
+                      None if nv is None else _t(nv, torch.int32))
+    # the level is a mean of 24 values near 10, summed in another order
+    # than XLA's: a few float32 ulps of the level apart
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=1e-6,
+                                   atol=1e-5)
+    if nv is None:  # zb = 0, no rotation: the general path at full spans
+        full = ck.hw_seeds(_t(y), m, mult, torch.full((b,), t))
+        for a, r in zip(got, full):
+            np.testing.assert_array_equal(a.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("mult", [False, True])
+def test_hw_sum_and_save_resid_bitwise(mult):
+    # the optimizer compares f across the value-only and trajectory-saving
+    # passes, so they must agree bit for bit
+    b, t, m = 6, 300, 24
+    nv = np.array([t, t - 5, t, t - 40, 30, 0], np.int32)
+    y = _t(_prefix_zeroed(_seasonal(b, t, m, 7, level=25.0), nv))
+    seeds = ck.hw_seeds(y, m, mult, _t(nv, torch.int32))
+    yt, params = layout.time_major(y), _t(_hw_params(b, 8) * 0.5)
+    sse = ck.hw_fwd(yt, params, *seeds, m, mult)
+    out = ck.hw_fwd(yt, params, *seeds, m, mult, True)
+    assert torch.equal(sse, out[-1])
+    assert float(sse[5]) == 0.0  # never live
+
+
+def test_smoothing_wrappers_reject_bad_arguments():
+    yt, zb = torch.zeros(10, 4), torch.zeros(4)
+    par = torch.full((4, 3), 0.3)
+    with pytest.raises(ValueError):
+        ck.ewma_fwd(yt, zb, zb, "tail")
+    with pytest.raises(TypeError):
+        ck.ewma_fwd(yt.double(), zb, zb, "sum")
+    with pytest.raises(ValueError):  # a cotangent of neither shape
+        ck.ewma_bwd(yt, yt, zb, zb, torch.zeros(9, 4))
+    with pytest.raises(ValueError):  # the ring must be [B, period]
+        ck.hw_fwd(yt, par, zb, zb, torch.zeros(4, 5), zb, 4, False)
+    with pytest.raises(TypeError):  # the per-series cotangent needs e
+        ck.hw_bwd(yt, par, zb, zb, zb, yt, yt, yt, None, zb, 4, False)
+    assert ck.hw_structural_ok(24) and ck.hw_structural_ok(1024)
+    assert not ck.hw_structural_ok(0) and not ck.hw_structural_ok(1025)
+    for call in (lambda: ck.hw_sse(par, torch.zeros(4, 2100), 1025),
+                 lambda: ck.hw_fwd(torch.zeros(2100, 4), par, zb, zb,
+                                   torch.zeros(4, 1025), zb, 1025, False)):
+        with pytest.raises(ValueError, match="period"):
+            call()
