@@ -8,13 +8,18 @@ Phases; each failure makes the script exit non-zero with no result line:
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from the seven sources in
    ``spark_timeseries_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once) and print the build seconds and each source's registers, stack
-   frames and spills (per instantiation for the Holt-Winters kernels);
+   once, with ``garch.cu`` also at each ring depth of ``GARCH_DEPTHS``) and
+   print the build seconds and each source's registers, stack frames and
+   spills (per instantiation for the Holt-Winters and GARCH kernels), and
+   for the GARCH kernels their ring's shared memory, blocks an SM, SASS
+   instructions a step and the issue-rate floor they imply;
 3. hold each of the eleven kernels against its plain PyTorch version on the
    card, at B = 65,537 x T = 1,000 and B = 4,097 x T = 3,000 (ragged
    panels; for the transforms also all-NaN, constant and trailing-NaN rows;
    for the smoothing kernels a never-live row, a row shorter than two
-   seasons and the register-ring and global-ring Holt-Winters routes);
+   seasons and the register-ring and global-ring Holt-Winters routes; for
+   the GARCH forward rows outside its fast divide's range, and that divide
+   against ``__fdiv_rn`` bit for bit over 2^35 pseudo-random pairs);
 4. drive the ARIMA path: ``arima.fit`` of a 1,000,000 x 1,000 float32
    ARIMA(1,1,1) panel (the BASELINE.json headline) built on the card from a
    seeded generator, then ``arima.forecast(..., 30)``, with the kernel
@@ -39,7 +44,8 @@ Phases; each failure makes the script exit non-zero with no result line:
    (both backends); profile a warm additive fit;
 7. time each kernel at its path's shape with CUDA events, beside its plain
    version and its bound (bytes over 3.35 TB/s, flops over the float32
-   rate, whichever is larger); at the hourly path's shape first hold every
+   rate, whichever is larger), every GARCH variant the pipeline runs also
+   at each ring depth; at the hourly path's shape first hold every
    smoothing-kernel variant that path runs against its plain version.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -48,6 +54,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -63,6 +70,8 @@ VOL_ROWS, VOL_TIME = 100_000, 2_520  # the volatility pipeline's panel
 HOURLY_ROWS, HOURLY_TIME = 1_000_000, 960  # the hourly path's panel
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# ring depths (time steps) garch.cu is built and timed at; it ships one
+GARCH_DEPTHS = (8, 16, 32)
 
 # Tolerances of kernel vs plain version, relative to the largest magnitude
 # of the plain result (NaNs must sit at the same places).  The two differ
@@ -427,6 +436,22 @@ def phase_kernels_volatility(chk: Checks, device,
                     "garch_fwd sum == both bitwise")
         chk.compare("garch_fwd", "mode both (variances)", h,
                     ck.garch_fwd_plain(r, params, h0, zb, "e"))
+        # rows whose r^2 or h leave the forward's fast divide: walked again
+        # with __fdiv_rn; each row held on its own scale
+        rx = r[:, :6].clone()
+        rx[:, 0] = 1e-20  # r^2 subnormal
+        rx[t // 2, 1] = 1e16  # r^2 and the next h above 2^60
+        rx[:, 2] = 1e-30  # r^2 rounds to 0, inside the range
+        rx[:, 3] *= 1e-12  # r^2 about 2^-80
+        pe, he, ze = params[:6].contiguous(), h0[:6].contiguous(), zb[:6]
+        s_e = ck.garch_fwd(rx, pe, he, ze, "sum")
+        s_ref = ck.garch_fwd_plain(rx, pe, he, ze, "sum")
+        chk.require(all(rel_err(s_e[i:i + 1], s_ref[i:i + 1])[1]
+                        <= TOL["garch_fwd"] for i in range(6)),
+                    "garch_fwd sum on rows outside the fast divide's range, "
+                    "row by row")
+        chk.require(torch.equal(ck.garch_fwd(rx, pe, he, ze, "both")[1], s_e),
+                    "garch_fwd sum == both bitwise on those rows")
         gbar = torch.rand(b, generator=gen, device=device) / t
         gpan = torch.randn(t, b, generator=gen, device=device)
         for g, name in ((gbar, "per-series"), (gpan, "[T, B] panel")):
@@ -440,6 +465,24 @@ def phase_kernels_volatility(chk: Checks, device,
                     chk.compare("garch_bwd", f"dr, {what}", got[2], ref[2])
         del r, h, gpan, rt
         torch.cuda.synchronize()
+
+
+def check_garch_divide(chk: Checks, device, pairs: int = 1 << 35) -> None:
+    """The GARCH forward's branch-free divide against ``__fdiv_rn`` on the
+    card, bit for bit, over ``pairs`` pseudo-random pairs."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    cnt = torch.zeros(2, dtype=torch.int64, device=device)
+    rc = _build.load("garch").sts_garch_check_divide(
+        pairs, 1, cnt.data_ptr(), cnt.data_ptr() + 8,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"sts_garch_check_divide failed: {rc}")
+    tried, differ = cnt.tolist()
+    log(f"  garch fast divide vs __fdiv_rn: {differ} of {tried} in-range "
+        f"pairs differ ({pairs} drawn)")
+    chk.require(differ == 0 and tried > pairs // 4,
+                "garch fast divide bitwise equal to __fdiv_rn")
 
 
 def phase_pipeline(chk: Checks, rows: int, t: int, device) -> dict:
@@ -646,34 +689,45 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     out["autocorr"] = (ms, plain, *_bound(f * (n_el + nl * B),
                                           (2 * nl + 5) * n_el))
     del rt
-    # GARCH forward, mode sum (every line-search trial): reads r, the
-    # parameters, h0 and zb, writes ll; per element the square, the
-    # recursion (2 multiply-adds), the clamp, the log, a multiply, a
-    # divide and two adds
-    ms = cuda_ms(lambda: ck.garch_fwd(rz, params, h0, zb, "sum"))
+    # GARCH, every variant the pipeline launches.  Forward: reads r, the
+    # parameters, h0 and zb, writes ll (sum, every line-search trial), ll
+    # and h (both, every gradient evaluation) or h_T (last, the forecast);
+    # per element the square, the recursion (2 multiply-adds), the clamp,
+    # the log, a multiply, a divide and two adds.  Adjoint with the
+    # per-series cotangent (the fit's gradient): reads r and h, writes 4
+    # sums per series; ~20 flops an element, and the dr panel for ARGARCH
+    garch = {
+        "fwd sum": (lambda: ck.garch_fwd(rz, params, h0, zb, "sum"),
+                    f * (n_el + 6 * B), 11 * n_el),
+        "fwd both": (lambda: ck.garch_fwd(rz, params, h0, zb, "both"),
+                     f * (2 * n_el + 6 * B), 11 * n_el),
+        "fwd last": (lambda: ck.garch_fwd(rz, params, h0, zb, "last"),
+                     f * (n_el + 6 * B), 5 * n_el),
+        "bwd": (lambda: ck.garch_bwd(rz, params, h0, zb, h, gbar),
+                f * (2 * n_el + 10 * B), 20 * n_el),
+        "bwd dr": (lambda: ck.garch_bwd(rz, params, h0, zb, h, gbar, True),
+                   f * (3 * n_el + 10 * B), 24 * n_el),
+    }
+    garch_ms = {}
+    for name, (fn, nbytes, flops) in garch.items():
+        ms = garch_ms[name] = cuda_ms(fn)
+        bms, by = _bound(nbytes, flops)
+        log(f"  garch_{name:9s} {ms:.3f} ms = {nbytes / ms / 1e9:.3f} TB/s, "
+            f"{100 * bms / ms:.1f} % of its bound {bms:.3f} ms ({by})")
     plain = cuda_ms(lambda: ck.garch_fwd_plain(rz, params, h0, zb, "sum"),
                     reps=1)
-    out["garch_fwd"] = (ms, plain, *_bound(f * (n_el + 6 * B), 11 * n_el))
-    log("  garch_fwd mode both: "
-        f"{cuda_ms(lambda: ck.garch_fwd(rz, params, h0, zb, 'both')):.3f} ms"
-        f" (bound {_bound(f * (2 * n_el + 6 * B), 11 * n_el)[0]:.3f} ms)")
-    # GARCH adjoint with the per-series cotangent (the fit's gradient):
-    # reads r and h, writes 4 sums per series; ~20 flops per element
-    ms = cuda_ms(lambda: ck.garch_bwd(rz, params, h0, zb, h, gbar))
+    out["garch_fwd"] = (garch_ms["fwd sum"], plain,
+                        *_bound(*garch["fwd sum"][1:]))
     plain = cuda_ms(lambda: ck.garch_bwd_plain(rz, params, h0, zb, h, gbar),
                     reps=1)
-    out["garch_bwd"] = (ms, plain, *_bound(f * (2 * n_el + 10 * B),
-                                           20 * n_el))
-    ms_dr = cuda_ms(lambda: ck.garch_bwd(rz, params, h0, zb, h, gbar, True))
-    log(f"  garch_bwd with the returns' cotangent (ARGARCH): {ms_dr:.3f} ms "
-        f"(bound {_bound(f * (3 * n_el + 10 * B), 24 * n_el)[0]:.3f} ms)")
+    out["garch_bwd"] = (garch_ms["bwd"], plain, *_bound(*garch["bwd"][1:]))
+    garch_depths(chk, rz, params, h0, zb, h, gbar, garch)
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name:10s} {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
             f"{bms:.3f} ms ({by})  library: none (no single PyTorch call "
             "computes this function)")
-    # one thread per series keeps one 4-byte load in flight per thread:
-    # the same kernel over 4x the series shows how far the rate is set by
-    # the number of threads rather than by the memory
+    # the same forward over 4x the series: how far the rate still follows
+    # the number of threads rather than the memory
     del h, rz
     b4 = 4 * B
     r4 = torch.randn(t, b4, device=device)
@@ -683,6 +737,80 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
         f"{4 * t * b4 / ms4 / 1e9:.3f} TB/s (at B={B}: "
         f"{4 * n_el / out['garch_fwd'][0] / 1e9:.3f} TB/s)")
     return out
+
+
+def _garch_lib_calls(lib, rz, params, h0, zb, h, gbar) -> dict:
+    """The pipeline's five GARCH launches straight through ``lib`` (a build
+    of ``garch.cu``), each returning its outputs; keyed as in
+    :func:`phase_timing_volatility`."""
+    t, b = rz.shape
+    par_t = params.t().contiguous()
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+
+    def run(fn, *args):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"GARCH launch failed with CUDA error {rc}")
+
+    def fwd(mode):
+        def call():
+            hh = torch.empty_like(rz) if mode in (0, 2) else None
+            ll = rz.new_empty(b) if mode in (1, 2) else None
+            hl = rz.new_empty(b) if mode == 3 else None
+            run(lib.sts_garch_fwd, ptr(rz), ptr(par_t), ptr(h0), ptr(zb),
+                ptr(hh), ptr(ll), ptr(hl), b, t, mode)
+            return [x for x in (hh, ll, hl) if x is not None]
+        return call
+
+    def bwd(want_gr):
+        def call():
+            gpar, gh0 = rz.new_empty(3, b), rz.new_empty(b)
+            gr = torch.empty_like(rz) if want_gr else None
+            run(lib.sts_garch_bwd, ptr(rz), ptr(par_t), ptr(h0), ptr(zb),
+                ptr(h), ptr(gbar), ptr(gpar), ptr(gh0), ptr(gr), b, t, 1)
+            return [gpar.t(), gh0] + ([gr] if want_gr else [])
+        return call
+
+    return {"fwd sum": fwd(1), "fwd both": fwd(2), "fwd last": fwd(3),
+            "bwd": bwd(False), "bwd dr": bwd(True)}
+
+
+def garch_depths(chk: Checks, rz, params, h0, zb, h, gbar, garch) -> None:
+    """Each GARCH launch at every ring depth of ``GARCH_DEPTHS`` (builds of
+    ``garch.cu`` with that depth, called directly), in turns, each held
+    against the shipped build's outputs first (the forward bitwise)."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    shipped = _build.load("garch").sts_garch_ring_depth()
+    ref = _garch_lib_calls(_build.load("garch"), rz, params, h0, zb, h, gbar)
+    calls = {d: _garch_lib_calls(_build.load(*_garch_depth_key(d)), rz,
+                                 params, h0, zb, h, gbar)
+             for d in GARCH_DEPTHS}
+    for name in garch:
+        want = ref[name]()
+        for d in GARCH_DEPTHS:
+            got = calls[d][name]()
+            if name.startswith("fwd"):
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+            else:
+                same = all(rel_err(g, w)[1] <= TOL["garch_bwd"]
+                           for g, w in zip(got, want))
+            chk.require(same, f"garch {name} at D={d} agrees with the "
+                        f"shipped D={shipped}")
+        del got, want
+    log(f"  garch ring depths (ms; shipped D={shipped}; each depth timed "
+        "twice, in turns, second pass in brackets):")
+    times = {(name, d): [] for name in garch for d in GARCH_DEPTHS}
+    for order in (GARCH_DEPTHS, GARCH_DEPTHS[::-1]):
+        for name in garch:
+            for d in order:
+                times[name, d].append(cuda_ms(calls[d][name]))
+    for name, (_, nbytes, flops) in garch.items():
+        bms = _bound(nbytes, flops)[0]
+        log(f"    {name:9s} " + "  ".join(
+            f"D={d}: {times[name, d][0]:.3f} [{times[name, d][1]:.3f}] "
+            f"({100 * bms / min(times[name, d]):.1f} %)"
+            for d in GARCH_DEPTHS))
 
 
 def _seasonal_rows(b: int, t: int, seed: int, device):
@@ -1183,12 +1311,17 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
     return out
 
 
+def _garch_depth_key(depth: int):
+    return ("garch", (f"STS_GARCH_DEPTH={depth}",))
+
+
 def build() -> None:
     """Phase 2: every source at once, then load each library."""
     from spark_timeseries_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(
+        variants=[_garch_depth_key(d) for d in GARCH_DEPTHS])
     for name in _build.SOURCES:
         _build.load(name)
     log(f"phase 2: built {sorted(logs) or 'nothing (up to date)'} in "
@@ -1200,31 +1333,154 @@ def build() -> None:
         log(f"  {name}: {len(regs)} kernels, registers per thread "
             f"{min(regs, default=0)}..{max(regs, default=0)}, largest stack "
             f"frame {max(frame, default=0)} B, spill stores {sum(spill)} B")
-        if name.startswith("libhw-"):  # one line per ring instantiation
+        if name.startswith(("libhw-", "libgarch")):  # each instantiation
             for kern, info in _ptxas_entries(text):
                 log(f"    {kern}: {info}")
+    garch_report()
 
 
 def _ptxas_entries(text: str):
-    """(kernel, "R registers, F B stack frame, S B spill stores") for each
-    entry function of a ``-Xptxas=-v`` log, template arguments decoded
-    from the mangled name (``hw_fwd_k<24, 1>`` = period 24, multiplicative;
-    period 0 is the global-ring route)."""
+    """(kernel, "R registers, F B stack frame, S B spill stores, M B static
+    smem") for each entry function of a ``-Xptxas=-v`` log, template
+    arguments decoded from the mangled name (``hw_fwd_k<24, 1>`` = period
+    24, multiplicative; period 0 is the global-ring route)."""
     out = []
     for part in text.split("Compiling entry function '")[1:]:
         mangled = part.split("'", 1)[0]
-        lm = re.search(r"\d([A-Za-z_]+_k)I((?:L[ib]\d+E)+)E", mangled)
-        kern = mangled
-        if lm is not None:
-            args = re.findall(r"L[ib](\d+)E", lm.group(2))
-            kern = f"{lm.group(1)}<{', '.join(args)}>"
         regs = re.search(r"Used (\d+) registers", part)
         frame = re.search(r"(\d+) bytes stack frame", part)
         spill = re.search(r"(\d+) bytes spill stores", part)
-        out.append((kern, f"{regs.group(1) if regs else '?'} registers, "
+        smem = re.search(r"(\d+) bytes smem", part)
+        out.append((_kernel_name(mangled),
+                    f"{regs.group(1) if regs else '?'} registers, "
                     f"{frame.group(1) if frame else '?'} B stack frame, "
-                    f"{spill.group(1) if spill else '?'} B spill stores"))
+                    f"{spill.group(1) if spill else '?'} B spill stores, "
+                    f"{smem.group(1) if smem else 0} B static smem"))
     return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """``hw_fwd_k<24, 1>`` from a kernel's mangled name (the length-prefixed
+    identifier ending in ``_k``, then its integer template arguments)."""
+    for i in range(len(mangled)):  # a length prefix may follow a digit
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            continue
+        end = i + m.end()
+        name = mangled[end:end + int(m.group())]
+        if name.endswith("_k") and name.isidentifier():
+            rest = mangled[end + len(name):]
+            args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+            if args is None:
+                return name
+            vals = re.findall(r"L[ib](\d+)E", args.group(1))
+            return f"{name}<{', '.join(vals)}>"
+    return mangled
+
+
+def _sass_main_loops(path) -> dict:
+    """``{kernel: (instructions, shared loads)}`` of each kernel's main loop
+    in ``cuobjdump -sass`` of the library at ``path``: of the spans that
+    end in a backward branch, the one with the most shared loads (``LDS``,
+    one a panel a step), the shortest of those (the steady-state loop, not
+    the one refilling the last stages).  Empty when the toolkit has no
+    ``cuobjdump``."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return {}
+    return _sass_loops(subprocess.run(
+        [str(tool), "-sass", str(path)], capture_output=True, text=True,
+        timeout=300, check=True).stdout)
+
+
+def _sass_loops(text: str) -> dict:
+    """:func:`_sass_main_loops` on the text of a ``cuobjdump -sass``."""
+    out = {}
+    for func in re.split(r"\n\s*Function : ", text)[1:]:
+        lines = func.splitlines()
+        labels, pending, instrs = {}, [], []
+        for line in lines[1:]:
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                addr = int(m.group(1), 16)
+                labels.update((name, addr) for name in pending)
+                pending = []
+                words = m.group(2).split()
+                if words[0] == "@!PT":  # never issued: scheduling padding
+                    continue
+                op = words[1] if words[0].startswith("@") else words[0]
+                instrs.append((addr, op.split(".")[0], m.group(2)))
+        best = (0, 0)
+        for addr, op, ins in instrs:
+            if op != "BRA":
+                continue
+            tm = re.search(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b", ins)
+            if tm is None:
+                continue
+            target = (labels.get(tm.group(1)) if tm.group(1)
+                      else int(tm.group(2), 16))
+            if target is None or target > addr:
+                continue
+            body = [o for a, o, _ in instrs if target <= a <= addr]
+            best = max(best, (body.count("LDS"), -len(body)))
+        out[_kernel_name(lines[0].strip())] = (-best[1], best[0])
+    return out
+
+
+def garch_report() -> None:
+    """The GARCH kernels' ring: depth, shared memory and blocks an SM (from
+    the card), SASS instructions a step of each kernel's main loop and the
+    issue-rate floor they imply at the pipeline's shape (one warp
+    instruction a clock on each of an SM's four schedulers)."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    lib = _build.load("garch")
+    depth = lib.sts_garch_ring_depth()
+    log(f"  garch ring: depth D = {depth} steps shipped (built and timed "
+        f"at {list(GARCH_DEPTHS)})")
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    for k, what in enumerate(("forward (sum)", "adjoint, per-series "
+                              "cotangent, with dr", "adjoint, [T, B] "
+                              "cotangent")):
+        rc = lib.sts_garch_occupancy(k, ctypes.byref(blocks),
+                                     ctypes.byref(smem))
+        if rc:
+            raise RuntimeError(f"sts_garch_occupancy({k}) failed: {rc}")
+        log(f"    {what}: {smem.value} B dynamic smem a block, "
+            f"{blocks.value} blocks an SM")
+    props = torch.cuda.get_device_properties(0)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+    n_el = VOL_ROWS * VOL_TIME
+    for d in sorted({depth, *GARCH_DEPTHS}):
+        path = (_build.library_path("garch") if d == depth
+                else _build.library_path(*_garch_depth_key(d)))
+        loops = _sass_main_loops(path)
+        if not loops:
+            log("    cuobjdump not found: no SASS counts")
+            return
+        for kern, (n_ins, n_lds) in sorted(loops.items()):
+            panels = 1 if "fwd" in kern else (2 if "<1" in kern else 3)
+            if not n_lds:
+                log(f"    D={d} {kern}: no loop with shared loads found")
+                continue
+            per_step = n_ins * panels / n_lds
+            floor_ms = (1e3 * per_step * n_el / 32
+                        / (props.multi_processor_count * 4
+                           * float(clock) * 1e6))
+            log(f"    D={d} {kern}: main loop {n_ins} SASS instructions "
+                f"for {n_lds // panels} steps = {per_step:.1f} a step; "
+                f"issue floor at [{VOL_TIME}, {VOL_ROWS}] {floor_ms:.3f} ms "
+                f"({props.multi_processor_count} SMs x 4 schedulers at "
+                f"{clock} MHz)")
 
 
 def main() -> int:
@@ -1242,6 +1498,7 @@ def main() -> int:
     chk = Checks()
     phase_kernels(chk, device)
     phase_kernels_volatility(chk, device)
+    check_garch_divide(chk, device)
     phase_kernels_smoothing(chk, device)
     if chk.failures:  # a kernel that disagrees makes the rest meaningless
         log("FAILED: " + "; ".join(chk.failures))

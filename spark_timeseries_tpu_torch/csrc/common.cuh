@@ -9,6 +9,8 @@
 // Kernels launch on the caller's stream, allocate nothing, never
 // synchronise, and use no atomics: every reduction is one thread's
 // sequential sum in a fixed order, so results are bitwise reproducible.
+// Shared memory, where a kernel stages loads in it, is per-thread columns
+// of a block's array: no thread reads another's words, so no barriers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +22,20 @@
 #ifndef STS_LAUNCH
 #define STS_LAUNCH(grid, stream, ...) \
   __VA_ARGS__<<<(grid), ::sts::kThreads, 0, (stream)>>>
+#endif
+
+// The same with `smem` bytes of dynamic shared memory a block (above 48 KB
+// only after cudaFuncSetAttribute(kern,
+// cudaFuncAttributeMaxDynamicSharedMemorySize, smem)).
+#ifndef STS_LAUNCH_SMEM
+#define STS_LAUNCH_SMEM(grid, smem, stream, ...) \
+  __VA_ARGS__<<<(grid), ::sts::kThreads, (smem), (stream)>>>
+#endif
+
+// The block's dynamic shared memory as a float array `name` (16-byte
+// aligned), declared inside a kernel or device function.
+#ifndef STS_SHARED_FLOATS
+#define STS_SHARED_FLOATS(name) extern __shared__ __align__(16) float name[]
 #endif
 
 namespace sts {

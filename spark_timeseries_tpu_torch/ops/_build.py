@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``, a shared
 library with a plain C interface (no PyTorch headers, so a source builds in
 seconds).  The hash covers the source, the shared headers and the flags, so
 an edited source is rebuilt at its next use and an unchanged one is loaded
-as built.  :func:`build_all` starts one ``nvcc`` per source at once.
+as built.  :func:`build_all` starts one ``nvcc`` per source at once.  A
+variant of a source built with extra ``-D`` macros (``garch.cu``'s ring
+depth) is a library of its own, keyed by them too; the wrappers load the
+plain build.
 
 A failed build raises: nothing here falls back to another path.
 """
@@ -50,6 +53,10 @@ SIGNATURES = {
         "sts_garch_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
         "sts_garch_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                           _P],
+        "sts_garch_ring_depth": [],
+        "sts_garch_check_divide": [ctypes.c_ulonglong, ctypes.c_ulonglong,
+                                   _P, _P, _P],
+        "sts_garch_occupancy": [_I, _P, _P],
     },
     "ewma": {
         "sts_ewma_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -77,32 +84,43 @@ def nvcc() -> str:
     return found
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def _digest(name: str, defines=()) -> str:
+    h = hashlib.sha256(" ".join(FLAGS + _dflags(defines)).encode())
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _target(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+def _dflags(defines) -> tuple:
+    return tuple(f"-D{d}" for d in defines)
 
 
-def _start(name: str, out: Path):
+def library_path(name: str, defines=()) -> Path:
+    """Where the library of ``csrc/<name>.cu`` built with ``defines`` is
+    (or will be)."""
+    tag = "".join(f"-{d}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{_digest(name, defines)}.so"
+
+
+def _start(name: str, defines, out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *FLAGS, *_dflags(defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def build_all(names=SOURCES) -> dict:
-    """Build every stale library at once (one ``nvcc`` per source) ->
-    ``{name: compiler log}`` for the sources it built."""
+def build_all(names=SOURCES, variants=()) -> dict:
+    """Build every stale library at once (one ``nvcc`` per source, and one
+    per ``(name, defines)`` of ``variants``) -> ``{library file: compiler
+    log}`` for the libraries it built."""
     logs = {}
-    jobs = [_start(n, t) for n in names if not (t := _target(n)).is_file()]
+    wanted = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
+    jobs = [_start(n, d, t) for n, d in wanted
+            if not (t := library_path(n, d)).is_file()]
     try:
         for proc, tmp, out in jobs:
             log, _ = proc.communicate()
@@ -118,18 +136,20 @@ def build_all(names=SOURCES) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use, with
-    every function's ``argtypes`` / ``restype`` declared."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with ``-D`` of each
+    of ``defines``), built on first use, with every function's
+    ``argtypes`` / ``restype`` declared."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            out = _target(name)
+            out = library_path(*key)
             if not out.is_file():
-                build_all((name,))
+                build_all((), (key,))
             lib = ctypes.CDLL(str(out))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            _libs[name] = lib
+            _libs[key] = lib
         return lib

@@ -629,7 +629,7 @@ def garch_bwd(rt, params, h0, zb, ht, g, want_gr: bool = False):
 
 def garch_bwd_plain(rt, params, h0, zb, ht, g, want_gr: bool = False):
     """Plain PyTorch version of :func:`garch_bwd` (the kernel's order: t
-    descending)."""
+    descending; ``1 / hc`` formed once, as the kernel forms it)."""
     T, B = rt.shape
     g_is_ll = g.dim() == 1
     alpha, beta = params[:, 1], params[:, 2]
@@ -642,9 +642,10 @@ def garch_bwd_plain(rt, params, h0, zb, ht, g, want_gr: bool = False):
         hp = ht[t - 1] if t >= 1 else h0
         live = zb <= t
         hc = torch.clamp(hv, min=_H_MIN)
+        inv = 1.0 / hc
         if g_is_ll:
             gt = torch.where(live & (hv >= _H_MIN),
-                             g * (1.0 / hc - (rv * rv) / (hc * hc)), 0.0)
+                             g * (inv - (rv * rv) * (inv * inv)), 0.0)
         else:
             gt = g[t]
         next_live = (zb < t + 1) & (t + 1 < T)
@@ -660,7 +661,7 @@ def garch_bwd_plain(rt, params, h0, zb, ht, g, want_gr: bool = False):
         if want_gr:
             v = gr2 * 2.0 * rv
             if g_is_ll:
-                v = v + torch.where(live, g * 2.0 * rv / hc, 0.0)
+                v = v + torch.where(live, g * 2.0 * rv * inv, 0.0)
             grs[t] = v
         lam_next = lam
     gr = None

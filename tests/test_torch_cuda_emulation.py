@@ -1,9 +1,13 @@
 """The CUDA kernels' own source, run on the CPU against the plain versions.
 
 A host without ``nvcc`` cannot build ``spark_timeseries_tpu_torch/csrc``
-for the card, but the kernels use no shared memory, barriers or atomics,
-so g++ compiles the same source against a small header that defines the
-CUDA names it uses, with every launch a loop over blocks and threads.  Each
+for the card, but the kernels use no barriers or atomics, and shared
+memory only as per-thread columns, so g++ compiles the same source against
+a small header that defines the CUDA names it uses, with every launch a
+loop over blocks and threads, run one thread after another.  Dynamic
+shared memory is one buffer a launch, set to NaN before each thread (a
+thread that read a word it did not copy would see NaN), and ``cp.async``
+is a plain copy whose commit and wait do nothing.  Each
 kernel, loaded with ctypes through the wrappers of ``ops.cuda_kernels``,
 is then held against its plain PyTorch version on the same inputs.  This
 checks the kernels' logic (indexing, masks, modes, ring capacities);
@@ -26,19 +30,36 @@ _HEADER = r"""
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <vector>
 using std::isnan;
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
   dim3() {}
   dim3(unsigned a) : x(a) {}
 };
-inline dim3 blockIdx, threadIdx, blockDim;
+inline dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
+typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+#ifndef EMU_SMEM_LIMIT
+#define EMU_SMEM_LIMIT (227 * 1024)  // the dynamic shared memory a card grants
+#endif
+template <class T> int cudaFuncSetAttribute(T*, cudaFuncAttribute, int v) {
+  return v > EMU_SMEM_LIMIT ? cudaErrorInvalidValue : cudaSuccess;
+}
+template <class T>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T*, int, size_t) {
+  *n = 1;
+  return 0;
+}
 #define __global__
 #define __device__
 #define __host__
+#define __shared__
+#define __align__(n) alignas(n)
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -47,24 +68,57 @@ inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
+template <class T> T atomicAdd(T* p, T v) { T old = *p; *p += v; return old; }
 namespace emu {
+inline std::vector<float> shared;  // the launch's dynamic shared memory
 template <class K> struct Launcher {
   dim3 g;
+  unsigned threads;
+  size_t smem;
   K k;
   template <class... A> void operator()(A... a) const {
-    blockDim = dim3(256);
+    blockDim = dim3(threads);
+    gridDim = g;
+    shared.resize(smem / sizeof(float));
     for (unsigned bx = 0; bx < g.x; ++bx)
-      for (unsigned tx = 0; tx < 256; ++tx) {
+      for (unsigned tx = 0; tx < threads; ++tx) {
         blockIdx = dim3(bx);
         threadIdx = dim3(tx);
+        std::fill(shared.begin(), shared.end(), std::nanf(""));
         k(a...);
       }
   }
 };
+template <class K>
+Launcher<K> launcher(dim3 g, unsigned threads, size_t smem, K k) {
+  return {g, threads, smem, k};
+}
 }  // namespace emu
 #define STS_LAUNCH(grid, stream, ...) \
-  ::emu::Launcher<decltype(&__VA_ARGS__)>{(grid), &__VA_ARGS__}
+  ::emu::launcher((grid), ::sts::kThreads, 0, __VA_ARGS__)
+#define STS_LAUNCH_SMEM(grid, smem, stream, ...) \
+  ::emu::launcher((grid), ::sts::kThreads, (smem), __VA_ARGS__)
+#define STS_SHARED_FLOATS(name) float* const name = ::emu::shared.data()
 """
+
+# <cuda_pipeline.h>: cp.async as a copy that has landed when it returns
+_PIPELINE = r"""
+#pragma once
+#include <cstddef>
+#include <cstring>
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t zfill = 0) {
+  std::memcpy(dst, src, n - zfill);
+  std::memset(static_cast<char*>(dst) + n - zfill, 0, zfill);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+"""
+
+# the GARCH ring depths chip_smoke.py builds and times; csrc/garch.cu ships
+# one of them
+GARCH_DEPTHS = (8, 16, 32)
 
 
 @pytest.fixture(scope="module")
@@ -76,20 +130,28 @@ def emulated(tmp_path_factory):
                     "built")
     d = tmp_path_factory.mktemp("cuda_emu")
     (d / "cuda_runtime.h").write_text(_HEADER)
-    jobs = {name: subprocess.Popen(
+    (d / "cuda_pipeline.h").write_text(_PIPELINE)
+    builds = {name: (name, []) for name in _build.SOURCES}
+    builds.update({f"garch-D{k}": ("garch", [f"-DSTS_GARCH_DEPTH={k}"])
+                   for k in GARCH_DEPTHS})
+    builds["garch-48K"] = ("garch", ["-DEMU_SMEM_LIMIT=49152",
+                                     "-DSTS_GARCH_DEPTH=32"])
+    jobs = {key: subprocess.Popen(
         [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         f"-I{d}", "-x", "c++", str(_build.CSRC / f"{name}.cu"), "-o",
-         str(d / f"lib{name}.so")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for name in _build.SOURCES}
+         f"-I{d}", *defs, "-x", "c++", str(_build.CSRC / f"{name}.cu"),
+         "-o", str(d / f"lib{key}.so")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for key, (name, defs) in builds.items()}
     libs = {}
-    for name, proc in jobs.items():
+    for key, proc in jobs.items():
         out, _ = proc.communicate(timeout=300)
         assert proc.returncode == 0, out
-        lib = ctypes.CDLL(str(d / f"lib{name}.so"))
+        lib = ctypes.CDLL(str(d / f"lib{key}.so"))
+        name = builds[key][0]
         for fn, argtypes in _build.SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
+        libs[key] = lib
     return libs
 
 
@@ -154,11 +216,71 @@ def test_autocorr_source(kernels, nl):
     _close(got, ck.autocorr_plain(y, nl))
 
 
+@pytest.fixture(params=GARCH_DEPTHS, ids="D{}".format)
+def garch_depth(request, emulated, kernels, monkeypatch):
+    """Route the GARCH wrappers to ``garch.cu`` built with ring depth D;
+    returns D."""
+    lib = emulated[f"garch-D{request.param}"]
+    assert lib.sts_garch_ring_depth() == request.param
+    inner = ck._launch
+
+    def launch(lib_name, fn, counter, device, *args):
+        if lib_name != "garch":
+            return inner(lib_name, fn, counter, device, *args)
+        assert getattr(lib, fn)(*args, None) == 0
+        ck.LAUNCHES[counter] += 1
+
+    monkeypatch.setattr(ck, "_launch", launch)
+    return request.param
+
+
+def test_garch_shipped_depth_is_timed(emulated):
+    assert emulated["garch"].sts_garch_ring_depth() in GARCH_DEPTHS
+
+
+def test_garch_fast_divide_source(emulated):
+    # the forward's divide without its slow-path branch, seeded here with a
+    # correctly rounded reciprocal (the card seeds it with its hardware
+    # one): the quotient is __fdiv_rn's, bit for bit, over its whole range
+    tried, differ = ctypes.c_ulonglong(0), ctypes.c_ulonglong(0)
+    assert emulated["garch"].sts_garch_check_divide(
+        1 << 17, 7, ctypes.byref(tried), ctypes.byref(differ), None) == 0
+    assert tried.value > 1 << 15 and differ.value == 0
+
+
+def test_garch_refused_launch_returns_its_error(emulated):
+    # a card that grants 48 KB a block refuses the adjoint's 64 KB ring: the
+    # entry point returns the error (the wrapper raises on it) and runs
+    # nothing; the forward's 32 KB ring needs no attribute
+    lib = emulated["garch-48K"]
+    assert lib.sts_garch_ring_depth() == 32
+    r, par, h0, zb = _garch_inputs(40, 9, seed=3)
+    par_t = par.t().contiguous()
+    gpar = torch.full((3, 9), 7.0)
+    p = lambda x: x.data_ptr()  # noqa: E731
+    assert lib.sts_garch_bwd(p(r), p(par_t), p(h0), p(zb), p(r), p(h0),
+                             p(gpar), p(h0.clone()), None, 9, 40, 1,
+                             None) != 0
+    assert bool((gpar == 7.0).all())
+    ll = torch.empty(9)
+    assert lib.sts_garch_fwd(p(r), p(par_t), p(h0), p(zb), None, p(ll), None,
+                             9, 40, 1, None) == 0
+    _close(ll, ck.garch_fwd_plain(r, par, h0, zb, "sum"))
+
+
+# time lengths (k, a) -> k D + a around the ring's edges: one step, a ring
+# short of full, full, one over, two rings and part of a stage, a long walk
+GARCH_T = {"1": (0, 1), "D-1": (1, -1), "D": (1, 0), "D+1": (1, 1),
+           "2D+3": (2, 3), "300": (0, 300)}
+
+
 def _garch_inputs(t, b, seed):
     g = torch.Generator().manual_seed(seed)
     r = torch.randn(t, b, generator=g)
     zb = torch.randint(0, max(t // 2, 1), (b,), generator=g).float()
-    zb[0], zb[1] = 0.0, t + 1.0
+    zb[0] = 0.0
+    if b > 1:
+        zb[1] = t + 1.0
     r[torch.arange(t)[:, None] < zb[None, :]] = 0.0
     par = torch.stack([torch.rand(b, generator=g) * 0.2 + 0.01,
                        torch.rand(b, generator=g) * 0.2,
@@ -166,9 +288,12 @@ def _garch_inputs(t, b, seed):
     return r, par, torch.rand(b, generator=g) + 0.5, zb
 
 
-@pytest.mark.parametrize("t", [1, 45, 300])
-def test_garch_fwd_source(kernels, t):
-    r, par, h0, zb = _garch_inputs(t, 270, seed=t)
+@pytest.mark.parametrize("b", [1, 270])
+@pytest.mark.parametrize("t_of_d", GARCH_T)
+def test_garch_fwd_source(kernels, garch_depth, t_of_d, b):
+    k, a = GARCH_T[t_of_d]
+    t = k * garch_depth + a
+    r, par, h0, zb = _garch_inputs(t, b, seed=t)
     for mode in ("e", "sum", "last"):
         _close(ck.garch_fwd(r, par, h0, zb, mode),
                ck.garch_fwd_plain(r, par, h0, zb, mode))
@@ -178,15 +303,38 @@ def test_garch_fwd_source(kernels, t):
     assert kernels["garch_fwd"] == 6
 
 
-@pytest.mark.parametrize("t", [1, 45, 300])
+@pytest.mark.parametrize("t_of_d", GARCH_T)
+def test_garch_fwd_exact_walk_source(kernels, garch_depth, t_of_d):
+    # rows whose r^2 or h leave the fast divide's range are walked again
+    # with __fdiv_rn; each row is held on its own scale
+    k, a = GARCH_T[t_of_d]
+    t = k * garch_depth + a
+    r, par, h0, zb = _garch_inputs(t, 6, seed=t + 2)
+    zb[2:] = 0.0
+    r[:, 2] = 1e-20  # r^2 subnormal
+    r[t // 2, 3] = 1e16  # r^2 and the next h above 2^60
+    r[:, 4] = 1e-30  # r^2 rounds to 0: inside the range
+    r[:, 5] *= 1e-12  # r^2 about 2^-80
+    s = ck.garch_fwd(r, par, h0, zb, "sum")
+    ref = ck.garch_fwd_plain(r, par, h0, zb, "sum")
+    for i in range(6):
+        _close(s[i:i + 1], ref[i:i + 1])
+    assert torch.equal(ck.garch_fwd(r, par, h0, zb, "both")[1], s)
+
+
+@pytest.mark.parametrize("b", [1, 270])
+@pytest.mark.parametrize("t_of_d", GARCH_T)
 @pytest.mark.parametrize("cotangent", ["per-series", "panel"])
 @pytest.mark.parametrize("want_gr", [False, True])
-def test_garch_bwd_source(kernels, t, cotangent, want_gr):
-    r, par, h0, zb = _garch_inputs(t, 270, seed=t + 1)
+def test_garch_bwd_source(kernels, garch_depth, t_of_d, b, cotangent,
+                          want_gr):
+    k, a = GARCH_T[t_of_d]
+    t = k * garch_depth + a
+    r, par, h0, zb = _garch_inputs(t, b, seed=t + 1)
     h = ck.garch_fwd_plain(r, par, h0, zb, "e")
     g = torch.Generator().manual_seed(t)
-    cot = (torch.rand(270, generator=g) if cotangent == "per-series"
-           else torch.randn(t, 270, generator=g))
+    cot = (torch.rand(b, generator=g) if cotangent == "per-series"
+           else torch.randn(t, b, generator=g))
     got = ck.garch_bwd(r, par, h0, zb, h, cot, want_gr)
     ref = ck.garch_bwd_plain(r, par, h0, zb, h, cot, want_gr)
     assert kernels["garch_bwd"] == 1
