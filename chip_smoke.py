@@ -8,18 +8,23 @@ Phases; each failure makes the script exit non-zero with no result line:
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from the seven sources in
    ``spark_timeseries_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once, with ``garch.cu`` also at each ring depth of ``GARCH_DEPTHS``) and
-   print the build seconds and each source's registers, stack frames and
-   spills (per instantiation for the Holt-Winters and GARCH kernels), and
-   for the GARCH kernels their ring's shared memory, blocks an SM, SASS
-   instructions a step and the issue-rate floor they imply;
+   once, with ``garch.cu`` also at each ring depth of ``GARCH_DEPTHS``,
+   ``hw.cu`` as each build of ``HW_VARIANTS`` and ``hr.cu`` at each depth
+   of ``HR_DEPTHS``) and print the build seconds and each source's
+   registers, stack frames and spills (per instantiation for the
+   Holt-Winters, GARCH and moment kernels), and for the kernels that
+   stream through a ring (GARCH, the Holt-Winters forward, the moment
+   sweep) its shared memory, blocks an SM, waves, SASS instructions a step
+   and the issue-rate floor they imply;
 3. hold each of the eleven kernels against its plain PyTorch version on the
    card, at B = 65,537 x T = 1,000 and B = 4,097 x T = 3,000 (ragged
    panels; for the transforms also all-NaN, constant and trailing-NaN rows;
    for the smoothing kernels a never-live row, a row shorter than two
    seasons and the register-ring and global-ring Holt-Winters routes; for
-   the GARCH forward rows outside its fast divide's range, and that divide
-   against ``__fdiv_rn`` bit for bit over 2^35 pseudo-random pairs);
+   the GARCH and multiplicative Holt-Winters forwards rows outside their
+   fast divide's range, and that divide against ``__fdiv_rn`` bit for bit
+   over 2^35 pseudo-random pairs each; the Holt-Winters forward bit for
+   bit at every register period and the global route);
 4. drive the ARIMA path: ``arima.fit`` of a 1,000,000 x 1,000 float32
    ARIMA(1,1,1) panel (the BASELINE.json headline) built on the card from a
    seeded generator, then ``arima.forecast(..., 30)``, with the kernel
@@ -45,8 +50,13 @@ Phases; each failure makes the script exit non-zero with no result line:
 7. time each kernel at its path's shape with CUDA events, beside its plain
    version and its bound (bytes over 3.35 TB/s, flops over the float32
    rate, whichever is larger), every GARCH variant the pipeline runs also
-   at each ring depth; at the hourly path's shape first hold every
-   smoothing-kernel variant that path runs against its plain version.
+   at each ring depth, both moment sweeps at each ring depth (bit for bit
+   against the build without a ring), the Holt-Winters forward as each
+   build of ``HW_VARIANTS`` (bit for bit against the shipped one) and the
+   multiplicative adjoint on the 100,000 rows its fit takes; at the hourly
+   path's shape first hold every smoothing-kernel variant that path runs
+   against its plain version (the forward bit for bit) and count the rows
+   the multiplicative forward walks again with ``__fdiv_rn``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -72,6 +82,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # ring depths (time steps) garch.cu is built and timed at; it ships one
 GARCH_DEPTHS = (8, 16, 32)
+# builds of hw.cu timed beside the shipped one: the forward's y ring in 2
+# or 3 stages; hw.cu ships one of them
+HW_VARIANTS = {"2 stages": ("STS_HW_STAGES=2",),
+               "3 stages": ("STS_HW_STAGES=3",)}
+# ring depths hr.cu is built and timed at (0: one load of y a step, the
+# design before the ring, which the others must match bit for bit); it
+# ships one of the others
+HR_DEPTHS = (0, 8, 16, 32)
 
 # Tolerances of kernel vs plain version, relative to the largest magnitude
 # of the plain result (NaNs must sit at the same places).  The two differ
@@ -485,6 +503,25 @@ def check_garch_divide(chk: Checks, device, pairs: int = 1 << 35) -> None:
                 "garch fast divide bitwise equal to __fdiv_rn")
 
 
+def check_hw_divide(chk: Checks, device, pairs: int = 1 << 35) -> None:
+    """The Holt-Winters forward's branch-free divide against ``__fdiv_rn``
+    on the card, bit for bit, over ``pairs`` pseudo-random pairs with
+    numerators of either sign."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    cnt = torch.zeros(2, dtype=torch.int64, device=device)
+    rc = _build.load("hw").sts_hw_check_divide(
+        pairs, 2, cnt.data_ptr(), cnt.data_ptr() + 8,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"sts_hw_check_divide failed: {rc}")
+    tried, differ = cnt.tolist()
+    log(f"  hw fast divide vs __fdiv_rn: {differ} of {tried} in-range "
+        f"pairs differ ({pairs} drawn, numerators of either sign)")
+    chk.require(differ == 0 and tried > pairs // 4,
+                "hw fast divide bitwise equal to __fdiv_rn")
+
+
 def phase_pipeline(chk: Checks, rows: int, t: int, device) -> dict:
     from spark_timeseries_tpu_torch import entry
     from spark_timeseries_tpu_torch.models import garch
@@ -775,6 +812,17 @@ def _garch_lib_calls(lib, rz, params, h0, zb, h, gbar) -> dict:
             "bwd": bwd(False), "bwd dr": bwd(True)}
 
 
+def _in_turns(calls: dict, reps: int = 2) -> dict:
+    """``{key: [ms, ...]}``: each closure of ``calls`` timed ``reps`` times,
+    in turns, the order reversed on every other pass."""
+    keys = list(calls)
+    times = {k: [] for k in keys}
+    for i in range(reps):
+        for k in (keys if i % 2 == 0 else keys[::-1]):
+            times[k].append(cuda_ms(calls[k]))
+    return times
+
+
 def garch_depths(chk: Checks, rz, params, h0, zb, h, gbar, garch) -> None:
     """Each GARCH launch at every ring depth of ``GARCH_DEPTHS`` (builds of
     ``garch.cu`` with that depth, called directly), in turns, each held
@@ -800,17 +848,89 @@ def garch_depths(chk: Checks, rz, params, h0, zb, h, gbar, garch) -> None:
         del got, want
     log(f"  garch ring depths (ms; shipped D={shipped}; each depth timed "
         "twice, in turns, second pass in brackets):")
-    times = {(name, d): [] for name in garch for d in GARCH_DEPTHS}
-    for order in (GARCH_DEPTHS, GARCH_DEPTHS[::-1]):
-        for name in garch:
-            for d in order:
-                times[name, d].append(cuda_ms(calls[d][name]))
     for name, (_, nbytes, flops) in garch.items():
+        times = _in_turns({d: calls[d][name] for d in GARCH_DEPTHS})
         bms = _bound(nbytes, flops)[0]
         log(f"    {name:9s} " + "  ".join(
-            f"D={d}: {times[name, d][0]:.3f} [{times[name, d][1]:.3f}] "
-            f"({100 * bms / min(times[name, d]):.1f} %)"
-            for d in GARCH_DEPTHS))
+            f"D={d}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
+            for d, ts in times.items()))
+
+
+def hw_variant_times(chk: Checks, cases: dict) -> None:
+    """The Holt-Winters forward of each build of ``HW_VARIANTS`` (called
+    directly), held bit for bit against the shipped build on each case
+    ``{name: ((yt, params, seeds, m, mult, save), bound ms)}``, then
+    timed in turns."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    libs = {"shipped": _build.load("hw")}
+    libs.update({v: _build.load("hw", d) for v, d in HW_VARIANTS.items()})
+    log("  hw_fwd builds (ms, each timed twice in turns, second pass in "
+        "brackets; % of bound from the faster):")
+    for case, (args, bms) in cases.items():
+        calls = {v: _hw_lib_fwd(lib, *args) for v, lib in libs.items()}
+        want = calls["shipped"]()
+        for v in HW_VARIANTS:
+            got = calls[v]()
+            chk.require(all(same_bits(g, w) for g, w in zip(got, want)),
+                        f"hw_fwd {case} with {v} bitwise equal to the shipped "
+                        "build")
+            del got
+        del want
+        times = _in_turns(calls)
+        log(f"    {case:15s} " + "  ".join(
+            f"{v}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
+            for v, ts in times.items()))
+
+
+def _hr_lib_sweeps(lib, yt, start, beta, m: int, p: int, q: int):
+    """A closure running the ARIMA(p, d, q) init's two moment sweeps
+    through ``lib`` (a build of ``hr.cu``, called directly) -> their
+    accumulators ``[nacc, B]``: AR(m) with intercept, then [1, y lags,
+    residual lags] with the AR(m) residual rebuilt from ``beta``."""
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    b = yt.shape[1]
+
+    def sweep(lag_y, lag_e, woff, beta_m):
+        n = 1 + lag_y + lag_e
+        acc = yt.new_empty(n * (n + 1) // 2 + n, b)
+        rc = ck._hr_moments_call(lib, torch.cuda.current_stream().cuda_stream,
+                                 yt, start, acc, lag_y, lag_e, True, woff,
+                                 beta_m, beta)
+        if rc:
+            raise RuntimeError(f"hr_moments launch failed with CUDA error {rc}")
+        return acc
+
+    return lambda: (sweep(m, 0, m, 0), sweep(p, q, m + q, m))
+
+
+def hr_depth_times(chk: Checks, yt, start, beta, m, p, q, bms) -> None:
+    """Both moment sweeps at every depth of ``HR_DEPTHS`` (builds of
+    ``hr.cu``, called directly), each bit for bit against the build
+    without a ring (D = 0, one load of y a step) and the shipped wrapper
+    against it too, then timed in turns."""
+    from spark_timeseries_tpu_torch.ops import _build
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    calls = {d: _hr_lib_sweeps(_build.load(*_hr_depth_key(d)), yt, start,
+                               beta, m, p, q) for d in HR_DEPTHS}
+    want = calls[0]()
+    for d in HR_DEPTHS[1:]:
+        chk.require(all(same_bits(g, w) for g, w in zip(calls[d](), want)),
+                    f"hr_moments at D={d} bitwise equal to D=0, both sweeps")
+    shipped = (ck.hr_moments(yt, start, m, 0, True, m),
+               ck.hr_moments(yt, start, p, q, True, m + q, m, beta))
+    chk.require(all(same_bits(g.t(), w) for g, w in zip(shipped, want)),
+                f"hr_moments as shipped (D="
+                f"{_build.load('hr').sts_hr_ring_depth()}) bitwise equal to "
+                "D=0, both sweeps")
+    del shipped, want
+    times = _in_turns(calls)
+    log("  hr_moments ring depths, both sweeps (ms, each timed twice in "
+        "turns, second pass in brackets): " + "  ".join(
+            f"D={d}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
+            for d, ts in times.items()))
 
 
 def _seasonal_rows(b: int, t: int, seed: int, device):
@@ -886,8 +1006,19 @@ def phase_kernels_smoothing(chk: Checks, device,
                     chk.compare("ewma_bwd", f"gx, {what}", got[1], ref[1])
         del xt, s, gpan, got, ref
         # Holt-Winters: both model types on the register-ring route (the
-        # path's period 24, and 7) and the global-ring route (period 10)
+        # path's period 24, and 7) and the global-ring route (period 10);
+        # the forward alone at the other register periods and period 25
         yt = layout.time_major(ya)
+        if i == 0:
+            for m in (4, 6, 8, 12, 25):
+                for mult in (False, True):
+                    par = (torch.tensor([0.05, 0.01, 0.05], device=device)
+                           + torch.tensor([0.4, 0.3, 0.4], device=device)
+                           * torch.rand(b, 3, generator=gen, device=device))
+                    hold_hw_fwd(chk, yt, par, ck.hw_seeds(ya, m, mult, nv),
+                                m, mult, f"m={m}, "
+                                f"{'mult' if mult else 'add'}")
+            hold_hw_exact_walk(chk, t, device)
         for m in ((24, 7, 10) if i == 0 else (24, 10)):
             route = ("registers" if ck.hw_ring_in_registers(m)
                      else "global ring")
@@ -903,25 +1034,103 @@ def phase_kernels_smoothing(chk: Checks, device,
         torch.cuda.synchronize()
 
 
-def hold_hw(chk: Checks, yt, par, seeds, m: int, mult: bool, gen,
-            kind: str) -> None:
-    """Both Holt-Winters kernels against their plain versions on one
-    panel: the forward's five save_resid outputs, its value-only SSE
-    bitwise equal to save_resid's, and the adjoint from the per-series and
-    from a [T, B] cotangent."""
+def same_bits(a, b) -> bool:
+    """The same float32 bits at every place (-0 and +0 differ), NaNs of any
+    payload at the same places."""
+    if a.shape != b.shape:
+        return False
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan)
+            and torch.equal(a.masked_fill(nan, 0.0).view(torch.int32),
+                            b.masked_fill(nan, 0.0).view(torch.int32)))
+
+
+def hold_hw_fwd(chk: Checks, yt, par, seeds, m: int, mult: bool,
+                kind: str):
+    """The Holt-Winters forward against its plain version, bit for bit:
+    the five save_resid outputs and the value-only SSE -> the kernel's
+    save_resid outputs."""
     from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
 
-    t, b = yt.shape
-    l0, t0, _, zbh = seeds
     got = ck.hw_fwd(yt, par, *seeds, m, mult, True)
     ref = ck.hw_fwd_plain(yt, par, *seeds, m, mult, True)
     for name, a, r in zip(("e", "L", "T", "S_old", "sse"), got, ref):
         chk.compare("hw_fwd", f"{name}, {kind}", a, r)
-    del ref
-    chk.require(torch.equal(got[-1], ck.hw_fwd(yt, par, *seeds, m, mult)),
-                f"hw_fwd sum == save_resid bitwise, {kind}")
-    e, lv, tr, so, _ = got
-    del got
+    chk.require(all(same_bits(a, r) for a, r in zip(got, ref))
+                and same_bits(ck.hw_fwd(yt, par, *seeds, m, mult), ref[-1]),
+                f"hw_fwd save_resid and sum bitwise equal to the plain "
+                f"version, {kind}")
+    return got
+
+
+def _hw_lib_fwd(lib, yt, params, seeds, m: int, mult: bool, save: bool,
+                walked=None):
+    """A closure launching the Holt-Winters forward of ``lib`` (a build of
+    ``hw.cu``, called directly) on these inputs -> its outputs as
+    ``hw_fwd`` returns them (a list); ``walked`` (int32 ``[B]``), when
+    given, gets 1 where the kernel redid a series with ``__fdiv_rn``."""
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    par = params.contiguous()
+
+    def call():
+        sse = yt.new_empty(yt.shape[1])
+        outs = [torch.empty_like(yt) for _ in range(4)] if save else None
+        rc = ck._hw_fwd_call(lib, torch.cuda.current_stream().cuda_stream, yt,
+                             par, *seeds, m, mult, sse, outs, walked)
+        if rc:
+            raise RuntimeError(f"hw_fwd launch failed with CUDA error {rc}")
+        return (outs or []) + [sse]
+    return call
+
+
+def hold_hw_exact_walk(chk: Checks, t: int, device) -> None:
+    """Multiplicative rows whose divides leave the forward's fast path (a
+    numerator below 2^-60, one above 2^60, a -0 numerator, a denominator
+    above 2^60) are walked again with ``__fdiv_rn``; a negative numerator
+    in range stays fast.  Each row bit for bit against the plain version,
+    in both modes, and the kernel's own flags of the rows it redid."""
+    from spark_timeseries_tpu_torch.ops import _build
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.ops import layout
+
+    m = 24
+    ya, nv = _seasonal_rows(8, t, seed=5, device=device)
+    l0, t0, s0r, zb = ck.hw_seeds(ya, m, True, nv)
+    yt = layout.time_major(ya)
+    par = torch.tensor([0.3, 0.05, 0.2], device=device).repeat(8, 1)
+    yt[:, 3] *= 1e-27
+    par[4, 0] = 0.5
+    yt[t - 1, 4] = 2.4e18
+    yt[t - 1, 5] = -0.0
+    yt[t - 2, 6] = -3.0
+    s0r[7] = 1e19
+    seeds = (l0, t0, s0r, zb)
+    walked = torch.full((8,), -1, dtype=torch.int32, device=device)
+    for save in (False, True):
+        got = _hw_lib_fwd(_build.load("hw"), yt, par, seeds, m, True, save,
+                          walked)()
+        ref = ck.hw_fwd_plain(yt, par, *seeds, m, True, save)
+        ref = list(ref) if save else [ref]
+        chk.require(all(same_bits(g[..., i], r[..., i])
+                        for g, r in zip(got, ref) for i in range(8)),
+                    f"hw_fwd {'save_resid' if save else 'sum'} on rows "
+                    "outside the fast divide's range, row by row bitwise")
+        chk.require(walked.tolist() == [0, 0, 0, 1, 1, 1, 0, 1],
+                    f"hw_fwd redid exactly the rows outside the range "
+                    f"({walked.tolist()})")
+
+
+def hold_hw(chk: Checks, yt, par, seeds, m: int, mult: bool, gen,
+            kind: str) -> None:
+    """Both Holt-Winters kernels against their plain versions on one
+    panel: the forward bit for bit (hold_hw_fwd), and the adjoint from the
+    per-series and from a [T, B] cotangent."""
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    t, b = yt.shape
+    l0, t0, _, zbh = seeds
+    e, lv, tr, so, _ = hold_hw_fwd(chk, yt, par, seeds, m, mult, kind)
     gbar = torch.rand(b, generator=gen, device=yt.device) / t
     gpan = torch.randn(t, b, generator=gen, device=yt.device)
     for g, name in ((gbar, "per-series"), (gpan, "[T, B]")):
@@ -1112,6 +1321,7 @@ def phase_hourly(chk: Checks, rows: int, t: int, device) -> dict:
 def phase_timing_hourly(chk: Checks, hourly: dict, device) -> dict:
     from spark_timeseries_tpu_torch import entry
     from spark_timeseries_tpu_torch.models import base
+    from spark_timeseries_tpu_torch.ops import _build
     from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
     from spark_timeseries_tpu_torch.ops import layout
 
@@ -1180,6 +1390,12 @@ def phase_timing_hourly(chk: Checks, hourly: dict, device) -> dict:
     yt_mult = yt[:, :n_mult].contiguous()
     hold_hw(chk, yt_mult, params[:n_mult], seeds_mult, m, True, gen,
             f"mult., hourly shape on {n_mult} rows")
+    walked = torch.zeros(n_mult, dtype=torch.int32, device=device)
+    _hw_lib_fwd(_build.load("hw"), yt_mult, params[:n_mult], seeds_mult, m,
+                True, False, walked)()
+    log(f"  hw_fwd multiplicative on the hourly panel's {n_mult} rows: "
+        f"{int(walked.sum())} rows walked again with __fdiv_rn (outside the "
+        "fast divide's range)")
     chk.require(not ck.hw_ring_in_registers(m_glob),
                 f"period {m_glob} takes the global-ring route")
     chk.compare("hw_fwd", f"sse, m={m_glob} global ring, hourly shape",
@@ -1201,12 +1417,37 @@ def phase_timing_hourly(chk: Checks, hourly: dict, device) -> dict:
     ms_mult = cuda_ms(lambda: ck.hw_fwd(yt_mult, params[:n_mult],
                                         *seeds_mult, m, True))
     n_mel = t * n_mult
+    bound_mult = _bound(f * (n_mel + (7 + m) * n_mult), 16 * n_mel)
     log(f"  hw_fwd sum, multiplicative on {n_mult} rows: {ms_mult:.3f} ms "
-        f"(bound {_bound(f * (n_mel + (7 + m) * n_mult), 16 * n_mel)[0]:.3f}"
-        " ms)")
+        f"(bound {bound_mult[0]:.3f} ms ({bound_mult[1]}), "
+        f"{100 * bound_mult[0] / ms_mult:.1f} % of it)")
     log(f"  hw_fwd sum, global-ring route (m={m_glob}): "
         f"{cuda_ms(lambda: ck.hw_fwd(yt, params, *seeds_glob, m_glob, False)):.3f}"
         " ms")
+    # the multiplicative adjoint on the same rows, per-series cotangent:
+    # reads y, L, T, S_old and e, writes 3 sums; ~45 flops an element
+    # (three quotients)
+    e_m, lv_m, tr_m, so_m, _ = ck.hw_fwd(yt_mult, params[:n_mult],
+                                         *seeds_mult, m, True, True)
+    l0m, t0m, _, zbm = seeds_mult
+    gbar_m = gbar[:n_mult].contiguous()
+    ms_bm = cuda_ms(lambda: ck.hw_bwd(yt_mult, params[:n_mult], l0m, t0m,
+                                      zbm, lv_m, tr_m, so_m, e_m, gbar_m, m,
+                                      True))
+    bound_bm = _bound(f * (5 * n_mel + 10 * n_mult), 45 * n_mel)
+    log(f"  hw_bwd multiplicative on {n_mult} rows: {ms_bm:.3f} ms (bound "
+        f"{bound_bm[0]:.3f} ms ({bound_bm[1]}), "
+        f"{100 * bound_bm[0] / ms_bm:.1f} % of it)")
+    del e_m, lv_m, tr_m, so_m
+    n_el_b = n_el + (7 + m) * B
+    hw_variant_times(chk, {
+        "add. sum": ((yt, params, seeds, m, False, False),
+                     _bound(f * n_el_b, 14 * n_el)[0]),
+        "add. save_resid": ((yt, params, seeds, m, False, True),
+                            _bound(f * (n_el_b + 4 * n_el), 14 * n_el)[0]),
+        "mult. sum": ((yt_mult, params[:n_mult], seeds_mult, m, True, False),
+                      bound_mult[0]),
+    })
     del yt_mult, seeds_mult, seeds_glob
     e, lv, tr, so, _ = ck.hw_fwd(yt, params, *seeds, m, False, True)
     # adjoint, per-series cotangent: reads y, L, T, S_old and e, the
@@ -1304,6 +1545,7 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
     out["hr_moments"] = (ms, plain, *bound(
         f * (2 * n_el + 3 * B + B * (m + 1) + B * (14 + 9)),
         n_el * (2 * 14 + 2 * 9 + 8)))
+    hr_depth_times(chk, yt, start, beta, m, p, q, out["hr_moments"][2])
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name:10s} {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
             f"{bms:.3f} ms ({by})  library: none (no single PyTorch call "
@@ -1315,13 +1557,19 @@ def _garch_depth_key(depth: int):
     return ("garch", (f"STS_GARCH_DEPTH={depth}",))
 
 
+def _hr_depth_key(depth: int):
+    return ("hr", (f"STS_HR_DEPTH={depth}",))
+
+
 def build() -> None:
     """Phase 2: every source at once, then load each library."""
     from spark_timeseries_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all(
-        variants=[_garch_depth_key(d) for d in GARCH_DEPTHS])
+        variants=[_garch_depth_key(d) for d in GARCH_DEPTHS]
+        + [("hw", d) for d in HW_VARIANTS.values()]
+        + [_hr_depth_key(d) for d in HR_DEPTHS])
     for name in _build.SOURCES:
         _build.load(name)
     log(f"phase 2: built {sorted(logs) or 'nothing (up to date)'} in "
@@ -1333,10 +1581,16 @@ def build() -> None:
         log(f"  {name}: {len(regs)} kernels, registers per thread "
             f"{min(regs, default=0)}..{max(regs, default=0)}, largest stack "
             f"frame {max(frame, default=0)} B, spill stores {sum(spill)} B")
-        if name.startswith(("libhw-", "libgarch")):  # each instantiation
+        if name.startswith(("libhw", "libgarch", "libhr")):  # each kernel
             for kern, info in _ptxas_entries(text):
+                # of the variants and of hr.cu, the path's instantiations
+                if ((name.startswith("libhr") and "<4>" not in kern)
+                        or (name.startswith("libhw-STS_")
+                            and "hw_fwd_k<24," not in kern)):
+                    continue
                 log(f"    {kern}: {info}")
     garch_report()
+    hw_hr_report()
 
 
 def _ptxas_entries(text: str):
@@ -1433,6 +1687,91 @@ def _sass_loops(text: str) -> dict:
     return out
 
 
+def _max_sm_clock() -> str:
+    """The card's highest SM clock in MHz, as nvidia-smi reports it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0]
+
+
+def _issue_floor_ms(per_step: float, n_el: int) -> float:
+    """Least milliseconds to issue ``per_step`` warp instructions for each
+    of ``n_el`` thread-steps: one warp instruction a clock on each of an
+    SM's four schedulers at the highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * per_step * n_el / 32 / (sms * 4 * float(_max_sm_clock())
+                                         * 1e6)
+
+
+def hw_hr_report() -> None:
+    """The Holt-Winters forward's and the moment sweep's rings: layout,
+    dynamic shared memory, blocks an SM and waves (from the card), then the
+    SASS instructions a step of each steady loop (every build timed) and
+    the issue floor they imply at the path's shapes."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    m, n_mult = 24, min(100_000, HOURLY_ROWS)
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+
+
+    def waves(rows_list):
+        slots = blocks.value * sms
+        return "; ".join(
+            f"B={r}: {-(-r // 256)} blocks over {slots} slots = "
+            f"{-(-r // 256) / max(slots, 1):.2f} waves" for r in rows_list)
+
+    hw = _build.load("hw")
+    stages, steps = ctypes.c_int(0), ctypes.c_int(0)
+    hw.sts_hw_ring_layout(m, ctypes.byref(stages), ctypes.byref(steps))
+    log(f"  hw_fwd y ring at m={m} as shipped: {stages.value} stages of "
+        f"{steps.value} steps, seasonal ring in registers (builds timed: "
+        f"{list(HW_VARIANTS)})")
+    for mult, save in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        rc = hw.sts_hw_occupancy(m, mult, save, ctypes.byref(blocks),
+                                 ctypes.byref(smem))
+        if rc:
+            raise RuntimeError(f"sts_hw_occupancy failed: {rc}")
+        log(f"    hw_fwd_k<{m}, {mult}, {save}> "
+            f"({'mult.' if mult else 'add.'}, {'save' if save else 'sum'}): "
+            f"{smem.value} B dynamic smem a block, {blocks.value} blocks an "
+            f"SM; {waves((n_mult, HOURLY_ROWS))}")
+    hr = _build.load("hr")
+    rc = hr.sts_hr_occupancy(ctypes.byref(blocks), ctypes.byref(smem))
+    if rc:
+        raise RuntimeError(f"sts_hr_occupancy failed: {rc}")
+    log(f"  hr_moments_k<4> ring: D = {hr.sts_hr_ring_depth()} steps shipped "
+        f"(built and timed at {list(HR_DEPTHS)}): {smem.value} B dynamic "
+        f"smem a block, {blocks.value} blocks an SM; {waves((ROWS,))}")
+    builds = [("hw", (), "shipped")] + [
+        ("hw", d, v) for v, d in HW_VARIANTS.items()] + [
+        _hr_depth_key(d) + (f"D={d}",) for d in HR_DEPTHS]
+    for name, defines, what in builds:
+        loops = _sass_main_loops(_build.library_path(name, defines))
+        if not loops:
+            log("    cuobjdump not found: no SASS counts")
+            return
+        for kern, (n_ins, n_lds) in sorted(loops.items()):
+            if name == "hw" and kern.startswith(f"hw_fwd_k<{m},"):
+                n_el = HOURLY_TIME * (n_mult if ", 1, " in kern
+                                      else HOURLY_ROWS)
+                shape = (f"[{HOURLY_TIME}, "
+                         f"{n_mult if ', 1, ' in kern else HOURLY_ROWS}]")
+            elif name == "hr" and kern == "hr_moments_k<4>":
+                n_el, shape = 2 * (TIME - 1) * ROWS, f"[{TIME - 1}, {ROWS}] x 2"
+            else:
+                continue
+            if n_lds < 1:
+                log(f"    {name} {what} {kern}: no loop with shared loads")
+                continue
+            per_step = n_ins / n_lds
+            log(f"    {name} {what} {kern}: steady loop {n_ins} SASS "
+                f"instructions for {n_lds} steps = "
+                f"{per_step:.1f} a step; issue floor at {shape} "
+                f"{_issue_floor_ms(per_step, n_el):.3f} ms")
+
+
 def garch_report() -> None:
     """The GARCH kernels' ring: depth, shared memory and blocks an SM (from
     the card), SASS instructions a step of each kernel's main loop and the
@@ -1442,6 +1781,9 @@ def garch_report() -> None:
 
     lib = _build.load("garch")
     depth = lib.sts_garch_ring_depth()
+    log("  issue floors below: one warp instruction a clock on each of 4 "
+        f"schedulers of {torch.cuda.get_device_properties(0).multi_processor_count}"
+        f" SMs at {_max_sm_clock()} MHz")
     log(f"  garch ring: depth D = {depth} steps shipped (built and timed "
         f"at {list(GARCH_DEPTHS)})")
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
@@ -1454,11 +1796,6 @@ def garch_report() -> None:
             raise RuntimeError(f"sts_garch_occupancy({k}) failed: {rc}")
         log(f"    {what}: {smem.value} B dynamic smem a block, "
             f"{blocks.value} blocks an SM")
-    props = torch.cuda.get_device_properties(0)
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.split()[0]
     n_el = VOL_ROWS * VOL_TIME
     for d in sorted({depth, *GARCH_DEPTHS}):
         path = (_build.library_path("garch") if d == depth
@@ -1473,14 +1810,10 @@ def garch_report() -> None:
                 log(f"    D={d} {kern}: no loop with shared loads found")
                 continue
             per_step = n_ins * panels / n_lds
-            floor_ms = (1e3 * per_step * n_el / 32
-                        / (props.multi_processor_count * 4
-                           * float(clock) * 1e6))
             log(f"    D={d} {kern}: main loop {n_ins} SASS instructions "
                 f"for {n_lds // panels} steps = {per_step:.1f} a step; "
-                f"issue floor at [{VOL_TIME}, {VOL_ROWS}] {floor_ms:.3f} ms "
-                f"({props.multi_processor_count} SMs x 4 schedulers at "
-                f"{clock} MHz)")
+                f"issue floor at [{VOL_TIME}, {VOL_ROWS}] "
+                f"{_issue_floor_ms(per_step, n_el):.3f} ms")
 
 
 def main() -> int:
@@ -1499,6 +1832,7 @@ def main() -> int:
     phase_kernels(chk, device)
     phase_kernels_volatility(chk, device)
     check_garch_divide(chk, device)
+    check_hw_divide(chk, device)
     phase_kernels_smoothing(chk, device)
     if chk.failures:  # a kernel that disagrees makes the rest meaningless
         log("FAILED: " + "; ".join(chk.failures))

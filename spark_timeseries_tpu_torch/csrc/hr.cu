@@ -23,11 +23,29 @@
 // accumulators stay in registers (kernels are instantiated per column
 // capacity 2/4/8/16/32) and are written once.  No atomics: each sum is one
 // thread's sequential sum.
-#include "common.cuh"
+//
+// Loads in flight: a thread that loads one step at a time keeps one line in
+// flight a warp, and at B = 1M the rate then follows the threads, not the
+// bytes.  So y streams through ring.cuh's per-thread shared-memory ring of
+// cp.async copies, 4 stages, D = STS_HR_DEPTH steps deep (32 KB a block at
+// D = 32).  Only where y comes from changes: the step, and so every sum's
+// order and rounding, is the one-load-a-step loop's, which a build with
+// -DSTS_HR_DEPTH=0 keeps (chip_smoke.py holds the ring's sums against it
+// bit for bit, and times the depths it builds beside it).
+#include "ring.cuh"
+
+#ifndef STS_HR_DEPTH
+#define STS_HR_DEPTH 32
+#endif
 
 namespace {
 
 using sts::at;
+
+constexpr int kDepth = STS_HR_DEPTH;  // ring depth in steps; 0: no ring
+constexpr int kStages = 4;
+static_assert(kDepth == 0 || (kDepth % kStages == 0 && kDepth >= kStages),
+              "STS_HR_DEPTH must be 0 or a positive multiple of 4");
 
 // index of the pair (a, c) with a <= c in a row-major upper triangle of n
 __host__ __device__ constexpr int tri(int n, int a, int c) {
@@ -60,8 +78,7 @@ hr_moments_k(const float* __restrict__ y, const float* __restrict__ zb,
   const float zw = z + static_cast<float>(woff);
   const float z1 = z + static_cast<float>(beta_m);
   const int t_end = t_limit < T ? t_limit : T;
-  for (int t = 0; t < t_end; ++t) {
-    const float yt = y[at(t, B, b)];
+  auto step = [&](int t, float yt) {
     const float tf = static_cast<float>(t);
     const float w = tf >= zw ? 1.f : 0.f;
 #pragma unroll
@@ -91,6 +108,14 @@ hr_moments_k(const float* __restrict__ y, const float* __restrict__ zb,
       else if (lag_y > 0 && a == ic) col[a] = yt;
       else if (a > 0) col[a] = col[a - 1];
     }
+  };
+  if constexpr (kDepth > 0) {
+    const float* const pan[1] = {y};
+    sts::stream<1, false, kStages, kDepth / kStages>(
+        pan, B, t_end, b,
+        [&](int t, int, const float (&v)[1]) { step(t, v[0]); });
+  } else {
+    for (int t = 0; t < t_end; ++t) step(t, y[at(t, B, b)]);
   }
 #pragma unroll
   for (int a = 0; a < NC; ++a) {
@@ -104,7 +129,8 @@ hr_moments_k(const float* __restrict__ y, const float* __restrict__ zb,
 }  // namespace
 
 // y: [T, B]; zb: [B] (series start); beta: [beta_m + 1, B] (stage 2 only);
-// acc: [ncols*(ncols+1)/2 + ncols, B].  Returns cudaGetLastError().
+// acc: [ncols*(ncols+1)/2 + ncols, B].  Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int sts_hr_moments(const float* y, const float* zb,
                               const float* beta, float* acc, int B, int T,
                               int lag_y, int lag_e, int intercept, int woff,
@@ -113,16 +139,25 @@ extern "C" int sts_hr_moments(const float* y, const float* zb,
   if (ncols < 1 || ncols > 32 || beta_m > ncols + 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = sts::grid_for(B);
   auto launch = [&](auto nc) {
-    STS_LAUNCH(grid, s, hr_moments_k<decltype(nc)::value>)(
-        y, zb, beta, acc, B, T, lag_y, lag_e, intercept, woff, beta_m,
-        t_limit);
+    return sts::launch_ring(hr_moments_k<decltype(nc)::value>,
+                            sts::ring_bytes(1, kDepth), B, s, y, zb, beta,
+                            acc, B, T, lag_y, lag_e, intercept, woff, beta_m,
+                            t_limit);
   };
-  if (ncols <= 2) launch(std::integral_constant<int, 2>{});
-  else if (ncols <= 4) launch(std::integral_constant<int, 4>{});
-  else if (ncols <= 8) launch(std::integral_constant<int, 8>{});
-  else if (ncols <= 16) launch(std::integral_constant<int, 16>{});
-  else launch(std::integral_constant<int, 32>{});
-  return static_cast<int>(cudaGetLastError());
+  if (ncols <= 2) return launch(std::integral_constant<int, 2>{});
+  if (ncols <= 4) return launch(std::integral_constant<int, 4>{});
+  if (ncols <= 8) return launch(std::integral_constant<int, 8>{});
+  if (ncols <= 16) return launch(std::integral_constant<int, 16>{});
+  return launch(std::integral_constant<int, 32>{});
+}
+
+// The ring's depth in steps, as built (0: one load of y a step).
+extern "C" int sts_hr_ring_depth() { return kDepth; }
+
+// Blocks an SM can hold and dynamic shared memory a block, for the
+// ARIMA(1,1,1) init's instantiation (4 columns).  Returns the CUDA error.
+extern "C" int sts_hr_occupancy(int* blocks, int* smem) {
+  *smem = static_cast<int>(sts::ring_bytes(1, kDepth));
+  return static_cast<int>(sts::blocks_per_sm(hr_moments_k<4>, *smem, blocks));
 }

@@ -33,117 +33,206 @@
 // lamT, (L + T) gp into rho, -a y/S^2 and -g y/L^2 terms), with no flow
 // through a clamped denominator; all on live steps only.
 //
-// What bounds it on an H100: bytes.  The forward reads y once (4 B an
-// element, ~14 flops additive, two divides multiplicative); `save` writes 4
-// panels.  The adjoint reads y, L, T, S_old and e (or g) once each: L_t is
-// carried down from the step above.  One thread per series over the
-// time-major panel, every carry in a register, no atomics.  The seasonal
-// ring is the hazard: an array indexed by a runtime t mod m lands in local
-// memory.  So the kernels are instantiated per period (with_period below): the
-// time loop runs in blocks of m steps, the block's inner loop fully
-// unrolled, so each slot is a compile-time index and the ring lives in
-// registers; the loop range is padded to a multiple of m and the steps past
-// T are predicated off, so the backward walk also starts on slot m - 1.  A
-// ring of 24 costs registers (about 100 a thread: 16 warps an SM), so the
-// forward loads a block's m values of y before it walks them, keeping m
-// loads in flight per thread instead of one.  Any
-// other period (<= 1024) keeps its ring in a time-major [m, B] global
-// scratch the wrapper allocates, where a warp's accesses coalesce.
-#include "common.cuh"
+// What bounds it on an H100.  The forward reads y once (4 B an element;
+// ~14 flops additive, two divides multiplicative); `save` writes 4 panels.
+// The adjoint reads y, L, T, S_old and e (or g) once each: L_t is carried
+// down from the step above.  One thread per series over the time-major
+// panel, every carry in a register, no atomics.
+//
+// The seasonal ring is the first hazard: an array indexed by a runtime
+// t mod m lands in local memory.  So the kernels are instantiated per
+// period (with_period below) and walk time in blocks whose inner loop is
+// fully unrolled over a multiple of m steps, so each slot is a
+// compile-time index and the ring lives in registers; the backward walk
+// pads its range to a multiple of m and predicates off the steps past T,
+// so it starts on slot m - 1.  Any other period (<= 1024) keeps its ring
+// in a time-major [m, B] global scratch the wrapper allocates (the
+// forward fills it from the seeds), where a warp's accesses coalesce.
+//
+// Loads in flight are the second.  The forward streams y through
+// ring.cuh's per-thread shared-memory ring of cp.async copies: kStages
+// stages of kS = stage_steps(m) steps (24 at the hourly period), a
+// multiple of m, so a stage's steps keep their compile-time slots; while
+// the thread walks one stage the next kStages - 1 are in flight (24 steps
+// at the shipped 2 stages: ~72 KB an SM at 3 blocks, against the ~18 KB
+// Little's law asks).  The build may set the stages (-DSTS_HW_STAGES):
+// chip_smoke.py builds and times 2 and 3.  `save` is a template argument,
+// so `sum` carries no stores and no addressing.
+//
+// Then instruction issue, in the multiplicative model: `__fdiv_rn` ends in
+// a slow-path branch, one a divide, that cuts the unrolled stage into
+// one-step pieces.  The forward runs ring.cuh's div_fast, branch-free, and
+// walks a series again with __fdiv_rn (from device memory, outside the
+// loop) when a step leaves that path's range; its operands are a y and
+// g y (zero before zb, of either sign) over max(S, eps) and max(L', eps),
+// the range div_fast states.  The live tests are integer compares against
+// each series' first live step (first_step), exact for T <= 2^24; a longer
+// series takes the exact walk, which keeps the float compares.
+//
+// Build (-Xptxas=-v, sm_90a): chip_smoke.py prints each instantiation's
+// registers, spills, dynamic shared memory and blocks an SM.  The forward
+// asks for 3 blocks an SM: at most 80 registers, so the multiplicative fit
+// of [960, 100k] runs in one wave (391 blocks, 396 slots); a 64-register
+// cap for 4 blocks spilled the additive ring.  The seeds and parameters
+// are read in the caller's [B, m] and [B, 3] rows, once a thread, so a
+// launch makes no transposing copy.
+#include "ring.cuh"
+
+#ifndef STS_HW_STAGES
+#define STS_HW_STAGES 2
+#endif
 
 namespace {
 
 using sts::at;
+using sts::kThreads;
 
 constexpr float kEps = 1e-12f;
+constexpr int kStages = STS_HW_STAGES;  // commit groups in the y ring
+
+// Steps a stage of the y ring holds at period m: the least multiple of m
+// that is at least 24.
+__host__ __device__ constexpr int stage_steps(int m) {
+  return m * ((24 + m - 1) / m);
+}
+
+// The forward's dynamic shared memory a block at period m: the y ring (0
+// on the global route, which streams nothing).
+constexpr size_t fwd_smem(int m) {
+  return m == 0 ? 0 : sts::ring_bytes(1, kStages * stage_steps(m));
+}
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float dvd(float a, float b) { return __fdiv_rn(a, b); }
 
+// The first step t in [0, T] with float(t) >= z (T when there is none, a
+// NaN z included).  For T <= 2^24 every t converts to float exactly, so
+// t >= first_step(z, T) is the test float(t) >= z.
+__device__ __forceinline__ int first_step(float z, int T) {
+  return z <= 0.f                        ? 0
+         : z < static_cast<float>(T)     ? static_cast<int>(ceilf(z))
+                                         : T;
+}
+
 struct Smoothing {
   float a, b, g, oa, ob, og;  // the parameters and their complements
 };
 
-__device__ __forceinline__ Smoothing load_par(const float* par, int B, int b) {
+// par: the caller's [B, 3] rows, read once a thread (no transposing copy
+// a launch)
+__device__ __forceinline__ Smoothing load_par(const float* par, int b) {
+  const float* const q = par + 3 * static_cast<size_t>(b);
   Smoothing p;
-  p.a = par[b];
-  p.b = par[at(1, B, b)];
-  p.g = par[at(2, B, b)];
+  p.a = q[0];
+  p.b = q[1];
+  p.g = q[2];
   p.oa = sub(1.f, p.a);
   p.ob = sub(1.f, p.b);
   p.og = sub(1.f, p.g);
   return p;
 }
 
-// M > 0: the ring in registers (M == m); M == 0: in global scratch.
-template <int M, bool kMult>
-__global__ void __launch_bounds__(sts::kThreads)
+// M > 0: the ring in registers and y streamed, M == m; M == 0: the ring in global scratch, y loaded a step at
+// a time, every divide __fdiv_rn.  `walked`, when not null, gets 1 for a
+// series the exact walk redid, else 0.
+template <int M, bool kMult, bool kSave>
+__global__ void __launch_bounds__(kThreads, 3)
 hw_fwd_k(const float* __restrict__ y, const float* __restrict__ par,
          const float* __restrict__ l0p, const float* __restrict__ t0p,
-         float* __restrict__ ring, const float* __restrict__ zbp,
+         const float* __restrict__ s0, float* __restrict__ ring,
+         const float* __restrict__ zbp,
          float* __restrict__ e, float* __restrict__ lv,
          float* __restrict__ tr, float* __restrict__ so,
-         float* __restrict__ sse, int B, int T, int m, int save) {
+         float* __restrict__ sse, int* __restrict__ walked, int B, int T,
+         int m) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Smoothing p = load_par(par, B, b);
+  const Smoothing p = load_par(par, b);
   const float z = zbp[b];
   const float zm = add(z, static_cast<float>(m));
+  const float* const s0b = s0 + static_cast<size_t>(b) * m;  // [B, m] rows
   float level = l0p[b], trend = t0p[b], acc = 0.f;
-  auto step = [&](int t, float yt, float& s) {
-    const size_t i = at(t, B, b);
-    const float tf = static_cast<float>(t);
+  // step t: live = [t >= zb] moves the state, live_err = [t >= zb + m]
+  // counts the error; `divide` is __fdiv_rn or div_fast
+  auto step = [&](int t, bool live, bool live_err, float yt, float& s,
+                  auto&& divide) {
     const float lt = add(level, trend);
     float pred, nl, snew;
-    if (kMult) {
+    if constexpr (kMult) {
       pred = mul(lt, s);
-      nl = add(dvd(mul(p.a, yt), fmaxf(s, kEps)), mul(p.oa, lt));
-      snew = add(dvd(mul(p.g, yt), fmaxf(nl, kEps)), mul(p.og, s));
+      nl = add(divide(mul(p.a, yt), fmaxf(s, kEps)), mul(p.oa, lt));
+      snew = add(divide(mul(p.g, yt), fmaxf(nl, kEps)), mul(p.og, s));
     } else {
       pred = add(lt, s);
       nl = add(mul(p.a, sub(yt, s)), mul(p.oa, lt));
       snew = add(mul(p.g, sub(yt, nl)), mul(p.og, s));
     }
     const float nt = add(mul(p.b, sub(nl, level)), mul(p.ob, trend));
-    const float et = tf >= zm ? sub(yt, pred) : 0.f;
+    const float et = live_err ? sub(yt, pred) : 0.f;
     acc = add(acc, mul(et, et));
-    if (save) so[i] = s;
-    if (tf >= z) {
+    const size_t i = at(t, B, b);
+    if constexpr (kSave) so[i] = s;
+    if (live) {
       level = nl;
       trend = nt;
       s = snew;
     }
-    if (save) {
+    if constexpr (kSave) {
       e[i] = et;
       lv[i] = level;
       tr[i] = trend;
     }
   };
+  auto exact = [](float x, float d) { return dvd(x, d); };
   if constexpr (M > 0) {
-    float r[M];
+    constexpr int kS = stage_steps(M);
+    float rr[M];
+    auto seed = [&]() {
+      level = l0p[b];
+      trend = t0p[b];
+      acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < M; ++j) r[j] = ring[at(j, B, b)];
-    for (int base = 0; base < T; base += M) {
-      // the block's loads first: M loads in flight per thread, where one
-      // at a time leaves the card idle at this kernel's occupancy
-      float yb[M];
-#pragma unroll
-      for (int j = 0; j < M; ++j)
-        yb[j] = base + j < T ? y[at(base + j, B, b)] : 0.f;
-#pragma unroll
-      for (int j = 0; j < M; ++j)
-        if (base + j < T) step(base + j, yb[j], r[j]);
+      for (int j = 0; j < M; ++j) rr[j] = s0b[j];
+    };
+    bool ok = T <= sts::kMaxCountedT;
+    if (ok) {
+      seed();
+      const int tz = first_step(z, T), tzm = first_step(zm, T);
+      const float* const pan[1] = {y};
+      sts::stream<1, false, kStages, kS, true>(
+          pan, B, T, b, [&](int t, int j, const float (&v)[1]) {
+            const int base = t - j;  // the stage's first step, a multiple of M
+            step(t, j >= tz - base, j >= tzm - base, v[0], rr[j % M],
+                 [&](float x, float d) { return sts::div_fast(x, d, ok); });
+          });
     }
+    if (!ok) {  // a step left the fast divide's range, or T > 2^24
+      seed();
+      for (int base = 0; base < T; base += M) {
+#pragma unroll
+        for (int j = 0; j < M; ++j) {
+          const int t = base + j;
+          if (t < T) {
+            const float tf = static_cast<float>(t);
+            step(t, tf >= z, tf >= zm, y[at(t, B, b)], rr[j], exact);
+          }
+        }
+      }
+    }
+    if (walked != nullptr) walked[b] = ok ? 0 : 1;
   } else {
+    for (int j = 0; j < m; ++j) ring[at(j, B, b)] = s0b[j];
     int slot = 0;
     for (int t = 0; t < T; ++t) {
+      const float tf = static_cast<float>(t);
       float s = ring[at(slot, B, b)];
-      step(t, y[at(t, B, b)], s);
+      step(t, tf >= z, tf >= zm, y[at(t, B, b)], s, exact);
       ring[at(slot, B, b)] = s;
       if (++slot == m) slot = 0;
     }
+    if (walked != nullptr) walked[b] = 0;
   }
   sse[b] = acc;
 }
@@ -159,7 +248,7 @@ hw_bwd_k(const float* __restrict__ y, const float* __restrict__ par,
          int m) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const Smoothing p = load_par(par, B, b);
+  const Smoothing p = load_par(par, b);
   const float z = zbp[b];
   const float zm = add(z, static_cast<float>(m));
   const float l0 = l0p[b], t0 = t0p[b];
@@ -271,25 +360,35 @@ extern "C" int sts_hw_ring_in_registers(int m) {
   return reg;
 }
 
-// y, e, lv, tr, so, gpan: [T, B]; par, gpar: [3, B] (alpha, beta, gamma);
-// l0, t0, zb, sse, gbar: [B]; ring, rho: [m, B].  `ring` holds the
-// pre-rotated seeds; on the global route it is also the forward's scratch
-// and is overwritten.  `rho` is the adjoint's scratch on the global route
-// (zeroed by the caller), null otherwise.  Null for outputs the call does
-// not write; `gbar` null means `gpan` is a cotangent of e, else gpan is e
-// itself.  Return cudaGetLastError() after the launch.
+// y, e, lv, tr, so, gpan: [T, B]; par: [B, 3] (alpha, beta, gamma); gpar:
+// [3, B]; l0, t0, zb, sse, gbar, walked: [B]; s0: [B, m], the pre-rotated
+// seeds; ring, rho: [m, B], the forward's and the adjoint's scratch on the
+// global route (rho zeroed by the caller), null otherwise.  Null for outputs the call does
+// not write (`walked`: int32, 1 where the forward redid a series with
+// __fdiv_rn); `gbar` null means `gpan` is a cotangent of e, else gpan is e
+// itself.  Return the CUDA error of the launch (0 on success): a ring whose
+// shared memory the card refuses launches nothing.
 extern "C" int sts_hw_fwd(const float* y, const float* par, const float* l0,
-                          const float* t0, float* ring, const float* zb,
+                          const float* t0, const float* s0, float* ring,
+                          const float* zb,
                           float* e, float* lv, float* tr, float* so,
-                          float* sse, int B, int T, int m, int mult, int save,
-                          void* stream) {
+                          float* sse, int* walked, int B, int T, int m,
+                          int mult, int save, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int rc = 0;
   with_period(m, mult, [&](auto mc, auto mu) {
-    STS_LAUNCH(sts::grid_for(B), st,
-               hw_fwd_k<decltype(mc)::value, decltype(mu)::value>)(
-        y, par, l0, t0, ring, zb, e, lv, tr, so, sse, B, T, m, save);
+    constexpr int M = decltype(mc)::value;
+    constexpr bool kMult = decltype(mu)::value;
+    auto go = [&](auto kern) {
+      rc = sts::launch_ring(kern, fwd_smem(M), B, st, y, par, l0, t0, s0,
+                            ring, zb, e, lv, tr, so, sse, walked, B, T, m);
+    };
+    if (save)
+      go(hw_fwd_k<M, kMult, true>);
+    else
+      go(hw_fwd_k<M, kMult, false>);
   });
-  return static_cast<int>(cudaGetLastError());
+  return rc;
 }
 
 extern "C" int sts_hw_bwd(const float* y, const float* par, const float* l0,
@@ -303,5 +402,47 @@ extern "C" int sts_hw_bwd(const float* y, const float* par, const float* l0,
                hw_bwd_k<decltype(mc)::value, decltype(mu)::value>)(
         y, par, l0, t0, zb, lv, tr, so, gpan, gbar, rho, gpar, B, T, m);
   });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward's y ring at period m, as built: stages and steps a stage;
+// both 0 on the global route.
+extern "C" int sts_hw_ring_layout(int m, int* stages, int* steps) {
+  *stages = *steps = 0;
+  with_period(m, 0, [&](auto mc, auto) {
+    constexpr int M = decltype(mc)::value;
+    if (M > 0) {
+      *stages = kStages;
+      *steps = stage_steps(M);
+    }
+  });
+  return 0;
+}
+
+// Blocks an SM can hold and dynamic shared memory a block of the forward
+// at period m, model `mult`, mode `save`.  Returns the CUDA error.
+extern "C" int sts_hw_occupancy(int m, int mult, int save, int* blocks,
+                                int* smem) {
+  int rc = 0;
+  with_period(m, mult, [&](auto mc, auto mu) {
+    constexpr int M = decltype(mc)::value;
+    constexpr bool kMult = decltype(mu)::value;
+    *smem = static_cast<int>(fwd_smem(M));
+    rc = static_cast<int>(
+        save ? sts::blocks_per_sm(hw_fwd_k<M, kMult, true>, *smem, blocks)
+             : sts::blocks_per_sm(hw_fwd_k<M, kMult, false>, *smem, blocks));
+  });
+  return rc;
+}
+
+// The forward's fast divide against __fdiv_rn, for numerators of either
+// sign: tried, differ are device counters (zeroed by the caller) for n
+// pairs.
+extern "C" int sts_hw_check_divide(unsigned long long n,
+                                   unsigned long long seed,
+                                   unsigned long long* tried,
+                                   unsigned long long* differ, void* stream) {
+  STS_LAUNCH(dim3(132 * 8), static_cast<cudaStream_t>(stream),
+             sts::check_divide_k<true>)(n, seed, tried, differ);
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,8 +5,8 @@ library with a plain C interface (no PyTorch headers, so a source builds in
 seconds).  The hash covers the source, the shared headers and the flags, so
 an edited source is rebuilt at its next use and an unchanged one is loaded
 as built.  :func:`build_all` starts one ``nvcc`` per source at once.  A
-variant of a source built with extra ``-D`` macros (``garch.cu``'s ring
-depth) is a library of its own, keyed by them too; the wrappers load the
+variant of a source built with extra ``-D`` macros (the ring depths of
+``garch.cu``, ``hw.cu`` and ``hr.cu``) is a library of its own, keyed by them too; the wrappers load the
 plain build.
 
 A failed build raises: nothing here falls back to another path.
@@ -42,6 +42,8 @@ SIGNATURES = {
     "hr": {
         "sts_hr_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+        "sts_hr_ring_depth": [],
+        "sts_hr_occupancy": [_P, _P],
     },
     "fill": {
         "sts_fill_chain": [_P, _P, _P, _P, _I, _I, _P],
@@ -63,9 +65,13 @@ SIGNATURES = {
         "sts_ewma_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "hw": {
-        "sts_hw_fwd": [_P] * 11 + [_I] * 5 + [_P],
+        "sts_hw_fwd": [_P] * 13 + [_I] * 5 + [_P],
         "sts_hw_bwd": [_P] * 12 + [_I] * 4 + [_P],
         "sts_hw_ring_in_registers": [_I],
+        "sts_hw_ring_layout": [_I, _P, _P],
+        "sts_hw_occupancy": [_I, _I, _I, _P, _P],
+        "sts_hw_check_divide": [ctypes.c_ulonglong, ctypes.c_ulonglong, _P,
+                                _P, _P],
     },
 }
 

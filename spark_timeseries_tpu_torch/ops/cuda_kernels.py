@@ -155,12 +155,19 @@ def _ptr(x):
 
 
 def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
+    _launch_call(lib_name, counter, device,
+                 lambda lib, stream: getattr(lib, fn)(*args, stream))
+
+
+def _launch_call(lib_name: str, counter: str, device, call) -> None:
+    """Run ``call(library, stream) -> CUDA error`` with the build of
+    ``csrc/<lib_name>.cu`` on ``device``'s current stream; raise on an
+    error, else count one launch of ``counter``."""
     lib = _build.load(lib_name)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
+        rc = call(lib, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{fn} launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{counter} launch failed with CUDA error {rc}")
     LAUNCHES[counter] += 1
 
 
@@ -369,11 +376,25 @@ def hr_moments(yt, zb, lag_y: int, lag_e: int, intercept: bool, woff: int,
                                 beta_m, beta, t_limit)
     acc = yt.new_empty(nacc, B)
     if B:
-        beta_t = beta.t().contiguous() if lag_e else None
-        _launch("hr", "sts_hr_moments", "hr_moments", dev, _ptr(yt),
-                _ptr(zb), _ptr(beta_t), _ptr(acc), B, T, lag_y, lag_e,
-                int(intercept), woff, beta_m if lag_e else 0, t_limit)
+        _launch_call("hr", "hr_moments", dev, lambda lib, st: _hr_moments_call(
+            lib, st, yt, zb, acc, lag_y, lag_e, intercept, woff, beta_m,
+            beta, t_limit))
     return acc.t()
+
+
+def _hr_moments_call(lib, stream, yt, zb, acc, lag_y: int, lag_e: int,
+                     intercept: bool, woff: int, beta_m: int = 0, beta=None,
+                     t_limit=None) -> int:
+    """Launch the moment sweep of ``lib`` (a build of ``hr.cu``) on
+    ``stream`` into ``acc [nacc, B]``, arguments as :func:`hr_moments`
+    takes them -> the CUDA error.  The one place that packs
+    ``sts_hr_moments``' arguments, for every build that is called."""
+    T, B = yt.shape
+    beta_t = beta.t().contiguous() if lag_e else None
+    return lib.sts_hr_moments(
+        _ptr(yt), _ptr(zb), _ptr(beta_t), _ptr(acc), B, T, lag_y, lag_e,
+        int(intercept), woff, beta_m if lag_e else 0,
+        T if t_limit is None else t_limit, stream)
 
 
 def hr_moments_plain(yt, zb, lag_y: int, lag_e: int, intercept: bool,
@@ -820,16 +841,33 @@ def hw_fwd(yt, params, l0, t0, s0r, zb, period: int, mult: bool,
     if not _on_cuda(dev):
         return hw_fwd_plain(yt, params, l0, t0, s0r, zb, period, mult,
                             save_resid)
-    ring = time_major(s0r)  # [period, B]; the global route's scratch too
     sse = yt.new_empty(B)
-    outs = [torch.empty_like(yt) if save_resid else None for _ in range(4)]
+    outs = [torch.empty_like(yt) for _ in range(4)] if save_resid else None
     if B:
-        par_t = params.t().contiguous()
-        _launch("hw", "sts_hw_fwd", "hw_fwd", dev, _ptr(yt), _ptr(par_t),
-                _ptr(l0), _ptr(t0), _ptr(ring), _ptr(zb),
-                *(_ptr(o) for o in outs), _ptr(sse), B, T, period, int(mult),
-                int(save_resid))
+        _launch_call("hw", "hw_fwd", dev, lambda lib, st: _hw_fwd_call(
+            lib, st, yt, params, l0, t0, s0r, zb, period, mult, sse, outs))
     return (*outs, sse) if save_resid else sse
+
+
+def _hw_fwd_call(lib, stream, yt, params, l0, t0, s0r, zb, period: int,
+                 mult: bool, sse, outs=None, walked=None) -> int:
+    """Launch the Holt-Winters forward of ``lib`` (a build of ``hw.cu``) on
+    ``stream``, inputs as :func:`hw_fwd` takes them: the SSE into ``sse
+    [B]``; with ``outs`` (e, L, T, S_old, each ``[T, B]``) the
+    ``save_resid`` mode; ``walked`` (int32 ``[B]``), when given, gets 1
+    where the kernel redid a series with ``__fdiv_rn``.  Returns the CUDA
+    error.  The one place that packs ``sts_hw_fwd``'s arguments, for every
+    build that is called."""
+    T, B = yt.shape
+    # the kernel reads params and s0r in their [B, k] rows; the global
+    # route's ring runs in an [period, B] scratch
+    ring = (None if lib.sts_hw_ring_in_registers(period)
+            else yt.new_empty(period, B))
+    save = outs is not None
+    return lib.sts_hw_fwd(
+        _ptr(yt), _ptr(params), _ptr(l0), _ptr(t0), _ptr(s0r), _ptr(ring),
+        _ptr(zb), *(_ptr(o) for o in (outs if save else (None,) * 4)),
+        _ptr(sse), _ptr(walked), B, T, period, int(mult), int(save), stream)
 
 
 def hw_fwd_plain(yt, params, l0, t0, s0r, zb, period: int, mult: bool,
@@ -902,9 +940,8 @@ def hw_bwd(yt, params, l0, t0, zb, lv, tr, so, e, g, period: int,
     rho = None if hw_ring_in_registers(period) else yt.new_zeros(period, B)
     gpar = yt.new_empty(3, B)
     if B:
-        par_t = params.t().contiguous()
         gpan, gbar = (e, g) if g_is_sse else (g, None)
-        _launch("hw", "sts_hw_bwd", "hw_bwd", dev, _ptr(yt), _ptr(par_t),
+        _launch("hw", "sts_hw_bwd", "hw_bwd", dev, _ptr(yt), _ptr(params),
                 _ptr(l0), _ptr(t0), _ptr(zb), _ptr(lv), _ptr(tr), _ptr(so),
                 _ptr(gpan), _ptr(gbar), _ptr(rho), _ptr(gpar), B, T, period,
                 int(mult))

@@ -119,6 +119,11 @@ inline void __pipeline_wait_prior(size_t) {}
 # the GARCH ring depths chip_smoke.py builds and times; csrc/garch.cu ships
 # one of them
 GARCH_DEPTHS = (8, 16, 32)
+# the Holt-Winters forward's builds chip_smoke.py times (y ring stages) and
+# the moment sweep's ring depths (0: one load of y a step, the design
+# before the ring); csrc ships one of each
+HW_VARIANTS = {"S2": ["-DSTS_HW_STAGES=2"], "S3": ["-DSTS_HW_STAGES=3"]}
+HR_DEPTHS = (0, 8, 16, 32)
 
 
 @pytest.fixture(scope="module")
@@ -136,6 +141,10 @@ def emulated(tmp_path_factory):
                    for k in GARCH_DEPTHS})
     builds["garch-48K"] = ("garch", ["-DEMU_SMEM_LIMIT=49152",
                                      "-DSTS_GARCH_DEPTH=32"])
+    builds.update({f"hw-{k}": ("hw", defs) for k, defs in HW_VARIANTS.items()})
+    builds["hw-48K"] = ("hw", ["-DEMU_SMEM_LIMIT=49152", "-DSTS_HW_STAGES=3"])
+    builds.update({f"hr-D{k}": ("hr", [f"-DSTS_HR_DEPTH={k}"])
+                   for k in HR_DEPTHS})
     jobs = {key: subprocess.Popen(
         [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          f"-I{d}", *defs, "-x", "c++", str(_build.CSRC / f"{name}.cu"),
@@ -159,12 +168,12 @@ def emulated(tmp_path_factory):
 def kernels(emulated, monkeypatch):
     """Route the wrappers of ``ops.cuda_kernels`` to the emulated kernels
     for CPU tensors; returns the launch counter."""
-    def launch(lib_name, fn, counter, device, *args):
-        assert getattr(emulated[lib_name], fn)(*args, None) == 0
+    def launch(lib_name, counter, device, call):
+        assert call(emulated[lib_name], None) == 0
         ck.LAUNCHES[counter] += 1
 
     monkeypatch.setattr(ck, "_on_cuda", lambda device: True)
-    monkeypatch.setattr(ck, "_launch", launch)
+    monkeypatch.setattr(ck, "_launch_call", launch)
     monkeypatch.setattr(ck, "hw_ring_in_registers", lambda m: bool(
         emulated["hw"].sts_hw_ring_in_registers(m)))
     ck.reset_launch_counts()
@@ -222,15 +231,15 @@ def garch_depth(request, emulated, kernels, monkeypatch):
     returns D."""
     lib = emulated[f"garch-D{request.param}"]
     assert lib.sts_garch_ring_depth() == request.param
-    inner = ck._launch
+    inner = ck._launch_call
 
-    def launch(lib_name, fn, counter, device, *args):
+    def launch(lib_name, counter, device, call):
         if lib_name != "garch":
-            return inner(lib_name, fn, counter, device, *args)
-        assert getattr(lib, fn)(*args, None) == 0
+            return inner(lib_name, counter, device, call)
+        assert call(lib, None) == 0
         ck.LAUNCHES[counter] += 1
 
-    monkeypatch.setattr(ck, "_launch", launch)
+    monkeypatch.setattr(ck, "_launch_call", launch)
     return request.param
 
 
@@ -475,3 +484,254 @@ def test_hw_bwd_source(kernels, m, t, route, mult, cotangent):
     ref = ck.hw_bwd_plain(yt, par, l0, t0, zb, lv, tr, so, e, cot, m, mult)
     assert kernels["hw_bwd"] == 1
     np.testing.assert_array_equal(got.numpy(), ref.numpy())
+
+
+def _hw_lib_fwd(lib, yt, par, l0, t0, s0r, zb, m, mult, save):
+    """One Holt-Winters forward straight through ``lib`` (a build of
+    ``hw.cu``) -> ``(return code, outputs as hw_fwd gives them, walked)``;
+    the outputs start as 7.0 and ``walked`` (1 where the exact walk redid a
+    series) as -1."""
+    T, B = yt.shape
+    sse = torch.full((B,), 7.0)
+    walked = torch.full((B,), -1, dtype=torch.int32)
+    outs = [torch.full((T, B), 7.0) for _ in range(4)] if save else None
+    rc = ck._hw_fwd_call(lib, None, yt, par.contiguous(), l0, t0,
+                         s0r.contiguous(), zb, m, mult, sse, outs, walked)
+    return rc, ((*outs, sse) if save else sse), walked
+
+
+def _hw_layout(lib, m):
+    """(stages, steps a stage) of ``lib``'s forward's y ring at period
+    ``m``."""
+    vals = [ctypes.c_int(-1) for _ in range(2)]
+    assert lib.sts_hw_ring_layout(m, *(ctypes.byref(v) for v in vals)) == 0
+    return tuple(v.value for v in vals)
+
+
+@pytest.fixture(params=sorted(HW_VARIANTS))
+def hw_variant(request, emulated):
+    """``(name, library)`` of each Holt-Winters build chip_smoke.py times."""
+    return request.param, emulated[f"hw-{request.param}"]
+
+
+def test_hw_shipped_variant_is_timed(emulated):
+    # the shipped build is one of the timed ones, and every register
+    # period's stage holds a whole number of periods, at least 24 steps
+    shipped = _hw_layout(emulated["hw"], 24)
+    assert shipped in {_hw_layout(emulated[f"hw-{k}"], 24)
+                       for k in HW_VARIANTS}
+    for m, _, route in HW_CASES:
+        stages, steps = _hw_layout(emulated["hw"], m)
+        if route == "registers":
+            assert stages >= 2 and steps % m == 0 and 24 <= steps < 24 + m
+        else:
+            assert (stages, steps) == (0, 0)
+
+
+# time lengths (k, a) -> k S + a around the y ring's stage S: one step, a
+# stage short of full, full, one over, and past the whole ring (k = None:
+# stages + 1)
+HW_T = {"1": (0, 1), "S-1": (1, -1), "S": (1, 0), "S+1": (1, 1),
+        "ring+3": (None, 3)}
+
+
+@pytest.mark.parametrize("t_of_s", HW_T)
+@pytest.mark.parametrize("m", [4, 6, 7, 8, 12, 24])
+@pytest.mark.parametrize("mult", [False, True])
+def test_hw_fwd_ring_source(hw_variant, m, t_of_s, mult):
+    # every register period through each build's y ring, T around the
+    # ring's edges: the plain version's bits in both modes, sum ==
+    # save_resid, and no series off the fast divide
+    name, lib = hw_variant
+    stages, steps = _hw_layout(lib, m)
+    assert stages == (3 if name == "S3" else 2)
+    k, a = HW_T[t_of_s]
+    t = (stages + 1 if k is None else k) * steps + a
+    # seeds need two seasons: a short panel is the tail of a longer one,
+    # its starts moved with it (some now before step 0)
+    tl = max(t, 2 * m)
+    yt, par, l0, t0, s0r, zb = _hw_inputs(tl, 70, m, mult, seed=7 * m + t)
+    yt, zb = yt[tl - t:].contiguous(), zb - (tl - t)
+    ref = ck.hw_fwd_plain(yt, par, l0, t0, s0r, zb, m, mult, True)
+    rc, got, walked = _hw_lib_fwd(lib, yt, par, l0, t0, s0r, zb, m, mult,
+                                  True)
+    assert rc == 0
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+    rc, sse, walked_sum = _hw_lib_fwd(lib, yt, par, l0, t0, s0r, zb, m, mult,
+                                      False)
+    assert rc == 0 and torch.equal(sse, got[-1])
+    assert not walked.any() and not walked_sum.any()
+
+
+@pytest.mark.parametrize("save", [False, True])
+def test_hw_fwd_exact_walk_source(hw_variant, save):
+    # multiplicative rows whose divides leave the fast path's range are
+    # walked again with __fdiv_rn: numerators below 2^-60 (row 2), above
+    # 2^60 (row 3), a -0 numerator (row 4), denominators above 2^60 (row
+    # 6); a negative numerator inside the range stays fast (row 5).  Every
+    # row keeps the plain version's bits; the additive model never walks.
+    _, lib = hw_variant
+    m, t = 24, 101
+    yt, par, l0, t0, s0r, zb = _hw_inputs(t, 8, m, True, seed=11)
+    yt[:, 2] *= 1e-27
+    par[3, 0] = 0.5
+    yt[t - 1, 3] = 2.4e18
+    yt[t - 1, 4] = -0.0
+    yt[t - 2, 5] = -3.0
+    s0r[6] = 1e19
+    for mult in (True, False):
+        ref = ck.hw_fwd_plain(yt, par, l0, t0, s0r, zb, m, mult, save)
+        rc, got, walked = _hw_lib_fwd(lib, yt, par, l0, t0, s0r, zb, m,
+                                      mult, save)
+        assert rc == 0
+        for g, r in zip(got if save else [got], ref if save else [ref]):
+            np.testing.assert_array_equal(g.numpy(), r.numpy())
+        want = [0, 0, 1, 1, 1, 0, 1, 0] if mult else [0] * 8
+        assert walked.tolist() == want
+
+
+def test_hw_fast_divide_source(emulated):
+    # the forward's fast divide for numerators of either sign, against
+    # __fdiv_rn (seeded here with a correctly rounded reciprocal): the same
+    # bits over its whole range
+    tried, differ = ctypes.c_ulonglong(0), ctypes.c_ulonglong(0)
+    assert emulated["hw"].sts_hw_check_divide(
+        1 << 17, 7, ctypes.byref(tried), ctypes.byref(differ), None) == 0
+    assert tried.value > 1 << 15 and differ.value == 0
+
+
+def test_hw_refused_launch_returns_its_error(emulated):
+    # a card that grants 48 KB a block refuses the 3-stage ring (72 KB at
+    # period 24): the entry point returns the error and writes nothing; the
+    # global route, which streams nothing, still runs
+    lib = emulated["hw-48K"]
+    yt, par, l0, t0, s0r, zb = _hw_inputs(60, 9, 24, False, seed=2)
+    rc, sse, walked = _hw_lib_fwd(lib, yt, par, l0, t0, s0r, zb, 24, False,
+                                  False)
+    assert rc != 0 and bool((sse == 7.0).all()) and bool((walked == -1).all())
+    yt, par, l0, t0, s0r, zb = _hw_inputs(60, 9, 25, False, seed=2)
+    rc, sse, _ = _hw_lib_fwd(lib, yt, par, l0, t0, s0r, zb, 25, False, False)
+    assert rc == 0
+    np.testing.assert_array_equal(
+        sse.numpy(), ck.hw_fwd_plain(yt, par, l0, t0, s0r, zb, 25,
+                                     False).numpy())
+
+
+def _hr_lib(lib, yt, zb, lag_y, lag_e, woff, beta_m=0, beta=None):
+    """One moment sweep (with intercept) straight through ``lib`` (a build
+    of ``hr.cu``) -> the accumulators ``[nacc, B]``."""
+    ncols = 1 + lag_y + lag_e
+    acc = torch.full((ncols * (ncols + 1) // 2 + ncols, yt.shape[1]), 7.0)
+    assert ck._hr_moments_call(lib, None, yt, zb, acc, lag_y, lag_e, True,
+                               woff, beta_m, beta) == 0
+    return acc
+
+
+def _hr_sweeps(lib, yt, zb, beta):
+    """The ARIMA(1,1,1) init's two sweeps: AR(3) with intercept, then
+    [1, y_{t-1}, eh_{t-1}] with the AR(3) residual rebuilt from beta."""
+    return (_hr_lib(lib, yt, zb, 3, 0, 3),
+            _hr_lib(lib, yt, zb, 1, 1, 4, 3, beta))
+
+
+def _hr_digest_inputs(t=77, b=300):
+    rs = np.random.RandomState(5)
+    yt = torch.from_numpy(rs.standard_normal((t, b)).cumsum(0)
+                          .astype(np.float32))
+    zb = torch.from_numpy(rs.randint(0, t // 2, b).astype(np.float32))
+    beta = torch.from_numpy((0.2 * rs.standard_normal((b, 4)))
+                            .astype(np.float32))
+    return yt, zb, beta
+
+
+# sha256 of the two sweeps' accumulators on _hr_digest_inputs(), from
+# csrc/hr.cu as it was before its y ring (one load of y a step), built as
+# the `emulated` fixture builds
+HR_PARENT_DIGEST = ("32dc4189c5afa7e855fab7b02bac59d6"
+                    "c63c8630df4468be21ab964efa39aa50")
+
+
+@pytest.fixture(params=HR_DEPTHS, ids="D{}".format)
+def hr_depth(request, emulated):
+    """``(D, library)`` of ``hr.cu`` built with ring depth D."""
+    lib = emulated[f"hr-D{request.param}"]
+    assert lib.sts_hr_ring_depth() == request.param
+    return request.param, lib
+
+
+def test_hr_shipped_depth_is_timed(emulated):
+    assert emulated["hr"].sts_hr_ring_depth() in HR_DEPTHS[1:]
+
+
+def test_hr_moments_match_the_parent_kernel(hr_depth):
+    import hashlib
+
+    _, lib = hr_depth
+    h = hashlib.sha256()
+    for acc in _hr_sweeps(lib, *_hr_digest_inputs()):
+        h.update(acc.numpy().tobytes())
+    assert h.hexdigest() == HR_PARENT_DIGEST
+
+
+# time lengths (k, a) -> k D + a around the ring's edges (D = 8 for the
+# build without a ring)
+HR_T = {"1": (0, 1), "D-1": (1, -1), "D": (1, 0), "D+1": (1, 1),
+        "3D+5": (3, 5), "200": (0, 200)}
+
+
+@pytest.mark.parametrize("t_of_d", HR_T)
+def test_hr_moments_ring_source(emulated, hr_depth, t_of_d):
+    # both sweeps through the ring: the bits of the one-load-a-step loop,
+    # and the plain version within its tolerance
+    d, lib = hr_depth
+    k, a = HR_T[t_of_d]
+    t = k * max(d, 8) + a
+    g = torch.Generator().manual_seed(t)
+    b = 270
+    yt = torch.randn(t, b, generator=g).cumsum(0).contiguous()
+    zb = torch.randint(0, max(t // 2, 1), (b,), generator=g).float()
+    zb[0], zb[1] = 0.0, t + 1.0
+    beta = (0.2 * torch.randn(b, 4, generator=g)).contiguous()
+    ref = _hr_sweeps(emulated["hr-D0"], yt, zb, beta)
+    for got, want in zip(_hr_sweeps(lib, yt, zb, beta), ref):
+        assert torch.equal(got, want)
+    _close(ref[0].t(), ck.hr_moments_plain(yt, zb, 3, 0, True, 3))
+    _close(ref[1].t(), ck.hr_moments_plain(yt, zb, 1, 1, True, 4, 3, beta))
+
+
+# (lag_y, lag_e, intercept, beta_m): a layout for each column capacity the
+# sweep is instantiated at (2, 4, 8, 16 and 32 columns)
+HR_COLS = {"NC2": (1, 0, True, 0), "NC4": (2, 1, False, 3),
+           "NC8": (4, 3, True, 5), "NC16": (10, 4, True, 6),
+           "NC32": (20, 8, False, 10)}
+
+
+@pytest.mark.parametrize("cols", HR_COLS)
+@pytest.mark.parametrize("t_limit", ["T", "T-5", "0"])
+def test_hr_moments_ring_instantiations_source(emulated, hr_depth, cols,
+                                               t_limit):
+    # every column capacity through the ring, with and without an
+    # intercept, the sweep cut short by t_limit (or empty): the bits of the
+    # one-load-a-step build, and the plain version within its tolerance
+    d, lib = hr_depth
+    lag_y, lag_e, ic, beta_m = HR_COLS[cols]
+    t, b = 3 * max(d, 8) + 5, 70
+    tl = {"T": t, "T-5": t - 5, "0": 0}[t_limit]
+    g = torch.Generator().manual_seed(len(cols) + t)
+    yt = torch.randn(t, b, generator=g).cumsum(0).contiguous()
+    zb = torch.randint(0, t // 2, (b,), generator=g).float()
+    beta = (0.1 * torch.randn(b, beta_m + 1, generator=g)).contiguous()
+    ncols = int(ic) + lag_y + lag_e
+    woff = beta_m + lag_e
+
+    def sweep(build):
+        acc = torch.full((ncols * (ncols + 1) // 2 + ncols, b), 7.0)
+        assert ck._hr_moments_call(build, None, yt, zb, acc, lag_y, lag_e, ic,
+                                   woff, beta_m, beta, tl) == 0
+        return acc
+
+    got = sweep(lib)
+    assert torch.equal(got, sweep(emulated["hr-D0"]))
+    _close(got.t(), ck.hr_moments_plain(yt, zb, lag_y, lag_e, ic, woff,
+                                        beta_m, beta, tl))
