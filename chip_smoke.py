@@ -9,16 +9,20 @@ Phases; each failure makes the script exit non-zero with no result line:
 2. build the CUDA kernels from the seven sources in
    ``spark_timeseries_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once, with ``garch.cu`` also at each ring depth of ``GARCH_DEPTHS``,
-   ``hw.cu`` as each build of ``HW_VARIANTS`` and ``hr.cu`` at each depth
-   of ``HR_DEPTHS``) and print the build seconds and each source's
-   registers, stack frames and spills (per instantiation for the
-   Holt-Winters, GARCH and moment kernels), and for the kernels that
-   stream through a ring (GARCH, the Holt-Winters forward, the moment
-   sweep) its shared memory, blocks an SM, waves, SASS instructions a step
-   and the issue-rate floor they imply;
+   ``hw.cu`` as each build of ``HW_VARIANTS``, ``hr.cu`` at each depth
+   of ``HR_DEPTHS``, ``fill.cu`` at each depth of ``FILL_DEPTHS`` and
+   ``autocorr.cu`` as each build of ``ACF_VARIANTS``) and print the build
+   seconds and each source's registers, stack frames and spills (per
+   instantiation for the Holt-Winters, GARCH, moment and transform
+   kernels), and for the kernels that stream through a ring or a tile
+   (GARCH, the Holt-Winters forward, the moment sweep, the fill chain, the
+   autocorrelation) its shared memory, blocks an SM, SASS instructions a
+   step and the issue-rate floor they imply;
 3. hold each of the eleven kernels against its plain PyTorch version on the
    card, at B = 65,537 x T = 1,000 and B = 4,097 x T = 3,000 (ragged
-   panels; for the transforms also all-NaN, constant and trailing-NaN rows;
+   panels; for the transforms also all-NaN, constant and trailing-NaN rows,
+   the fill chain bit for bit, the autocorrelation on both routes, the
+   tile and, at B = 4,097 x T = 8,000, the stream;
    for the smoothing kernels a never-live row, a row shorter than two
    seasons and the register-ring and global-ring Holt-Winters routes; for
    the GARCH and multiplicative Holt-Winters forwards rows outside their
@@ -52,7 +56,11 @@ Phases; each failure makes the script exit non-zero with no result line:
    rate, whichever is larger), every GARCH variant the pipeline runs also
    at each ring depth, both moment sweeps at each ring depth (bit for bit
    against the build without a ring), the Holt-Winters forward as each
-   build of ``HW_VARIANTS`` (bit for bit against the shipped one) and the
+   build of ``HW_VARIANTS`` (bit for bit against the shipped one), the
+   fill chain at each depth of ``FILL_DEPTHS`` (bit for bit against the
+   shipped build) and the autocorrelation as each build of
+   ``ACF_VARIANTS`` (within 1e-5 of the shipped build), each set timed in
+   turns, and the
    multiplicative adjoint on the 100,000 rows its fit takes; at the hourly
    path's shape first hold every smoothing-kernel variant that path runs
    against its plain version (the forward bit for bit) and count the rows
@@ -90,15 +98,25 @@ HW_VARIANTS = {"2 stages": ("STS_HW_STAGES=2",),
 # design before the ring, which the others must match bit for bit); it
 # ships one of the others
 HR_DEPTHS = (0, 8, 16, 32)
+# ring depths fill.cu is built and timed at; it ships one of them
+FILL_DEPTHS = (8, 16, 32)
+# builds of autocorr.cu timed beside the shipped one: the tile route at 8
+# and 16 series a block, and the two-pass stream for every T; it ships one
+ACF_VARIANTS = {"tile S=8": ("STS_ACF_TILE=8",),
+                "tile S=16": ("STS_ACF_TILE=16",),
+                "two-pass stream": ("STS_ACF_TILE=0",)}
 
 # Tolerances of kernel vs plain version, relative to the largest magnitude
 # of the plain result (NaNs must sit at the same places).  The two differ
 # only in rounding: the kernels' fused multiply-adds against PyTorch's
 # separate multiply and add, over sums of up to T terms.  The fill chain
 # and the smoothing kernels round every operation as PyTorch does (_rn
-# intrinsics), so they are held tighter.
+# intrinsics), so they are held tighter (the fill chain and the
+# Holt-Winters forward also bit for bit, by same_bits).  autocorr_plain
+# sums in the kernel's order (chunks of the tile, then chunk order), so
+# only the fused lag products differ: 1e-6 of r_k.
 TOL = {"css_fwd": 1e-5, "css_bwd": 1e-5, "hr_moments": 1e-5,
-       "fill_chain": 1e-6, "autocorr": 1e-5, "garch_fwd": 1e-5,
+       "fill_chain": 1e-6, "autocorr": 1e-6, "garch_fwd": 1e-5,
        "garch_bwd": 1e-5, "ewma_fwd": 1e-6, "ewma_bwd": 1e-6,
        "hw_fwd": 1e-6, "hw_bwd": 1e-6}
 
@@ -416,18 +434,15 @@ def phase_kernels_volatility(chk: Checks, device,
     for b, t in shapes:
         log(f"phase 3: volatility kernels vs plain at B={b} T={t}")
         yt = _ragged_prices(b, t, seed=b, device=device)
-        for which in ((True, True, True), (False, True, False),
-                      (True, False, True), (False, False, True)):
-            got = ck.fill_chain(yt, which)
-            ref = ck.fill_chain_plain(yt, which)
-            for i, (g, r) in enumerate(zip(got, ref)):
-                chk.compare("fill_chain", f"outputs {which} #{i}", g, r)
+        hold_fill_chain(chk, yt, f"B={b} T={t}")
         (rt,) = ck.fill_chain(yt, (False, True, False))  # returns, NaN edges
         del yt
-        for nl in (1, 20, 40):
-            chk.compare("autocorr", f"returns, {nl} lags",
+        for nl in (1, 20, 24, 32, 40):
+            chk.compare("autocorr",
+                        f"returns, {nl} lags ({_acf_route(t, nl)})",
                         ck.autocorr(rt, nl), ck.autocorr_plain(rt, nl))
-        chk.compare("autocorr", "squared returns, 20 lags",
+        chk.compare("autocorr", f"squared returns, 20 lags "
+                    f"({_acf_route(t, 20)})",
                     ck.autocorr(rt * rt, 20), ck.autocorr_plain(rt * rt, 20))
         # GARCH: returns zeroed outside a ragged live span, a few rows live
         # from 0 and one never live
@@ -483,6 +498,42 @@ def phase_kernels_volatility(chk: Checks, device,
                     chk.compare("garch_bwd", f"dr, {what}", got[2], ref[2])
         del r, h, gpan, rt
         torch.cuda.synchronize()
+    # the autocorrelation's stream route: a T whose tile does not fit
+    b, t = 4_097, 8_000
+    log(f"phase 3: transforms vs plain at B={b} T={t}")
+    yt = _ragged_prices(b, t, seed=t, device=device)
+    hold_fill_chain(chk, yt, f"B={b} T={t}")
+    (rt,) = ck.fill_chain(yt, (False, True, False))
+    del yt
+    for nl in (20, 40):
+        chk.compare("autocorr", f"returns, {nl} lags ({_acf_route(t, nl)})",
+                    ck.autocorr(rt, nl), ck.autocorr_plain(rt, nl))
+    del rt
+    torch.cuda.synchronize()
+
+
+def _acf_route(t: int, nl: int) -> str:
+    """The route the shipped autocorrelation kernel takes at (T, nl)."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    chunk = _build.load("autocorr").sts_autocorr_route(t, nl)
+    return f"tile, chunks of {chunk}" if chunk else "stream"
+
+
+def hold_fill_chain(chk: Checks, yt, what: str) -> None:
+    """The fill chain against its plain version for each set of outputs,
+    bit for bit."""
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    for which in ((True, True, True), (False, True, False),
+                  (True, False, True), (False, False, True)):
+        got = ck.fill_chain(yt, which)
+        ref = ck.fill_chain_plain(yt, which)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            chk.compare("fill_chain", f"outputs {which} #{i}", g, r)
+        chk.require(all(same_bits(g, r) for g, r in zip(got, ref)),
+                    f"fill_chain {which} bitwise equal to plain, {what}")
+        del got, ref
 
 
 def check_garch_divide(chk: Checks, device, pairs: int = 1 << 35) -> None:
@@ -682,10 +733,13 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     gbar = torch.full((B,), 0.5 / t, device=device)
     h = ck.garch_fwd(rz, params, h0, zb, "e")
     # each kernel against its plain version once more, at this shape
-    chk.compare("fill_chain", "diff only, pipeline shape", rt,
-                ck.fill_chain_plain(yt, (False, True, False))[0])
-    chk.compare("autocorr", "20 lags, pipeline shape", ck.autocorr(rt, nl),
-                ck.autocorr_plain(rt, nl))
+    rt_plain = ck.fill_chain_plain(yt, (False, True, False))[0]
+    chk.compare("fill_chain", "diff only, pipeline shape", rt, rt_plain)
+    chk.require(same_bits(rt, rt_plain),
+                "fill_chain diff only bitwise equal to plain, pipeline shape")
+    del rt_plain
+    chk.compare("autocorr", f"20 lags, pipeline shape ({_acf_route(t, nl)})",
+                ck.autocorr(rt, nl), ck.autocorr_plain(rt, nl))
     # every variant the pipeline launches: sum (line-search trials), both
     # (gradient evaluations), last (the forecast), and the adjoint's three
     # outputs (dr carries ARGARCH's gradient)
@@ -717,6 +771,16 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     ms3 = cuda_ms(lambda: ck.fill_chain(yt))
     log(f"  fill_chain, all three outputs: {ms3:.3f} ms (bound "
         f"{_bound(f * 4 * n_el, 5 * n_el)[0]:.3f} ms)")
+    # the same panel with no NaN: what the runs of NaN cost
+    dense = torch.nan_to_num(yt, nan=500.0)
+    log("  fill_chain on the panel with its NaN replaced: diff only "
+        f"{cuda_ms(lambda: ck.fill_chain(dense, which)):.3f} ms, all three "
+        f"{cuda_ms(lambda: ck.fill_chain(dense)):.3f} ms")
+    del dense
+    fill_depth_times(chk, yt, {
+        "diff only": (which, out["fill_chain"][2]),
+        "all three": ((True, True, True),
+                      _bound(f * 4 * n_el, 5 * n_el)[0])})
     del yt
     # autocorrelation: one read of the panel, nl outputs per series; per
     # element the valid test and mean sum, the centring, the square and nl
@@ -725,6 +789,7 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     plain = cuda_ms(lambda: ck.autocorr_plain(rt, nl), reps=1)
     out["autocorr"] = (ms, plain, *_bound(f * (n_el + nl * B),
                                           (2 * nl + 5) * n_el))
+    acf_variant_times(chk, {"returns, 20 lags": (rt, nl, out["autocorr"][2])})
     del rt
     # GARCH, every variant the pipeline launches.  Forward: reads r, the
     # parameters, h0 and zb, writes ll (sum, every line-search trial), ll
@@ -776,6 +841,92 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     return out
 
 
+def _lib_call(fn, *args):
+    """Call a kernel build's entry point on the current stream; raise on a
+    CUDA error."""
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"launch failed with CUDA error {rc}")
+
+
+def _fill_lib_call(lib, yt, which):
+    """A closure running ``lib``'s fill chain (a build of ``fill.cu``,
+    called directly) -> the outputs ``which`` asks for."""
+    T, B = yt.shape
+
+    def call():
+        outs = [torch.empty_like(yt) if w else None for w in which]
+        _lib_call(lib.sts_fill_chain, yt.data_ptr(),
+                  *(None if o is None else o.data_ptr() for o in outs), B, T)
+        return [o for o in outs if o is not None]
+    return call
+
+
+def fill_depth_times(chk: Checks, yt, cases: dict) -> None:
+    """The fill chain at every depth of ``FILL_DEPTHS`` (builds of
+    ``fill.cu``, called directly) on each case ``{name: (which, bound
+    ms)}``, each bit for bit against the shipped build, then timed in
+    turns."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    shipped = _build.load("fill").sts_fill_ring_depth()
+    log(f"  fill_chain ring depths (ms; shipped D={shipped}; each timed "
+        "twice in turns, second pass in brackets; % of bound from the "
+        "faster):")
+    for case, (which, bms) in cases.items():
+        calls = {d: _fill_lib_call(_build.load(*_fill_depth_key(d)), yt,
+                                   which) for d in FILL_DEPTHS}
+        want = _fill_lib_call(_build.load("fill"), yt, which)()
+        for d in FILL_DEPTHS:
+            chk.require(all(same_bits(g, w)
+                            for g, w in zip(calls[d](), want)),
+                        f"fill_chain {case} at D={d} bitwise equal to the "
+                        "shipped build")
+        del want
+        times = _in_turns(calls)
+        log(f"    {case:10s} " + "  ".join(
+            f"D={d}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
+            for d, ts in times.items()))
+
+
+def _acf_lib_call(lib, rt, nl: int):
+    """A closure running ``lib``'s autocorrelation (a build of
+    ``autocorr.cu``, called directly) -> ``[nl, B]``."""
+    T, B = rt.shape
+
+    def call():
+        out = rt.new_empty(nl, B)
+        _lib_call(lib.sts_autocorr, rt.data_ptr(), out.data_ptr(), B, T, nl)
+        return out
+    return call
+
+
+def acf_variant_times(chk: Checks, cases: dict) -> None:
+    """The autocorrelation as each build of ``ACF_VARIANTS`` (called
+    directly) on each case ``{name: (panel, nl, bound ms)}``, each against
+    the shipped build within 1e-5 of r_k (their chunks, so their summation
+    orders, differ), then timed in turns."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    ship = _build.load("autocorr")
+    log(f"  autocorr builds (ms; shipped tile S={ship.sts_autocorr_tile()}; "
+        "each timed twice in turns, second pass in brackets; % of bound "
+        "from the faster):")
+    for case, (rt, nl, bms) in cases.items():
+        calls = {v: _acf_lib_call(_build.load("autocorr", d), rt, nl)
+                 for v, d in ACF_VARIANTS.items()}
+        want = _acf_lib_call(ship, rt, nl)()
+        for v in ACF_VARIANTS:
+            chk.require(rel_err(calls[v](), want)[1] <= 1e-5,
+                        f"autocorr {case} as {v} within 1e-5 of the shipped "
+                        "build")
+        del want
+        times = _in_turns(calls)
+        log(f"    {case:16s} " + "  ".join(
+            f"{v}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
+            for v, ts in times.items()))
+
+
 def _garch_lib_calls(lib, rz, params, h0, zb, h, gbar) -> dict:
     """The pipeline's five GARCH launches straight through ``lib`` (a build
     of ``garch.cu``), each returning its outputs; keyed as in
@@ -783,11 +934,7 @@ def _garch_lib_calls(lib, rz, params, h0, zb, h, gbar) -> dict:
     t, b = rz.shape
     par_t = params.t().contiguous()
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-
-    def run(fn, *args):
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"GARCH launch failed with CUDA error {rc}")
+    run = _lib_call
 
     def fwd(mode):
         def call():
@@ -1561,6 +1708,10 @@ def _hr_depth_key(depth: int):
     return ("hr", (f"STS_HR_DEPTH={depth}",))
 
 
+def _fill_depth_key(depth: int):
+    return ("fill", (f"STS_FILL_DEPTH={depth}",))
+
+
 def build() -> None:
     """Phase 2: every source at once, then load each library."""
     from spark_timeseries_tpu_torch.ops import _build
@@ -1569,7 +1720,9 @@ def build() -> None:
     logs = _build.build_all(
         variants=[_garch_depth_key(d) for d in GARCH_DEPTHS]
         + [("hw", d) for d in HW_VARIANTS.values()]
-        + [_hr_depth_key(d) for d in HR_DEPTHS])
+        + [_hr_depth_key(d) for d in HR_DEPTHS]
+        + [_fill_depth_key(d) for d in FILL_DEPTHS]
+        + [("autocorr", d) for d in ACF_VARIANTS.values()])
     for name in _build.SOURCES:
         _build.load(name)
     log(f"phase 2: built {sorted(logs) or 'nothing (up to date)'} in "
@@ -1581,16 +1734,21 @@ def build() -> None:
         log(f"  {name}: {len(regs)} kernels, registers per thread "
             f"{min(regs, default=0)}..{max(regs, default=0)}, largest stack "
             f"frame {max(frame, default=0)} B, spill stores {sum(spill)} B")
-        if name.startswith(("libhw", "libgarch", "libhr")):  # each kernel
+        if name.startswith(("libhw", "libgarch", "libhr", "libfill",
+                            "libautocorr")):  # each kernel
             for kern, info in _ptxas_entries(text):
-                # of the variants and of hr.cu, the path's instantiations
+                # of the variants, hr.cu and the transforms, the path's
+                # instantiations
                 if ((name.startswith("libhr") and "<4>" not in kern)
+                        or (name.startswith(("libfill", "libautocorr"))
+                            and not kern.endswith(("k<2>", "k<20>")))
                         or (name.startswith("libhw-STS_")
                             and "hw_fwd_k<24," not in kern)):
                     continue
                 log(f"    {kern}: {info}")
     garch_report()
     hw_hr_report()
+    transforms_report()
 
 
 def _ptxas_entries(text: str):
@@ -1632,13 +1790,13 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-def _sass_main_loops(path) -> dict:
+def _sass_main_loops(path, lds=None) -> dict:
     """``{kernel: (instructions, shared loads)}`` of each kernel's main loop
     in ``cuobjdump -sass`` of the library at ``path``: of the spans that
     end in a backward branch, the one with the most shared loads (``LDS``,
-    one a panel a step), the shortest of those (the steady-state loop, not
-    the one refilling the last stages).  Empty when the toolkit has no
-    ``cuobjdump``."""
+    one a panel a step), or with exactly ``lds`` of them, the shortest of
+    those (the steady-state loop, not the one refilling the last stages).
+    Empty when the toolkit has no ``cuobjdump``."""
     from spark_timeseries_tpu_torch.ops import _build
 
     tool = Path(_build.nvcc()).parent / "cuobjdump"
@@ -1646,10 +1804,10 @@ def _sass_main_loops(path) -> dict:
         return {}
     return _sass_loops(subprocess.run(
         [str(tool), "-sass", str(path)], capture_output=True, text=True,
-        timeout=300, check=True).stdout)
+        timeout=300, check=True).stdout, lds)
 
 
-def _sass_loops(text: str) -> dict:
+def _sass_loops(text: str, lds=None) -> dict:
     """:func:`_sass_main_loops` on the text of a ``cuobjdump -sass``."""
     out = {}
     for func in re.split(r"\n\s*Function : ", text)[1:]:
@@ -1682,7 +1840,8 @@ def _sass_loops(text: str) -> dict:
             if target is None or target > addr:
                 continue
             body = [o for a, o, _ in instrs if target <= a <= addr]
-            best = max(best, (body.count("LDS"), -len(body)))
+            if lds is None or body.count("LDS") == lds:
+                best = max(best, (body.count("LDS"), -len(body)))
         out[_kernel_name(lines[0].strip())] = (-best[1], best[0])
     return out
 
@@ -1769,6 +1928,58 @@ def hw_hr_report() -> None:
             log(f"    {name} {what} {kern}: steady loop {n_ins} SASS "
                 f"instructions for {n_lds} steps = "
                 f"{per_step:.1f} a step; issue floor at {shape} "
+                f"{_issue_floor_ms(per_step, n_el):.3f} ms")
+
+
+def transforms_report() -> None:
+    """The fill chain's ring and the autocorrelation's tile at the
+    volatility pipeline's shape: dynamic shared memory and blocks an SM
+    (from the card), then the SASS instructions a step of each build's
+    steady loop (the fill chain's streamed walk; the autocorrelation
+    tile's lag-product walk, its third pass alone) and the issue floor
+    they imply."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _build.load("fill").sts_fill_occupancy(ctypes.byref(blocks),
+                                                ctypes.byref(smem))
+    if rc:
+        raise RuntimeError(f"sts_fill_occupancy failed: {rc}")
+    log(f"  fill_chain_k<2> ring: D = "
+        f"{_build.load('fill').sts_fill_ring_depth()} steps shipped (built "
+        f"and timed at {list(FILL_DEPTHS)}): {smem.value} B dynamic smem a "
+        f"block, {blocks.value} blocks an SM")
+    acf = _build.load("autocorr")
+    rc = acf.sts_autocorr_occupancy(VOL_TIME, 20, ctypes.byref(blocks),
+                                    ctypes.byref(smem))
+    if rc:
+        raise RuntimeError(f"sts_autocorr_occupancy failed: {rc}")
+    log(f"  autocorr at T={VOL_TIME}, 20 lags, shipped tile S="
+        f"{acf.sts_autocorr_tile()} ({_acf_route(VOL_TIME, 20)}; builds "
+        f"timed: {list(ACF_VARIANTS)}): {smem.value} B dynamic smem a "
+        f"block, {blocks.value} blocks an SM")
+    n_el = VOL_ROWS * VOL_TIME
+    builds = [("fill", (), "shipped")] + [
+        _fill_depth_key(d) + (f"D={d}",) for d in FILL_DEPTHS] + [
+        ("autocorr", (), "shipped")] + [
+        ("autocorr", d, v) for v, d in ACF_VARIANTS.items()]
+    for name, defines, what in builds:
+        # the tile's lag-product walk: 20 steps, one shared load each
+        loops = _sass_main_loops(_build.library_path(name, defines),
+                                 20 if name == "autocorr" else None)
+        if not loops:
+            log("    cuobjdump not found: no SASS counts")
+            return
+        for kern, (n_ins, n_lds) in sorted(loops.items()):
+            if kern not in ("fill_chain_k<2>", "autocorr_tile_k<20>"):
+                continue
+            if n_lds < 1:
+                log(f"    {name} {what} {kern}: no loop with shared loads")
+                continue
+            per_step = n_ins / n_lds
+            log(f"    {name} {what} {kern}: steady loop {n_ins} SASS "
+                f"instructions for {n_lds} steps = {per_step:.1f} a step; "
+                f"issue floor at [{VOL_TIME}, {VOL_ROWS}] "
                 f"{_issue_floor_ms(per_step, n_el):.3f} ms")
 
 

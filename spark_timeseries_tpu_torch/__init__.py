@@ -10,8 +10,8 @@ hand-written CUDA kernels (``ops.cuda_kernels``, sources in ``csrc/``), one
 for each of the reference's TPU kernels.
 
 Ported so far: ``models.arima`` (non-seasonal fit + forecast),
-``models.garch``, ``models.ewma``, ``models.holtwinters``
-(``count_evals`` aside), ``models.base``, ``utils.optim``, ``utils.linalg``,
+``models.garch``, ``models.ewma``, ``models.holtwinters``,
+``models.base``, ``utils.optim``, ``utils.linalg``,
 ``ops.layout``, ``ops.univariate`` (all but the spline fill, pacf,
 cross-correlation, trims and resampling), ``ops.lagmat``,
 ``ops.cuda_kernels``, ``reliability.status``.

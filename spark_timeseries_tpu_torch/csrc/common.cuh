@@ -7,10 +7,14 @@
 // Per-series parameters and outputs are [k, B] for the same reason.
 //
 // Kernels launch on the caller's stream, allocate nothing, never
-// synchronise, and use no atomics: every reduction is one thread's
-// sequential sum in a fixed order, so results are bitwise reproducible.
-// Shared memory, where a kernel stages loads in it, is per-thread columns
-// of a block's array: no thread reads another's words, so no barriers.
+// synchronise, and use no atomics: every reduction is a fixed-order sum
+// (one thread's sequential sum, or per-thread partials added in thread
+// order), so results are bitwise reproducible.  Shared memory, where a
+// kernel stages loads in it, is per-thread columns of a block's array: no
+// thread reads another's words, so no barriers.  The one exception is the
+// autocorrelation's tile (autocorr.cu), whose threads share a block's
+// window of the panel; it launches with STS_LAUNCH_COOP and meets at
+// __syncthreads.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,6 +34,14 @@
 #ifndef STS_LAUNCH_SMEM
 #define STS_LAUNCH_SMEM(grid, smem, stream, ...) \
   __VA_ARGS__<<<(grid), ::sts::kThreads, (smem), (stream)>>>
+#endif
+
+// The same, with `threads` threads a block, for a kernel whose threads
+// share shared memory across __syncthreads barriers (a host emulation runs
+// a block's threads together).
+#ifndef STS_LAUNCH_COOP
+#define STS_LAUNCH_COOP(grid, threads, smem, stream, ...) \
+  __VA_ARGS__<<<(grid), (threads), (smem), (stream)>>>
 #endif
 
 // The block's dynamic shared memory as a float array `name` (16-byte
@@ -54,14 +66,6 @@ void with_cap8(int n, F&& f) {
   else if (n <= 2) f(std::integral_constant<int, 2>{});
   else if (n <= 4) f(std::integral_constant<int, 4>{});
   else f(std::integral_constant<int, 8>{});
-}
-
-// The same for capacities {1, 2, 4, 8, 16, 32}; the caller takes n <= 32.
-template <class F>
-void with_cap32(int n, F&& f) {
-  if (n <= 8) with_cap8(n, f);
-  else if (n <= 16) f(std::integral_constant<int, 16>{});
-  else f(std::integral_constant<int, 32>{});
 }
 
 __device__ __forceinline__ size_t at(int t, int B, int b) {

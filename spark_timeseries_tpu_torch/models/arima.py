@@ -26,8 +26,9 @@ import torch
 from ..ops import cuda_kernels as ck
 from ..utils import optim
 from ..utils.linalg import ridge_solve as _ridge_solve
-from .base import (FitResult, align_mode_on_host, debatch, derive_status,
-                   ensure_batched, maybe_align, resolve_align_mode,
+from .base import (FitResult, align_mode_on_host, debatch, debatch_fit,
+                   derive_status, ensure_batched, maybe_align,
+                   require_pallas_for_count_evals, resolve_align_mode,
                    resolve_backend, to_device)
 
 Order = Tuple[int, int, int]
@@ -198,6 +199,7 @@ def fit(
     max_iters: int = 60,
     tol: Optional[float] = None,
     backend: str = "auto",
+    count_evals: bool = False,
     compact: bool = True,
     align_mode: Optional[str] = None,
     device="cuda",
@@ -215,11 +217,17 @@ def fit(
     raises and a hint too strong for the data flags rows (DIVERGED under
     ``"dense"``, EXCLUDED under ``"no-trailing"``), never corrupts them.
 
+    ``count_evals=True`` returns ``(FitResult, info)``, the optimizer's
+    pass accounting (``utils.optim.minimize_lbfgs_batched``), on either
+    backend; ``method="hannan-rissanen"`` runs no optimizer and refuses it.
+
     ``FitResult.status`` holds per-row ``FitStatus`` codes (OK / DIVERGED /
     EXCLUDED).
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
+    if count_evals and method == "hannan-rissanen":
+        raise ValueError("count_evals requires an optimizing method")
     if seasonal is not None and any(int(v) for v in tuple(seasonal)[:3]):
         raise NotImplementedError(
             "seasonal ARIMA is not ported yet (ROADMAP.md queue 1, item "
@@ -231,12 +239,13 @@ def fit(
         tol = 1e-6 if yb.dtype == torch.float64 else 1e-4
     backend = resolve_backend(backend, yb,
                               structural_ok=ck.css_structural_ok(p, q))
+    require_pallas_for_count_evals(count_evals, backend)
     align_mode = resolve_align_mode(yb, align_mode)
     with torch.no_grad():
         out = _fit_css(yb, order, include_intercept, method, backend,
                        max_iters, float(tol), init_params, align_mode,
-                       compact)
-    return debatch(out, single)
+                       compact, count_evals)
+    return debatch_fit(out, single, count_evals)
 
 
 def _css_prep(yb, init_params, order: Order, include_intercept: bool,
@@ -300,7 +309,7 @@ def _objective(backend, order, include_intercept, yd, nvd, yt, zb, n_eff):
 
 def _fit_css(yb, order: Order, include_intercept: bool, method: str,
              backend: str, max_iters: int, tol: float, init_params,
-             align_mode: str, compact: bool) -> FitResult:
+             align_mode: str, compact: bool, count_evals: bool = False):
     yd, nvd, yt, zb, init, ok, n_eff = _css_prep(
         yb, init_params, order, include_intercept, backend, align_mode)
     fb, straggler = _objective(backend, order, include_intercept, yd, nvd,
@@ -316,13 +325,15 @@ def _fit_css(yb, order: Order, include_intercept: bool, method: str,
         del yd  # the objective reads only the time-major copy
     gate = compact and bsz >= _COMPACT_MIN_BATCH
     res = optim.minimize_lbfgs_batched(
-        fb, init, max_iters=max_iters, tol=tol,
+        fb, init, max_iters=max_iters, tol=tol, count_evals=count_evals,
         straggler_fun=straggler if gate else None,
         straggler_cap=optim.compaction_cap(bsz))
+    res, info = res if count_evals else (res, None)
     params = torch.where(ok[:, None], res.x, torch.nan)
-    return FitResult(params, torch.where(ok, res.f * n_eff, torch.nan),
-                     res.converged & ok, res.iters,
-                     derive_status(ok, res.converged, params))
+    out = FitResult(params, torch.where(ok, res.f * n_eff, torch.nan),
+                    res.converged & ok, res.iters,
+                    derive_status(ok, res.converged, params))
+    return (out, info) if count_evals else out
 
 
 # ---------------------------------------------------------------------------

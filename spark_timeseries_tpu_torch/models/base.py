@@ -114,6 +114,25 @@ def debatch(x, single: bool):
     return type(x)(*(None if a is None else a[0] for a in x))
 
 
+def require_pallas_for_count_evals(count_evals: bool, backend: str) -> None:
+    """The ``count_evals`` contract (the reference's name): pass accounting
+    instruments the batched L-BFGS (``utils.optim``).  The reference runs
+    it only on its pallas backends; both of the port's resolved backends,
+    ``"eager"`` and ``"cuda"``, run it, so either is accepted and only a
+    backend that is not one of them is refused."""
+    if count_evals and backend not in ("eager", "cuda"):
+        raise ValueError("count_evals requires a resolved fit backend, "
+                         f"'eager' or 'cuda' (got {backend!r})")
+
+
+def debatch_fit(out, single: bool, count_evals: bool):
+    """Unpack a fit's ``result | (result, info)`` return shape."""
+    if count_evals:
+        res, info = out
+        return debatch(res, single), info
+    return debatch(out, single)
+
+
 ALIGN_MODES = ("dense", "no-trailing", "general")
 
 

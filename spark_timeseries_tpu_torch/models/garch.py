@@ -29,8 +29,9 @@ import torch
 from ..ops import cuda_kernels as ck
 from ..ops.layout import time_major
 from ..utils import optim
-from .base import (FitResult, align_right, debatch, derive_status,
-                   ensure_batched, maybe_align, resolve_align_mode,
+from .base import (FitResult, align_right, debatch, debatch_fit,
+                   derive_status, ensure_batched, maybe_align,
+                   require_pallas_for_count_evals, resolve_align_mode,
                    resolve_backend, to_device)
 
 _TWO_PI = 2.0 * math.pi
@@ -148,8 +149,9 @@ def neg_log_likelihood(params, r, n_valid=None):
 
 
 def fit(r, *, max_iters: int = 80, tol: Optional[float] = None,
-        backend: str = "auto", compact: bool = True,
-        align_mode: Optional[str] = None, device="cuda") -> FitResult:
+        backend: str = "auto", count_evals: bool = False,
+        compact: bool = True, align_mode: Optional[str] = None,
+        device="cuda") -> FitResult:
     """Fit GARCH(1,1) per series -> natural params ``[batch?, 3]``.
 
     ``r``: returns ``[time]`` or ``[batch, time]`` (numpy or tensor; moved
@@ -160,17 +162,20 @@ def fit(r, *, max_iters: int = 80, tol: Optional[float] = None,
     the alignment hint (``base.resolve_align_mode``): an unknown name
     raises, a hint too strong for the data flags rows (DIVERGED / EXCLUDED)
     instead of misfitting them.  Rows with fewer than 10 valid
-    observations are ``EXCLUDED``.
+    observations are ``EXCLUDED``.  ``count_evals=True`` returns
+    ``(FitResult, info)``, the optimizer's pass accounting
+    (``utils.optim``), on either backend.
     """
     rb, single = ensure_batched(to_device(r, device))
     if tol is None:
         tol = 1e-7 if rb.dtype == torch.float64 else 1e-4
     backend = resolve_backend(backend, rb)
+    require_pallas_for_count_evals(count_evals, backend)
     align_mode = resolve_align_mode(rb, align_mode)
     with torch.no_grad():
         out = _fit_garch(rb, max_iters, float(tol), backend, align_mode,
-                         compact)
-    return debatch(out, single)
+                         compact, count_evals)
+    return debatch_fit(out, single, count_evals)
 
 
 def _garch_prep(rb, align_mode: str):
@@ -214,11 +219,11 @@ def _garch_objective(backend, ra, nv, n_eff):
     return fb, straggler
 
 
-def _minimize(fb, straggler, u0, max_iters, tol, compact):
+def _minimize(fb, straggler, u0, max_iters, tol, compact, count_evals=False):
     bsz = u0.shape[0]
     gate = compact and bsz >= _COMPACT_MIN_BATCH
     return optim.minimize_lbfgs_batched(
-        fb, u0, max_iters=max_iters, tol=tol,
+        fb, u0, max_iters=max_iters, tol=tol, count_evals=count_evals,
         straggler_fun=straggler if gate else None,
         straggler_cap=optim.compaction_cap(bsz))
 
@@ -230,13 +235,16 @@ def _finalize(res, ok, n_eff, to_natural) -> FitResult:
                      derive_status(ok, res.converged, params))
 
 
-def _fit_garch(rb, max_iters, tol, backend, align_mode, compact):
+def _fit_garch(rb, max_iters, tol, backend, align_mode, compact,
+               count_evals=False):
     ra, nv, u0, n_eff = _garch_prep(rb, align_mode)
     fb, straggler = _garch_objective(backend, ra, nv, n_eff)
     del ra  # the cuda objective reads only its time-major copy
-    res = _minimize(fb, straggler, u0, max_iters, tol, compact)
+    res = _minimize(fb, straggler, u0, max_iters, tol, compact, count_evals)
+    res, info = res if count_evals else (res, None)
     ok = nv >= 10  # GARCH needs a handful of observations to identify
-    return _finalize(res, ok, n_eff, _to_natural)
+    out = _finalize(res, ok, n_eff, _to_natural)
+    return (out, info) if count_evals else out
 
 
 # -- forecasting --------------------------------------------------------------

@@ -30,8 +30,9 @@ import torch
 from ..ops import cuda_kernels as ck
 from ..ops.layout import time_major
 from ..utils import optim
-from .base import (FitResult, align_right, debatch, derive_status,
-                   ensure_batched, maybe_align, resolve_align_mode,
+from .base import (FitResult, align_right, debatch, debatch_fit,
+                   derive_status, ensure_batched, maybe_align,
+                   require_pallas_for_count_evals, resolve_align_mode,
                    resolve_backend, to_device)
 
 _EPS = 1e-12
@@ -150,9 +151,9 @@ def sse(params, y, period: int, multiplicative: bool, n_valid=None):
 
 def fit(y, period: int, model_type: str = "additive", *,
         max_iters: int = 60, tol: Optional[float] = None,
-        backend: str = "auto", compact: bool = True,
-        n_starts: Optional[int] = None, align_mode: Optional[str] = None,
-        device="cuda") -> FitResult:
+        backend: str = "auto", count_evals: bool = False,
+        compact: bool = True, n_starts: Optional[int] = None,
+        align_mode: Optional[str] = None, device="cuda") -> FitResult:
     """Fit ``(alpha, beta, gamma)`` per series -> params ``[batch?, 3]``.
 
     ``y``: ``[time]`` or ``[batch, time]`` (numpy or tensor; moved to
@@ -165,7 +166,10 @@ def fit(y, period: int, model_type: str = "additive", *,
     additive; at most ``len(_MULTISTART_NATS)``) runs the optimizer from
     that many seeded inits and keeps each row's best basin
     (:func:`_select_best_start`).  ``align_mode`` is the alignment hint
-    (``base.resolve_align_mode``).
+    (``base.resolve_align_mode``).  ``count_evals=True`` returns
+    ``(FitResult, info)``, the optimizer's pass accounting
+    (``utils.optim``) of the FIRST start, with ``info["n_starts"]`` as its
+    multiplier, as in the reference; on either backend.
     """
     if model_type not in MODEL_TYPES:
         raise ValueError(
@@ -188,11 +192,13 @@ def fit(y, period: int, model_type: str = "additive", *,
         ck._hw_check_period(period)
     backend = resolve_backend(backend, yb,
                               structural_ok=ck.hw_structural_ok(period))
+    require_pallas_for_count_evals(count_evals, backend)
     align_mode = resolve_align_mode(yb, align_mode)
     with torch.no_grad():
         out = _fit_hw(yb, period, multiplicative, max_iters, float(tol),
-                      backend, align_mode, compact, int(n_starts))
-    return debatch(out, single)
+                      backend, align_mode, compact, int(n_starts),
+                      count_evals)
+    return debatch_fit(out, single, count_evals)
 
 
 def _hw_objective(backend, ya, nv, n_err, period: int, multiplicative: bool,
@@ -228,7 +234,7 @@ def _hw_objective(backend, ya, nv, n_err, period: int, multiplicative: bool,
 
 
 def _fit_hw(yb, period, multiplicative, max_iters, tol, backend, align_mode,
-            compact, n_starts):
+            compact, n_starts, count_evals=False):
     ya, nv = maybe_align(yb, align_mode)
     # optimize the MEAN one-step squared error: same argmin as the SSE, an
     # O(1) gradient scale for the relative stopping rule
@@ -238,16 +244,23 @@ def _fit_hw(yb, period, multiplicative, max_iters, tol, backend, align_mode,
     del ya  # the cuda objective reads only its time-major copy
     bsz = yb.shape[0]
     gate = compact and bsz >= _COMPACT_MIN_BATCH
-    results = []
-    for nat0 in _MULTISTART_NATS[:n_starts]:
+    results, info = [], None
+    for start, nat0 in enumerate(_MULTISTART_NATS[:n_starts]):
         u0 = optim.interval_to_sigmoid(
             torch.tensor(nat0, dtype=yb.dtype, device=yb.device), 0.0, 1.0)
-        results.append(optim.minimize_lbfgs_batched(
+        # pass accounting reports the first start's passes
+        want = count_evals and start == 0
+        res = optim.minimize_lbfgs_batched(
             fb, u0.expand(bsz, 3).contiguous(), max_iters=max_iters, tol=tol,
-            straggler_fun=straggler if gate else None,
-            straggler_cap=optim.compaction_cap(bsz)))
+            count_evals=want, straggler_fun=straggler if gate else None,
+            straggler_cap=optim.compaction_cap(bsz))
+        if want:
+            res, info = res
+            info = {**info, "n_starts": n_starts}
+        results.append(res)
     ok = nv >= 2 * period  # the seed needs two full seasons of real data
-    return _finalize_hw_fit(_select_best_start(results), ok, n_err)
+    out = _finalize_hw_fit(_select_best_start(results), ok, n_err)
+    return (out, info) if count_evals else out
 
 
 def _select_best_start(starts):

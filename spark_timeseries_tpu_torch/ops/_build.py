@@ -6,8 +6,9 @@ seconds).  The hash covers the source, the shared headers and the flags, so
 an edited source is rebuilt at its next use and an unchanged one is loaded
 as built.  :func:`build_all` starts one ``nvcc`` per source at once.  A
 variant of a source built with extra ``-D`` macros (the ring depths of
-``garch.cu``, ``hw.cu`` and ``hr.cu``) is a library of its own, keyed by them too; the wrappers load the
-plain build.
+``garch.cu``, ``hw.cu``, ``hr.cu`` and ``fill.cu``, the tile of
+``autocorr.cu``) is a library of its own, keyed by them too; the wrappers
+load the plain build.
 
 A failed build raises: nothing here falls back to another path.
 """
@@ -47,9 +48,14 @@ SIGNATURES = {
     },
     "fill": {
         "sts_fill_chain": [_P, _P, _P, _P, _I, _I, _P],
+        "sts_fill_ring_depth": [],
+        "sts_fill_occupancy": [_P, _P],
     },
     "autocorr": {
         "sts_autocorr": [_P, _P, _I, _I, _I, _P],
+        "sts_autocorr_route": [_I, _I],
+        "sts_autocorr_tile": [],
+        "sts_autocorr_occupancy": [_I, _I, _P, _P],
     },
     "garch": {
         "sts_garch_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -528,26 +528,70 @@ def autocorr(yt, num_lags: int):
     return out.t()
 
 
+# csrc/autocorr.cu's tile route as built: series a block, threads a block,
+# the largest register window, and the dynamic shared memory a block may
+# have; _acf_chunk repeats sts_autocorr_route's rule with them
+_ACF_TILE = 8
+_ACF_THREADS = 256
+_ACF_MAX_CAP = 32
+_ACF_SMEM_MAX = 227 * 1024
+
+
+def _acf_chunk(n_time: int, num_lags: int) -> int:
+    """Chunk length of the autocorrelation kernel's tile route at ``(T,
+    num_lags)`` (odd), or 0 where it takes the stream route (one thread a
+    series, sequential sums)."""
+    floats = (max(n_time * _ACF_TILE, (_ACF_MAX_CAP + 1) * _ACF_THREADS)
+              + 2 * _ACF_THREADS)
+    if num_lags > _ACF_MAX_CAP or 4 * floats > _ACF_SMEM_MAX:
+        return 0
+    chunks = _ACF_THREADS // _ACF_TILE
+    return -(-n_time // chunks) | 1
+
+
 def autocorr_plain(yt, num_lags: int):
-    """Plain PyTorch version of :func:`autocorr` (the kernel's two passes
-    and summation order)."""
+    """Plain PyTorch version of :func:`autocorr`, in the kernel's summation
+    order: on the tile route each series is cut into chunks of
+    :func:`_acf_chunk` steps, every sum runs in time order inside a chunk
+    and the chunks' partials add in chunk order; on the stream route one
+    chunk spans the series.  The kernel fuses each lag product into its
+    sum (a fused multiply-add) where this version rounds the product
+    first."""
     T, B = yt.shape
-    zero = yt.new_zeros(B)
-    n, s = zero, zero
-    for t in range(T):
-        valid = ~torch.isnan(yt[t])
-        n = n + valid.to(yt.dtype)
-        s = s + torch.where(valid, yt[t], 0.0)
-    mean = s / torch.clamp(n, min=1.0)
-    dl = [zero] * num_lags  # dl[k] = d_{t-1-k}
-    acc = [zero] * num_lags
-    a0 = zero
-    for t in range(T):
-        d = torch.where(torch.isnan(yt[t]), 0.0, yt[t] - mean)
-        a0 = a0 + d * d
-        acc = [a + d * dk for a, dk in zip(acc, dl)]
-        dl = [d] + dl[:-1]
-    return torch.stack(acc, dim=1) / a0[:, None]
+    L = _acf_chunk(T, num_lags)
+    chunks = _ACF_THREADS // _ACF_TILE if L else 1
+    L = L or T
+    valid = ~torch.isnan(yt)
+    pad = yt.new_zeros(chunks * L - T, B)  # rows past T add nothing
+
+    def by_chunk(x):  # [T, B] -> [chunks, L, B]
+        return torch.cat([x, pad]).view(chunks, L, B)
+
+    vc = by_chunk(valid.to(yt.dtype))
+    yc = by_chunk(torch.where(valid, yt, 0.0))
+    n, s = yt.new_zeros(chunks, B), yt.new_zeros(chunks, B)
+    for j in range(L):
+        n, s = n + vc[:, j], s + yc[:, j]
+    n_all, s_all = yt.new_zeros(B), yt.new_zeros(B)
+    for c in range(chunks):
+        n_all, s_all = n_all + n[c], s_all + s[c]
+    mean = s_all / torch.clamp(n_all, min=1.0)
+    d = torch.cat([torch.where(valid, yt - mean, 0.0), pad])
+    dc = d.view(chunks, L, B)
+    lagged = torch.cat([yt.new_zeros(num_lags, B), d])  # row r + nl: d_r
+    # row of d_{t-1-k} in `lagged` for t = c L + j, less j
+    back = (torch.arange(chunks, device=yt.device)[None, :] * L + num_lags
+            - 1 - torch.arange(num_lags, device=yt.device)[:, None])
+    a0 = yt.new_zeros(chunks, B)
+    acc = yt.new_zeros(num_lags, chunks, B)
+    for j in range(L):
+        dj = dc[:, j]
+        a0 = a0 + dj * dj
+        acc = acc + dj[None] * lagged[back + j]
+    num, den = yt.new_zeros(num_lags, B), yt.new_zeros(B)
+    for c in range(chunks):
+        num, den = num + acc[:, c], den + a0[c]
+    return (num / den).t()
 
 
 # ---------------------------------------------------------------------------

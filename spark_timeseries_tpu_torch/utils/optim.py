@@ -169,17 +169,19 @@ def _init_state(fb, x0, m: int, tol: float) -> _State:
 
 def _linesearch(fb, x, f, g, direction, done, t0, *, ftol, max_linesearch,
                 c1):
-    """Batched backtracking with quadratic interpolation.  Done rows are
-    pre-satisfied (their frozen state could never pass the strict Armijo
-    test and would drag the batch through every trial).  A failed trial
-    jumps to the minimizer of the quadratic through (0, f), slope g.dir and
-    (t, f(t)), clamped to [0.1t, 0.5t].  The Armijo test carries the noise
-    floor ftol*max(1, |f|).  One host read per trial."""
+    """Batched backtracking with quadratic interpolation -> ``(t, ok,
+    trials)``.  Done rows are pre-satisfied (their frozen state could never
+    pass the strict Armijo test and would drag the batch through every
+    trial).  A failed trial jumps to the minimizer of the quadratic through
+    (0, f), slope g.dir and (t, f(t)), clamped to [0.1t, 0.5t].  The Armijo
+    test carries the noise floor ftol*max(1, |f|).  One host read per
+    trial; ``trials`` counts the objective evaluations."""
     gd = _rowdot(g, direction)
     eps = ftol * torch.clamp(f.abs(), min=1.0)
     t, ok = t0, done
+    trials = 0
     with torch.no_grad():
-        for j in range(max_linesearch):
+        for trials in range(1, max_linesearch + 1):
             fnew = fb(x + t[:, None] * direction)
             fnew = torch.where(torch.isfinite(fnew), fnew, torch.inf)
             ok_new = ok | (fnew <= f + c1 * t * gd + eps)
@@ -187,14 +189,15 @@ def _linesearch(fb, x, f, g, direction, done, t0, *, ftol, max_linesearch,
             tq = torch.where(torch.isfinite(tq), tq, 0.0)
             tq = torch.minimum(torch.maximum(tq, 0.1 * t), 0.5 * t).to(t.dtype)
             t, ok = torch.where(ok_new, t, tq), ok_new
-            if j + 1 < max_linesearch and not host_reads.read((~ok).any()):
+            if trials < max_linesearch and not host_reads.read((~ok).any()):
                 break
-    return t, ok
+    return t, ok, trials
 
 
 def _step(fb, state: _State, k: int, *, m, tol, ftol, max_linesearch,
-          c1) -> _State:
-    """One lockstep L-BFGS iteration (iteration index ``k``)."""
+          c1, ls_evals: list) -> _State:
+    """One lockstep L-BFGS iteration (iteration index ``k``); its
+    line-search evaluations go to ``ls_evals[k]``."""
     done = state.converged | state.failed
     direction = -_two_loop_b(state.g, state.s_hist, state.y_hist,
                              state.rho_hist, k, m)
@@ -208,8 +211,9 @@ def _step(fb, state: _State, k: int, *, m, tol, ftol, max_linesearch,
                      torch.clamp(4.0 * state.tprev, max=1.0),
                      1.0 / torch.clamp(_rownorm(direction), min=1.0)
                      ).to(state.x.dtype)
-    t, ok = _linesearch(fb, state.x, state.f, state.g, direction, done, t0,
-                        ftol=ftol, max_linesearch=max_linesearch, c1=c1)
+    t, ok, ls_evals[k] = _linesearch(fb, state.x, state.f, state.g,
+                                     direction, done, t0, ftol=ftol,
+                                     max_linesearch=max_linesearch, c1=c1)
     x_new = state.x + t[:, None] * direction
     f_new, g_new = _value_and_grad(fb, x_new)
 
@@ -272,9 +276,10 @@ def minimize_lbfgs_batched(
     ftol: Optional[float] = None,
     max_linesearch: int = 20,
     c1: float = 1e-4,
+    count_evals: bool = False,
     straggler_fun: "Callable[[torch.Tensor], Callable] | None" = None,
     straggler_cap: Optional[int] = None,
-) -> LBFGSResult:
+) -> "LBFGSResult | tuple[LBFGSResult, dict]":
     """Jointly minimize ``B`` independent problems with ONE batched
     objective ``fun_batched(x[B, d]) -> f[B]``.
 
@@ -285,17 +290,28 @@ def minimize_lbfgs_batched(
     remain live; those rows finish on ``straggler_fun(idxc)``, a ``[cap]``
     objective, within the same iteration budget, and scatter back.  The
     gather happens only when rows remain and budget is left.
+
+    ``count_evals=True`` returns ``(result, info)``, the reference's pass
+    accounting: ``info["ls_evals"]`` (``[max_iters]`` int32, the line-search
+    objective evaluations of each outer iteration; each iteration adds one
+    value-and-gradient evaluation, and the start one more),
+    ``info["compact_at"]`` (the iteration at which compaction engaged, or
+    the iterations run when it never did) and ``info["cap"]`` (0 without
+    compaction).  The counts are host integers the loop keeps anyway: no
+    extra device read.
     """
     bsz, _ = x0.shape
     if ftol is None:
         ftol = 1e-9 if x0.dtype == torch.float64 else 1e-6
     cap = straggler_cap if straggler_cap is not None else max(128, bsz // 8)
     compact = straggler_fun is not None and cap < bsz
+    ls_evals = [0] * max_iters  # each iteration's line-search evaluations
     knobs = dict(m=history, tol=tol, ftol=ftol,
-                 max_linesearch=max_linesearch, c1=c1)
+                 max_linesearch=max_linesearch, c1=c1, ls_evals=ls_evals)
     state = _init_state(fun_batched, x0, history, tol)
     state, k, n_live = _run(fun_batched, state, 0, max_iters,
                             cap if compact else 0, knobs)
+    compact_at = k
     if compact and n_live > 0 and k < max_iters:
         # n_live <= cap here: the loop only exits early once the stragglers
         # fit the cap.  Fill slots repeat row bsz-1 and are dropped on the
@@ -311,10 +327,16 @@ def minimize_lbfgs_batched(
             name: _scatter(getattr(state, name), rows,
                            getattr(sub, name)[:n_live])
             for name in ("converged", "failed", "bx", "bf", "bg", "iters")})
-    return LBFGSResult(
+    result = LBFGSResult(
         x=state.bx, f=state.bf,
         converged=state.converged & torch.isfinite(state.bf),
         iters=state.iters, grad_norm=_rownorm(state.bg))
+    if not count_evals:
+        return result
+    return result, {
+        "ls_evals": torch.tensor(ls_evals, dtype=torch.int32,
+                                 device=x0.device),
+        "compact_at": compact_at, "cap": cap if compact else 0}
 
 
 def _scatter(full, rows, vals):

@@ -1,13 +1,17 @@
 """The CUDA kernels' own source, run on the CPU against the plain versions.
 
 A host without ``nvcc`` cannot build ``spark_timeseries_tpu_torch/csrc``
-for the card, but the kernels use no barriers or atomics, and shared
-memory only as per-thread columns, so g++ compiles the same source against
-a small header that defines the CUDA names it uses, with every launch a
-loop over blocks and threads, run one thread after another.  Dynamic
-shared memory is one buffer a launch, set to NaN before each thread (a
-thread that read a word it did not copy would see NaN), and ``cp.async``
-is a plain copy whose commit and wait do nothing.  Each
+for the card, but g++ compiles the same source against a small header
+that defines the CUDA names it uses.  A kernel that keeps shared memory in
+per-thread columns (``STS_LAUNCH``, ``STS_LAUNCH_SMEM``) runs as a loop
+over blocks and threads, one thread after another, with dynamic shared
+memory set to NaN before each thread (a thread that read a word it did not
+copy would see NaN).  A cooperative kernel (``STS_LAUNCH_COOP``: the
+autocorrelation's tile) runs each block's threads as fibers
+(``ucontext``), in rounds from one ``__syncthreads`` to the next, with
+shared memory set to NaN once a block; a thread that left the kernel with
+fewer barriers than the others makes the launch return an error.
+``cp.async`` is a plain copy whose commit and wait do nothing.  Each
 kernel, loaded with ctypes through the wrappers of ``ops.cuda_kernels``,
 is then held against its plain PyTorch version on the same inputs.  This
 checks the kernels' logic (indexing, masks, modes, ring capacities);
@@ -27,11 +31,17 @@ from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
 
 _HEADER = r"""
 #pragma once
+#include <ucontext.h>
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstring>
+#include <functional>
+#include <map>
+#include <memory>
 #include <vector>
 using std::isnan;
+using std::min;
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
   dim3() {}
@@ -40,15 +50,57 @@ struct dim3 {
 inline dim3 blockIdx, threadIdx, blockDim, gridDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorLaunchFailure = 4
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-inline int cudaGetLastError() { return 0; }
+namespace emu {
+inline int error = 0;  // a launch's fault, reported by cudaGetLastError
+// a cooperative launch's threads: one fiber each, and the running one
+inline ucontext_t fiber_main;
+inline std::vector<ucontext_t> fiber_ctx;
+inline std::vector<int> fiber_barriers, fiber_done;
+inline int fiber_cur = -1;  // -1: outside a cooperative launch
+inline std::function<void()> fiber_body;
+inline void fiber_entry() {
+  fiber_body();
+  fiber_done[fiber_cur] = 1;  // then back to fiber_main (uc_link)
+}
+}  // namespace emu
+inline int cudaGetLastError() {
+  const int e = emu::error;
+  emu::error = 0;
+  return e;
+}
+// a barrier: the thread yields; its block resumes it once every thread has
+// reached the barrier or left the kernel
+inline void __syncthreads() {
+  if (emu::fiber_cur < 0) {  // in a one-thread-at-a-time launch
+    emu::error = cudaErrorLaunchFailure;
+    return;
+  }
+  ++emu::fiber_barriers[emu::fiber_cur];
+  swapcontext(&emu::fiber_ctx[emu::fiber_cur], &emu::fiber_main);
+}
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
 #ifndef EMU_SMEM_LIMIT
 #define EMU_SMEM_LIMIT (227 * 1024)  // the dynamic shared memory a card grants
 #endif
-template <class T> int cudaFuncSetAttribute(T*, cudaFuncAttribute, int v) {
-  return v > EMU_SMEM_LIMIT ? cudaErrorInvalidValue : cudaSuccess;
+namespace emu {
+// each kernel's raised dynamic shared memory; above the default 48 KB a
+// launch may use only as much as its kernel's attribute grants
+inline std::map<const void*, size_t> smem_attr;
+template <class K> bool smem_granted(K k, size_t smem) {
+  const auto it = smem_attr.find(reinterpret_cast<const void*>(k));
+  return smem <= 48 * 1024 || (it != smem_attr.end() && it->second >= smem);
+}
+}  // namespace emu
+template <class T> int cudaFuncSetAttribute(T* k, cudaFuncAttribute, int v) {
+  if (v > EMU_SMEM_LIMIT) return cudaErrorInvalidValue;
+  emu::smem_attr[reinterpret_cast<const void*>(k)] = v;
+  return cudaSuccess;
 }
 template <class T>
 int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T*, int, size_t) {
@@ -61,6 +113,7 @@ int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T*, int, size_t) {
 #define __shared__
 #define __align__(n) alignas(n)
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
@@ -78,6 +131,10 @@ template <class K> struct Launcher {
   size_t smem;
   K k;
   template <class... A> void operator()(A... a) const {
+    if (!smem_granted(k, smem)) {  // the card refuses the launch
+      error = cudaErrorInvalidValue;
+      return;
+    }
     blockDim = dim3(threads);
     gridDim = g;
     shared.resize(smem / sizeof(float));
@@ -94,11 +151,65 @@ template <class K>
 Launcher<K> launcher(dim3 g, unsigned threads, size_t smem, K k) {
   return {g, threads, smem, k};
 }
+// a block's threads run as fibers, in rounds from barrier to barrier;
+// shared memory is set to NaN once a block; a thread that left the kernel
+// with fewer barriers than another makes the launch fail
+template <class K> struct CoopLauncher {
+  dim3 g;
+  unsigned threads;
+  size_t smem;
+  K k;
+  template <class... A> void operator()(A... a) const {
+    constexpr size_t kStack = 1 << 17;
+    if (!smem_granted(k, smem)) {
+      error = cudaErrorInvalidValue;
+      return;
+    }
+    blockDim = dim3(threads);
+    gridDim = g;
+    shared.resize(smem / sizeof(float));
+    std::vector<std::unique_ptr<char[]>> stacks(threads);
+    for (auto& st : stacks) st.reset(new char[kStack]);
+    fiber_ctx.assign(threads, ucontext_t{});
+    fiber_body = [&] { k(a...); };
+    for (unsigned bx = 0; bx < g.x; ++bx) {
+      std::fill(shared.begin(), shared.end(), std::nanf(""));
+      blockIdx = dim3(bx);
+      fiber_barriers.assign(threads, 0);
+      fiber_done.assign(threads, 0);
+      for (unsigned tx = 0; tx < threads; ++tx) {
+        ucontext_t& c = fiber_ctx[tx];
+        getcontext(&c);
+        c.uc_stack.ss_sp = stacks[tx].get();
+        c.uc_stack.ss_size = kStack;
+        c.uc_link = &fiber_main;
+        makecontext(&c, fiber_entry, 0);
+      }
+      for (unsigned left = threads; left > 0;)
+        for (unsigned tx = 0; tx < threads; ++tx) {
+          if (fiber_done[tx]) continue;
+          fiber_cur = static_cast<int>(tx);
+          threadIdx = dim3(tx);
+          swapcontext(&fiber_main, &fiber_ctx[tx]);
+          left -= fiber_done[tx];
+        }
+      fiber_cur = -1;
+      for (int c : fiber_barriers)
+        if (c != fiber_barriers[0]) error = cudaErrorLaunchFailure;
+    }
+  }
+};
+template <class K>
+CoopLauncher<K> coop_launcher(dim3 g, unsigned threads, size_t smem, K k) {
+  return {g, threads, smem, k};
+}
 }  // namespace emu
 #define STS_LAUNCH(grid, stream, ...) \
   ::emu::launcher((grid), ::sts::kThreads, 0, __VA_ARGS__)
 #define STS_LAUNCH_SMEM(grid, smem, stream, ...) \
   ::emu::launcher((grid), ::sts::kThreads, (smem), __VA_ARGS__)
+#define STS_LAUNCH_COOP(grid, threads, smem, stream, ...) \
+  ::emu::coop_launcher((grid), (threads), (smem), __VA_ARGS__)
 #define STS_SHARED_FLOATS(name) float* const name = ::emu::shared.data()
 """
 
@@ -124,6 +235,18 @@ GARCH_DEPTHS = (8, 16, 32)
 # before the ring); csrc ships one of each
 HW_VARIANTS = {"S2": ["-DSTS_HW_STAGES=2"], "S3": ["-DSTS_HW_STAGES=3"]}
 HR_DEPTHS = (0, 8, 16, 32)
+# the fill chain's ring depths and the autocorrelation's tiles (series a
+# block; 0: the two-pass stream for every T) chip_smoke.py builds and
+# times; csrc ships one of each
+FILL_DEPTHS = (8, 16, 32)
+ACF_TILES = (0, 8, 16)
+
+
+def _acf_tile_fits(tile, t):
+    """csrc/autocorr.cu's rule: the tile route's shared memory (the tile,
+    or 33 partials a thread of 256, and two pass-1 partials a thread)
+    within the 227 KB a block may have."""
+    return tile > 0 and 4 * (max(tile * t, 33 * 256) + 2 * 256) <= 227 * 1024
 
 
 @pytest.fixture(scope="module")
@@ -145,6 +268,11 @@ def emulated(tmp_path_factory):
     builds["hw-48K"] = ("hw", ["-DEMU_SMEM_LIMIT=49152", "-DSTS_HW_STAGES=3"])
     builds.update({f"hr-D{k}": ("hr", [f"-DSTS_HR_DEPTH={k}"])
                    for k in HR_DEPTHS})
+    builds.update({f"fill-D{k}": ("fill", [f"-DSTS_FILL_DEPTH={k}"])
+                   for k in FILL_DEPTHS})
+    builds.update({f"autocorr-S{k}": ("autocorr", [f"-DSTS_ACF_TILE={k}"])
+                   for k in ACF_TILES})
+    builds["autocorr-fresh"] = ("autocorr", [])  # no launch before its test
     jobs = {key: subprocess.Popen(
         [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
          f"-I{d}", *defs, "-x", "c++", str(_build.CSRC / f"{name}.cu"),
@@ -223,6 +351,129 @@ def test_autocorr_source(kernels, nl):
     got = ck.autocorr(y, nl)
     assert kernels["autocorr"] == 1
     _close(got, ck.autocorr_plain(y, nl))
+
+
+def _fill_lib(lib, yt, which):
+    """One fill chain straight through ``lib`` (a build of ``fill.cu``) ->
+    the outputs ``which`` asks for, each started as 7.0."""
+    outs = [torch.full_like(yt, 7.0) if w else None for w in which]
+    T, B = yt.shape
+    assert lib.sts_fill_chain(yt.data_ptr(), *(
+        None if o is None else o.data_ptr() for o in outs), B, T, None) == 0
+    return [o for o in outs if o is not None]
+
+
+@pytest.fixture(params=FILL_DEPTHS, ids="D{}".format)
+def fill_depth(request, emulated):
+    """``(D, library)`` of ``fill.cu`` built with ring depth D."""
+    lib = emulated[f"fill-D{request.param}"]
+    assert lib.sts_fill_ring_depth() == request.param
+    return request.param, lib
+
+
+def test_fill_shipped_depth_is_timed(emulated):
+    assert emulated["fill"].sts_fill_ring_depth() in FILL_DEPTHS
+
+
+# time lengths (k, a) -> k D + a around the ring's edges: one and two
+# steps, a ring short of full, full, one over, three rings and part of a
+# stage
+FILL_T = {"1": (0, 1), "2": (0, 2), "D-1": (1, -1), "D": (1, 0),
+          "D+1": (1, 1), "3D+5": (3, 5)}
+
+
+@pytest.mark.parametrize("t_of_d", FILL_T)
+@pytest.mark.parametrize("b", [9, 300])
+@pytest.mark.parametrize("gap", [0.1, 0.6])
+def test_fill_chain_ring_source(fill_depth, t_of_d, b, gap):
+    # every output set through each depth's ring, T around its edges, B not
+    # a multiple of the block, leading / interior / trailing gaps (long
+    # ones across stages at gap = 0.6), all-NaN and constant rows: the
+    # plain version's bits
+    d, lib = fill_depth
+    k, a = FILL_T[t_of_d]
+    t = k * d + a
+    y = _ragged(t, b, seed=t + b, gap=gap)
+    for which in ((True, True, True), (False, True, False),
+                  (True, False, True), (False, False, True)):
+        for g, r in zip(_fill_lib(lib, y, which),
+                        ck.fill_chain_plain(y, which)):
+            np.testing.assert_array_equal(g.numpy(), r.numpy())
+
+
+def _acf_lib(lib, yt, nl):
+    """One autocorrelation straight through ``lib`` (a build of
+    ``autocorr.cu``) -> ``[B, nl]``; the output starts as 7.0."""
+    T, B = yt.shape
+    out = torch.full((nl, B), 7.0)
+    assert lib.sts_autocorr(yt.data_ptr(), out.data_ptr(), B, T, nl,
+                            None) == 0
+    return out.t()
+
+
+def test_acf_route_rule_matches_the_plain_version(emulated):
+    # the plain version follows the shipped build's chunks: its tile, its
+    # rule for the route and the chunk length at every (T, nl)
+    lib = emulated["autocorr"]
+    assert lib.sts_autocorr_tile() == ck._ACF_TILE
+    assert ck._ACF_TILE in ACF_TILES
+    for t in [*range(1, 200), 2520, 3600, 3601, 7200, 7201, 30000]:
+        for nl in (1, 20, 32, 33, 100):
+            assert lib.sts_autocorr_route(t, nl) == ck._acf_chunk(t, nl)
+    assert ck._acf_chunk(2520, 20) == 79  # the pipeline's: 32 chunks
+
+
+@pytest.fixture(params=ACF_TILES, ids="S{}".format)
+def acf_tile(request, emulated):
+    """``(S, library)`` of ``autocorr.cu`` built with a tile of S series
+    a block (0: the two-pass stream)."""
+    lib = emulated[f"autocorr-S{request.param}"]
+    assert lib.sts_autocorr_tile() == request.param
+    return request.param, lib
+
+
+# (nl, T): every register window (1, 2, 4, 8, 16, 24, 32 lags) and the
+# local ring, each at T = 2, nl + 1, 33 and 300 where T > nl
+ACF_CASES = sorted({(nl, t) for nl in (1, 2, 3, 8, 13, 20, 32, 40)
+                    for t in (2, nl + 1, 33, 300) if t > nl})
+
+
+@pytest.mark.parametrize("nl,t", ACF_CASES)
+@pytest.mark.parametrize("b", [9, 257])
+def test_autocorr_tile_source(acf_tile, nl, t, b):
+    # each build at T not a multiple of the chunk or the ring's stage, B
+    # not a multiple of the tile or the block, with leading / interior /
+    # trailing gaps, all-NaN and constant rows (NaN out, 0/0): the shipped
+    # build follows the plain version's order (only its fused products
+    # round differently), the others sum in their own order
+    tile, lib = acf_tile
+    y = _ragged(t, b, seed=nl * t + b)
+    want = ck.autocorr_plain(y, nl)
+    _close(_acf_lib(lib, y, nl), want,
+           rtol=1e-6 if tile == ck._ACF_TILE else 1e-5)
+
+
+def test_autocorr_tile_raises_its_shared_memory_as_t_grows_source(emulated):
+    # the tile's shared memory grows with T: a launch above an earlier,
+    # smaller one of the same kernel raises the attribute again (a launch
+    # above it is refused, on the card and here)
+    lib = emulated["autocorr-fresh"]
+    for t in (1000, 2520, 3000, 7200, 2520):
+        y = _ragged(t, 9, seed=t, gap=0.05)
+        _close(_acf_lib(lib, y, 20), ck.autocorr_plain(y, 20), rtol=1e-6)
+
+
+@pytest.mark.parametrize("t", [3600, 3601, 7200, 7201])
+@pytest.mark.parametrize("nl", [5, 20, 40])
+def test_autocorr_routes_at_the_tile_edge_source(acf_tile, t, nl):
+    # both routes of the T dispatch: each build's last tile T and first
+    # stream T (3,600 / 3,601 for 16 series a block, 7,200 / 7,201 for 8)
+    tile, lib = acf_tile
+    y = _ragged(t, 11, seed=t + nl, gap=0.05)
+    route = lib.sts_autocorr_route(t, nl)
+    assert (route > 0) == (nl <= 32 and _acf_tile_fits(tile, t))
+    _close(_acf_lib(lib, y, nl), ck.autocorr_plain(y, nl),
+           rtol=1e-6 if tile == ck._ACF_TILE else 1e-5)
 
 
 @pytest.fixture(params=GARCH_DEPTHS, ids="D{}".format)
