@@ -8,16 +8,12 @@ Phases; each failure makes the script exit non-zero with no result line:
 1. require a CUDA device; print the card's name and power limit;
 2. build the CUDA kernels from the seven sources in
    ``spark_timeseries_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-   once, with ``garch.cu`` also at each ring depth of ``GARCH_DEPTHS``,
-   ``hw.cu`` as each build of ``HW_VARIANTS``, ``hr.cu`` at each depth
-   of ``HR_DEPTHS``, ``fill.cu`` at each depth of ``FILL_DEPTHS`` and
-   ``autocorr.cu`` as each build of ``ACF_VARIANTS``) and print the build
-   seconds and each source's registers, stack frames and spills (per
-   instantiation for the Holt-Winters, GARCH, moment and transform
-   kernels), and for the kernels that stream through a ring or a tile
-   (GARCH, the Holt-Winters forward, the moment sweep, the fill chain, the
-   autocorrelation) its shared memory, blocks an SM, SASS instructions a
-   step and the issue-rate floor they imply;
+   once) and print the build seconds and each source's registers, stack
+   frames and spills (per instantiation for the Holt-Winters, GARCH,
+   moment and transform kernels), and for the kernels that stream through
+   a ring or a tile (GARCH, the Holt-Winters forward, the moment sweep,
+   the fill chain, the autocorrelation) its shared memory, blocks an SM,
+   SASS instructions a step and the issue-rate floor they imply;
 3. hold each of the eleven kernels against its plain PyTorch version on the
    card, at B = 65,537 x T = 1,000 and B = 4,097 x T = 3,000 (ragged
    panels; for the transforms also all-NaN, constant and trailing-NaN rows,
@@ -28,7 +24,10 @@ Phases; each failure makes the script exit non-zero with no result line:
    the GARCH and multiplicative Holt-Winters forwards rows outside their
    fast divide's range, and that divide against ``__fdiv_rn`` bit for bit
    over 2^35 pseudo-random pairs each; the Holt-Winters forward bit for
-   bit at every register period and the global route);
+   bit at every register period and the global route; the CSS kernels on
+   their dyn route with seasonal expansions, the airline model's (q_full
+   = 25) and (1,0,1)(1,1,1,24)'s (p_full = q_full = 25), at B = 65,537 x
+   T = 935);
 4. drive the ARIMA path: ``arima.fit`` of a 1,000,000 x 1,000 float32
    ARIMA(1,1,1) panel (the BASELINE.json headline) built on the card from a
    seeded generator, then ``arima.forecast(..., 30)``, with the kernel
@@ -53,21 +52,30 @@ Phases; each failure makes the script exit non-zero with no result line:
    (both backends); profile a warm additive fit;
 7. time each kernel at its path's shape with CUDA events, beside its plain
    version and its bound (bytes over 3.35 TB/s, flops over the float32
-   rate, whichever is larger), every GARCH variant the pipeline runs also
-   at each ring depth, both moment sweeps at each ring depth (bit for bit
-   against the build without a ring), the Holt-Winters forward as each
-   build of ``HW_VARIANTS`` (bit for bit against the shipped one), the
-   fill chain at each depth of ``FILL_DEPTHS`` (bit for bit against the
-   shipped build) and the autocorrelation as each build of
-   ``ACF_VARIANTS`` (within 1e-5 of the shipped build), each set timed in
-   turns, and the
-   multiplicative adjoint on the 100,000 rows its fit takes; at the hourly
-   path's shape first hold every smoothing-kernel variant that path runs
-   against its plain version (the forward bit for bit) and count the rows
-   the multiplicative forward walks again with ``__fdiv_rn``.
+   rate, whichever is larger), the multiplicative adjoint on the 100,000
+   rows its fit takes; at the hourly path's shape first hold every
+   smoothing-kernel variant that path runs against its plain version (the
+   forward bit for bit) and count the rows the multiplicative forward
+   walks again with ``__fdiv_rn``; time the CSS kernels' dyn route at the
+   airline fit's shape [935, 1M] (forward sum and both, adjoint);
+8. drive the order-search path: (a) ``arima.fit_grid`` of (1,1,0),
+   (0,1,1), (1,1,1) and (2,1,2) over the 1,000,000 x 1,000 headline panel
+   on the kernels with straggler compaction, held against the eager grid
+   and against ``arima.fit`` on 4,096 rows; (b) the airline model
+   ``arima.fit(y, (0,1,1), seasonal=(0,1,1,24))`` of the 1,000,000 x 960
+   hourly panel (the dyn route), held against eager on 2,048 rows; (c)
+   the seasonal grid (0,1,1)(0,1,1,24), (1,1,0)(1,1,0,24),
+   (1,1,1)(1,1,1,24) on the hourly panel's first 100,000 rows; (d) ADF and
+   KPSS on the headline panel's levels and differences, Ljung-Box on the
+   ARIMA fit's innovations, AR(2) and Cochrane-Orcutt fits of 100,000 x
+   1,000 seeded rows, and the spline fill, PACF and cross-correlation on
+   the volatility panel.  Launch counts of the CSS kernels (and of their
+   dyn route) are read for each fit; warm fits of (a) and (b) are
+   profiled.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel, and
+an earlier line a JSON object with the dyn route's times, bounds and
+launches; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -88,24 +96,6 @@ VOL_ROWS, VOL_TIME = 100_000, 2_520  # the volatility pipeline's panel
 HOURLY_ROWS, HOURLY_TIME = 1_000_000, 960  # the hourly path's panel
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-# ring depths (time steps) garch.cu is built and timed at; it ships one
-GARCH_DEPTHS = (8, 16, 32)
-# builds of hw.cu timed beside the shipped one: the forward's y ring in 2
-# or 3 stages; hw.cu ships one of them
-HW_VARIANTS = {"2 stages": ("STS_HW_STAGES=2",),
-               "3 stages": ("STS_HW_STAGES=3",)}
-# ring depths hr.cu is built and timed at (0: one load of y a step, the
-# design before the ring, which the others must match bit for bit); it
-# ships one of the others
-HR_DEPTHS = (0, 8, 16, 32)
-# ring depths fill.cu is built and timed at; it ships one of them
-FILL_DEPTHS = (8, 16, 32)
-# builds of autocorr.cu timed beside the shipped one: the tile route at 8
-# and 16 series a block, and the two-pass stream for every T; it ships one
-ACF_VARIANTS = {"tile S=8": ("STS_ACF_TILE=8",),
-                "tile S=16": ("STS_ACF_TILE=16",),
-                "two-pass stream": ("STS_ACF_TILE=0",)}
-
 # Tolerances of kernel vs plain version, relative to the largest magnitude
 # of the plain result (NaNs must sit at the same places).  The two differ
 # only in rounding: the kernels' fused multiply-adds against PyTorch's
@@ -383,6 +373,7 @@ def phase_main(chk: Checks, rows: int, t: int, device) -> dict:
     profile_fit(lambda: arima.fit(y, entry.ORDER, device=device),
                 "ARIMA fit")
     return {"launches": launches, "fit_s": fit_s, "forecast_s": fc_s,
+            "params": res.params,
             "host_reads": reads, "rows": rows, "time": t}
 
 
@@ -777,10 +768,6 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
         f"{cuda_ms(lambda: ck.fill_chain(dense, which)):.3f} ms, all three "
         f"{cuda_ms(lambda: ck.fill_chain(dense)):.3f} ms")
     del dense
-    fill_depth_times(chk, yt, {
-        "diff only": (which, out["fill_chain"][2]),
-        "all three": ((True, True, True),
-                      _bound(f * 4 * n_el, 5 * n_el)[0])})
     del yt
     # autocorrelation: one read of the panel, nl outputs per series; per
     # element the valid test and mean sum, the centring, the square and nl
@@ -789,7 +776,6 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     plain = cuda_ms(lambda: ck.autocorr_plain(rt, nl), reps=1)
     out["autocorr"] = (ms, plain, *_bound(f * (n_el + nl * B),
                                           (2 * nl + 5) * n_el))
-    acf_variant_times(chk, {"returns, 20 lags": (rt, nl, out["autocorr"][2])})
     del rt
     # GARCH, every variant the pipeline launches.  Forward: reads r, the
     # parameters, h0 and zb, writes ll (sum, every line-search trial), ll
@@ -823,7 +809,6 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
     plain = cuda_ms(lambda: ck.garch_bwd_plain(rz, params, h0, zb, h, gbar),
                     reps=1)
     out["garch_bwd"] = (garch_ms["bwd"], plain, *_bound(*garch["bwd"][1:]))
-    garch_depths(chk, rz, params, h0, zb, h, gbar, garch)
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name:10s} {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
             f"{bms:.3f} ms ({by})  library: none (no single PyTorch call "
@@ -839,245 +824,6 @@ def phase_timing_volatility(chk: Checks, pipe: dict, device) -> dict:
         f"{4 * t * b4 / ms4 / 1e9:.3f} TB/s (at B={B}: "
         f"{4 * n_el / out['garch_fwd'][0] / 1e9:.3f} TB/s)")
     return out
-
-
-def _lib_call(fn, *args):
-    """Call a kernel build's entry point on the current stream; raise on a
-    CUDA error."""
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"launch failed with CUDA error {rc}")
-
-
-def _fill_lib_call(lib, yt, which):
-    """A closure running ``lib``'s fill chain (a build of ``fill.cu``,
-    called directly) -> the outputs ``which`` asks for."""
-    T, B = yt.shape
-
-    def call():
-        outs = [torch.empty_like(yt) if w else None for w in which]
-        _lib_call(lib.sts_fill_chain, yt.data_ptr(),
-                  *(None if o is None else o.data_ptr() for o in outs), B, T)
-        return [o for o in outs if o is not None]
-    return call
-
-
-def fill_depth_times(chk: Checks, yt, cases: dict) -> None:
-    """The fill chain at every depth of ``FILL_DEPTHS`` (builds of
-    ``fill.cu``, called directly) on each case ``{name: (which, bound
-    ms)}``, each bit for bit against the shipped build, then timed in
-    turns."""
-    from spark_timeseries_tpu_torch.ops import _build
-
-    shipped = _build.load("fill").sts_fill_ring_depth()
-    log(f"  fill_chain ring depths (ms; shipped D={shipped}; each timed "
-        "twice in turns, second pass in brackets; % of bound from the "
-        "faster):")
-    for case, (which, bms) in cases.items():
-        calls = {d: _fill_lib_call(_build.load(*_fill_depth_key(d)), yt,
-                                   which) for d in FILL_DEPTHS}
-        want = _fill_lib_call(_build.load("fill"), yt, which)()
-        for d in FILL_DEPTHS:
-            chk.require(all(same_bits(g, w)
-                            for g, w in zip(calls[d](), want)),
-                        f"fill_chain {case} at D={d} bitwise equal to the "
-                        "shipped build")
-        del want
-        times = _in_turns(calls)
-        log(f"    {case:10s} " + "  ".join(
-            f"D={d}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
-            for d, ts in times.items()))
-
-
-def _acf_lib_call(lib, rt, nl: int):
-    """A closure running ``lib``'s autocorrelation (a build of
-    ``autocorr.cu``, called directly) -> ``[nl, B]``."""
-    T, B = rt.shape
-
-    def call():
-        out = rt.new_empty(nl, B)
-        _lib_call(lib.sts_autocorr, rt.data_ptr(), out.data_ptr(), B, T, nl)
-        return out
-    return call
-
-
-def acf_variant_times(chk: Checks, cases: dict) -> None:
-    """The autocorrelation as each build of ``ACF_VARIANTS`` (called
-    directly) on each case ``{name: (panel, nl, bound ms)}``, each against
-    the shipped build within 1e-5 of r_k (their chunks, so their summation
-    orders, differ), then timed in turns."""
-    from spark_timeseries_tpu_torch.ops import _build
-
-    ship = _build.load("autocorr")
-    log(f"  autocorr builds (ms; shipped tile S={ship.sts_autocorr_tile()}; "
-        "each timed twice in turns, second pass in brackets; % of bound "
-        "from the faster):")
-    for case, (rt, nl, bms) in cases.items():
-        calls = {v: _acf_lib_call(_build.load("autocorr", d), rt, nl)
-                 for v, d in ACF_VARIANTS.items()}
-        want = _acf_lib_call(ship, rt, nl)()
-        for v in ACF_VARIANTS:
-            chk.require(rel_err(calls[v](), want)[1] <= 1e-5,
-                        f"autocorr {case} as {v} within 1e-5 of the shipped "
-                        "build")
-        del want
-        times = _in_turns(calls)
-        log(f"    {case:16s} " + "  ".join(
-            f"{v}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
-            for v, ts in times.items()))
-
-
-def _garch_lib_calls(lib, rz, params, h0, zb, h, gbar) -> dict:
-    """The pipeline's five GARCH launches straight through ``lib`` (a build
-    of ``garch.cu``), each returning its outputs; keyed as in
-    :func:`phase_timing_volatility`."""
-    t, b = rz.shape
-    par_t = params.t().contiguous()
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    run = _lib_call
-
-    def fwd(mode):
-        def call():
-            hh = torch.empty_like(rz) if mode in (0, 2) else None
-            ll = rz.new_empty(b) if mode in (1, 2) else None
-            hl = rz.new_empty(b) if mode == 3 else None
-            run(lib.sts_garch_fwd, ptr(rz), ptr(par_t), ptr(h0), ptr(zb),
-                ptr(hh), ptr(ll), ptr(hl), b, t, mode)
-            return [x for x in (hh, ll, hl) if x is not None]
-        return call
-
-    def bwd(want_gr):
-        def call():
-            gpar, gh0 = rz.new_empty(3, b), rz.new_empty(b)
-            gr = torch.empty_like(rz) if want_gr else None
-            run(lib.sts_garch_bwd, ptr(rz), ptr(par_t), ptr(h0), ptr(zb),
-                ptr(h), ptr(gbar), ptr(gpar), ptr(gh0), ptr(gr), b, t, 1)
-            return [gpar.t(), gh0] + ([gr] if want_gr else [])
-        return call
-
-    return {"fwd sum": fwd(1), "fwd both": fwd(2), "fwd last": fwd(3),
-            "bwd": bwd(False), "bwd dr": bwd(True)}
-
-
-def _in_turns(calls: dict, reps: int = 2) -> dict:
-    """``{key: [ms, ...]}``: each closure of ``calls`` timed ``reps`` times,
-    in turns, the order reversed on every other pass."""
-    keys = list(calls)
-    times = {k: [] for k in keys}
-    for i in range(reps):
-        for k in (keys if i % 2 == 0 else keys[::-1]):
-            times[k].append(cuda_ms(calls[k]))
-    return times
-
-
-def garch_depths(chk: Checks, rz, params, h0, zb, h, gbar, garch) -> None:
-    """Each GARCH launch at every ring depth of ``GARCH_DEPTHS`` (builds of
-    ``garch.cu`` with that depth, called directly), in turns, each held
-    against the shipped build's outputs first (the forward bitwise)."""
-    from spark_timeseries_tpu_torch.ops import _build
-
-    shipped = _build.load("garch").sts_garch_ring_depth()
-    ref = _garch_lib_calls(_build.load("garch"), rz, params, h0, zb, h, gbar)
-    calls = {d: _garch_lib_calls(_build.load(*_garch_depth_key(d)), rz,
-                                 params, h0, zb, h, gbar)
-             for d in GARCH_DEPTHS}
-    for name in garch:
-        want = ref[name]()
-        for d in GARCH_DEPTHS:
-            got = calls[d][name]()
-            if name.startswith("fwd"):
-                same = all(torch.equal(g, w) for g, w in zip(got, want))
-            else:
-                same = all(rel_err(g, w)[1] <= TOL["garch_bwd"]
-                           for g, w in zip(got, want))
-            chk.require(same, f"garch {name} at D={d} agrees with the "
-                        f"shipped D={shipped}")
-        del got, want
-    log(f"  garch ring depths (ms; shipped D={shipped}; each depth timed "
-        "twice, in turns, second pass in brackets):")
-    for name, (_, nbytes, flops) in garch.items():
-        times = _in_turns({d: calls[d][name] for d in GARCH_DEPTHS})
-        bms = _bound(nbytes, flops)[0]
-        log(f"    {name:9s} " + "  ".join(
-            f"D={d}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
-            for d, ts in times.items()))
-
-
-def hw_variant_times(chk: Checks, cases: dict) -> None:
-    """The Holt-Winters forward of each build of ``HW_VARIANTS`` (called
-    directly), held bit for bit against the shipped build on each case
-    ``{name: ((yt, params, seeds, m, mult, save), bound ms)}``, then
-    timed in turns."""
-    from spark_timeseries_tpu_torch.ops import _build
-
-    libs = {"shipped": _build.load("hw")}
-    libs.update({v: _build.load("hw", d) for v, d in HW_VARIANTS.items()})
-    log("  hw_fwd builds (ms, each timed twice in turns, second pass in "
-        "brackets; % of bound from the faster):")
-    for case, (args, bms) in cases.items():
-        calls = {v: _hw_lib_fwd(lib, *args) for v, lib in libs.items()}
-        want = calls["shipped"]()
-        for v in HW_VARIANTS:
-            got = calls[v]()
-            chk.require(all(same_bits(g, w) for g, w in zip(got, want)),
-                        f"hw_fwd {case} with {v} bitwise equal to the shipped "
-                        "build")
-            del got
-        del want
-        times = _in_turns(calls)
-        log(f"    {case:15s} " + "  ".join(
-            f"{v}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
-            for v, ts in times.items()))
-
-
-def _hr_lib_sweeps(lib, yt, start, beta, m: int, p: int, q: int):
-    """A closure running the ARIMA(p, d, q) init's two moment sweeps
-    through ``lib`` (a build of ``hr.cu``, called directly) -> their
-    accumulators ``[nacc, B]``: AR(m) with intercept, then [1, y lags,
-    residual lags] with the AR(m) residual rebuilt from ``beta``."""
-    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
-
-    b = yt.shape[1]
-
-    def sweep(lag_y, lag_e, woff, beta_m):
-        n = 1 + lag_y + lag_e
-        acc = yt.new_empty(n * (n + 1) // 2 + n, b)
-        rc = ck._hr_moments_call(lib, torch.cuda.current_stream().cuda_stream,
-                                 yt, start, acc, lag_y, lag_e, True, woff,
-                                 beta_m, beta)
-        if rc:
-            raise RuntimeError(f"hr_moments launch failed with CUDA error {rc}")
-        return acc
-
-    return lambda: (sweep(m, 0, m, 0), sweep(p, q, m + q, m))
-
-
-def hr_depth_times(chk: Checks, yt, start, beta, m, p, q, bms) -> None:
-    """Both moment sweeps at every depth of ``HR_DEPTHS`` (builds of
-    ``hr.cu``, called directly), each bit for bit against the build
-    without a ring (D = 0, one load of y a step) and the shipped wrapper
-    against it too, then timed in turns."""
-    from spark_timeseries_tpu_torch.ops import _build
-    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
-
-    calls = {d: _hr_lib_sweeps(_build.load(*_hr_depth_key(d)), yt, start,
-                               beta, m, p, q) for d in HR_DEPTHS}
-    want = calls[0]()
-    for d in HR_DEPTHS[1:]:
-        chk.require(all(same_bits(g, w) for g, w in zip(calls[d](), want)),
-                    f"hr_moments at D={d} bitwise equal to D=0, both sweeps")
-    shipped = (ck.hr_moments(yt, start, m, 0, True, m),
-               ck.hr_moments(yt, start, p, q, True, m + q, m, beta))
-    chk.require(all(same_bits(g.t(), w) for g, w in zip(shipped, want)),
-                f"hr_moments as shipped (D="
-                f"{_build.load('hr').sts_hr_ring_depth()}) bitwise equal to "
-                "D=0, both sweeps")
-    del shipped, want
-    times = _in_turns(calls)
-    log("  hr_moments ring depths, both sweeps (ms, each timed twice in "
-        "turns, second pass in brackets): " + "  ".join(
-            f"D={d}: {ts[0]:.3f} [{ts[1]:.3f}] ({100 * bms / min(ts):.1f} %)"
-            for d, ts in times.items()))
 
 
 def _seasonal_rows(b: int, t: int, seed: int, device):
@@ -1586,15 +1332,6 @@ def phase_timing_hourly(chk: Checks, hourly: dict, device) -> dict:
         f"{bound_bm[0]:.3f} ms ({bound_bm[1]}), "
         f"{100 * bound_bm[0] / ms_bm:.1f} % of it)")
     del e_m, lv_m, tr_m, so_m
-    n_el_b = n_el + (7 + m) * B
-    hw_variant_times(chk, {
-        "add. sum": ((yt, params, seeds, m, False, False),
-                     _bound(f * n_el_b, 14 * n_el)[0]),
-        "add. save_resid": ((yt, params, seeds, m, False, True),
-                            _bound(f * (n_el_b + 4 * n_el), 14 * n_el)[0]),
-        "mult. sum": ((yt_mult, params[:n_mult], seeds_mult, m, True, False),
-                      bound_mult[0]),
-    })
     del yt_mult, seeds_mult, seeds_glob
     e, lv, tr, so, _ = ck.hw_fwd(yt, params, *seeds, m, False, True)
     # adjoint, per-series cotangent: reads y, L, T, S_old and e, the
@@ -1692,7 +1429,6 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
     out["hr_moments"] = (ms, plain, *bound(
         f * (2 * n_el + 3 * B + B * (m + 1) + B * (14 + 9)),
         n_el * (2 * 14 + 2 * 9 + 8)))
-    hr_depth_times(chk, yt, start, beta, m, p, q, out["hr_moments"][2])
     for name, (ms, plain, bms, by) in out.items():
         log(f"  {name:10s} {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
             f"{bms:.3f} ms ({by})  library: none (no single PyTorch call "
@@ -1700,16 +1436,425 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
     return out
 
 
-def _garch_depth_key(depth: int):
-    return ("garch", (f"STS_GARCH_DEPTH={depth}",))
+SEASON = 24  # the hourly panel's period
+AIRLINE = ((0, 1, 1), (0, 1, 1, SEASON))  # the airline model
+# the order search's grids: the headline panel's plain group and the
+# hourly panel's seasonal group
+GRID_PLAIN = (((1, 1, 0), None), ((0, 1, 1), None), ((1, 1, 1), None),
+              ((2, 1, 2), None))
+GRID_SEASONAL = (((0, 1, 1), (0, 1, 1, SEASON)),
+                 ((1, 1, 0), (1, 1, 0, SEASON)),
+                 ((1, 1, 1), (1, 1, 1, SEASON)))
+GRID_SEASONAL_ROWS = 100_000
+# (label, order, seasonal) of the dyn-route kernel checks: the airline
+# model's expansion (q_full = 25) and one with p_full = q_full = 25
+DYN_CASES = (("airline (0,1,1)(0,1,1,24)", *AIRLINE),
+             ("(1,0,1)(1,1,1,24)", (1, 0, 1), (1, 1, 1, SEASON)))
 
 
-def _hr_depth_key(depth: int):
-    return ("hr", (f"STS_HR_DEPTH={depth}",))
+def _expanded_rows(b: int, order, seasonal, gen, device):
+    """CSS kernel rows ``[c, phi_full, theta_full]`` of a seasonal model
+    with parameters drawn in (-0.8, 0.8) (c in (-0.1, 0.1)), expanded as
+    the seasonal fit expands them."""
+    from spark_timeseries_tpu_torch.models import arima
+
+    k = arima._n_params_seasonal(order, seasonal, True)
+    par = 1.6 * torch.rand(b, k, generator=gen, device=device) - 0.8
+    par[:, 0] *= 0.125
+    return arima._sarima_kernel_params(par, order, seasonal, True)
 
 
-def _fill_depth_key(depth: int):
-    return ("fill", (f"STS_FILL_DEPTH={depth}",))
+def phase_kernels_seasonal(chk: Checks, device, b: int = 65_537,
+                           t: int = 935) -> None:
+    """Phase 3, the seasonal fits' route: css_fwd in every mode and css_bwd
+    with both cotangents (and the data cotangent) on css.cu's dyn route,
+    against their plain versions, with expanded seasonal coefficients."""
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    log(f"phase 3: CSS kernels on the dyn route vs plain at B={b} T={t}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(24)
+    for label, order, seasonal in DYN_CASES:
+        p, q, _ = arima.seasonal_lag_span(order, seasonal)
+        yt, zb, _, _ = ragged_panel(b, t, p, seed=p + q, device=device)
+        params = _expanded_rows(b, order, seasonal, gen, device)
+        for mode in ("e", "sum", "tail"):
+            chk.compare("css_fwd", f"{label}, mode {mode}",
+                        ck.css_fwd(yt, params, zb, p, q, mode),
+                        ck.css_fwd_plain(yt, params, zb, p, q, mode))
+        e_both, s_both = ck.css_fwd(yt, params, zb, p, q, "both")
+        chk.require(torch.equal(s_both,
+                                ck.css_fwd(yt, params, zb, p, q, "sum")),
+                    f"css_fwd {label}: sum == both bitwise")
+        e = ck.css_fwd_plain(yt, params, zb, p, q, "e")
+        chk.compare("css_fwd", f"{label}, mode both (errors)", e_both, e)
+        del e_both
+        gbar = torch.rand(b, generator=gen, device=device) / t
+        gpan = torch.randn(t, b, generator=gen, device=device)
+        for g, name in ((gbar, "per-series"), (gpan, "[T, B]")):
+            gp, gy = ck.css_bwd(yt, e, params, zb, g, p, q, True)
+            gp_r, gy_r = ck.css_bwd_plain(yt, e, params, zb, g, p, q, True)
+            chk.compare("css_bwd", f"{label}, gparams, {name}", gp, gp_r)
+            chk.compare("css_bwd", f"{label}, gy, {name}", gy, gy_r)
+            del gp, gy, gp_r, gy_r
+        del yt, e, gpan
+        torch.cuda.synchronize()
+
+
+def phase_timing_seasonal(chk: Checks, device) -> dict:
+    """Phase 7, the dyn route at the airline fit's shape [935, 1M]:
+    css_fwd sum and both and css_bwd with the per-series cotangent, each
+    against its plain version once more, timed beside its bound."""
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    rows, t = HOURLY_ROWS, HOURLY_TIME - 1 - SEASON
+    order, seasonal = AIRLINE
+    p, q, _ = arima.seasonal_lag_span(order, seasonal)
+    log(f"phase 7: the dyn route at the airline fit's shape [T, B] = "
+        f"[{t}, {rows}] (p_full={p}, q_full={q})")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(25)
+    yt, zb, _, _ = ragged_panel(rows, t, p, seed=26, device=device)
+    params = _expanded_rows(rows, order, seasonal, gen, device)
+    e = ck.css_fwd(yt, params, zb, p, q, "e")
+    gbar = torch.full((rows,), 1.0 / t, device=device)
+    chk.compare("css_fwd", "airline mode sum, [935, 1M]",
+                ck.css_fwd(yt, params, zb, p, q, "sum"),
+                ck.css_fwd_plain(yt, params, zb, p, q, "sum"))
+    chk.compare("css_bwd", "airline gparams, [935, 1M]",
+                ck.css_bwd(yt, e, params, zb, gbar, p, q)[0],
+                ck.css_bwd_plain(yt, e, params, zb, gbar, p, q)[0])
+    f, n_el, k = 4, t * rows, 1 + p + q
+    flops = n_el * (2 * (p + q) + 3)
+    cases = {
+        "css_fwd sum": (lambda: ck.css_fwd(yt, params, zb, p, q, "sum"),
+                        lambda: ck.css_fwd_plain(yt, params, zb, p, q,
+                                                 "sum"),
+                        f * (n_el + rows * k + 2 * rows), flops),
+        "css_fwd both": (lambda: ck.css_fwd(yt, params, zb, p, q, "both"),
+                         lambda: ck.css_fwd_plain(yt, params, zb, p, q,
+                                                  "both"),
+                         f * (2 * n_el + rows * k + 2 * rows), flops),
+        "css_bwd": (lambda: ck.css_bwd(yt, e, params, zb, gbar, p, q),
+                    lambda: ck.css_bwd_plain(yt, e, params, zb, gbar, p, q),
+                    f * (2 * n_el + 2 * rows * k + 2 * rows),
+                    n_el * (2 * (q + k) + 4)),
+    }
+    out = {}
+    for name, (fn, plain_fn, nbytes, fl) in cases.items():
+        ms = cuda_ms(fn)
+        plain = cuda_ms(plain_fn, reps=1)
+        bms, by = _bound(nbytes, fl)
+        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by, "share_of_bound": bms / ms}
+        log(f"  {name:12s} dyn {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
+            f"{bms:.3f} ms ({by}; {nbytes / 1e9:.2f} GB, "
+            f"{fl / 1e9:.1f} GFLOP) = {100 * bms / ms:.1f} % of it")
+    del yt, e
+    return out
+
+
+def _grid_blocks(res, specs):
+    """Per order of a fit_grid pack: (params, nll, eligible, converged,
+    iters, status) columns."""
+    from spark_timeseries_tpu_torch.models import arima
+
+    infos = [arima._grid_spec_info(o, s, True) for o, s in specs]
+    k_max = max(i["k"] for i in infos)
+    w = k_max + arima.GRID_PACK_COLS
+    return [(res.params[:, g * w:g * w + i["k"]],)
+            + tuple(res.params[:, g * w + k_max + j] for j in range(5))
+            for g, i in enumerate(infos)]
+
+
+def _grid_report(chk: Checks, res, specs, what: str) -> None:
+    from spark_timeseries_tpu_torch.reliability import status_counts
+
+    chk.require(bool(torch.isfinite(res.params).all()),
+                f"{what}: the pack is finite")
+    for (o, s), (par, _, elig, conv, its, st) in zip(
+            specs, _grid_blocks(res, specs)):
+        med = par[conv > 0].median(dim=0).values.tolist()
+        log(f"  {o}{'' if s is None else s}: status "
+            f"{status_counts(st.to(torch.int8).cpu().numpy())}; eligible "
+            f"{float(elig.mean()):.4f}, converged {float(conv.mean()):.4f}, "
+            f"iterations max {int(its.max())}; median params "
+            f"{[round(v, 4) for v in med]}")
+
+
+def _dyn_counts(ck) -> str:
+    return (f"css_fwd {ck.LAUNCHES['css_fwd']} (dyn route "
+            f"{ck.DYN_LAUNCHES['css_fwd']}), css_bwd {ck.LAUNCHES['css_bwd']}"
+            f" (dyn route {ck.DYN_LAUNCHES['css_bwd']}), hr_moments "
+            f"{ck.LAUNCHES['hr_moments']}")
+
+
+def phase_order_search(chk: Checks, device) -> dict:
+    """Phase 8a-c: the order-search path at full width on the kernels."""
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.reliability import status_counts
+
+    out = {}
+    # 8a: the fused plain grid over the headline panel
+    log(f"phase 8a: arima.fit_grid of {len(GRID_PLAIN)} orders over the "
+        f"{ROWS} x {TIME} headline panel, kernel route with compaction")
+    y = entry.gen_panel(ROWS, TIME, seed=0, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = arima.fit_grid(y, GRID_PLAIN, backend="cuda", device=device)
+    torch.cuda.synchronize()
+    out["grid_s"] = time.perf_counter() - t0
+    out["grid_launches"] = dict(ck.LAUNCHES)
+    log(f"  wall {out['grid_s']:.3f} s; iterations max "
+        f"{int(res.iters.max())}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{_dyn_counts(ck)}")
+    for name in ("css_fwd", "css_bwd", "hr_moments"):
+        n_launch = out["grid_launches"][name]
+        chk.require(n_launch > 0, f"{name} launched by fit_grid ({n_launch})")
+    _grid_report(chk, res, GRID_PLAIN, "fit_grid")
+    profile_fit(lambda: arima.fit_grid(y, GRID_PLAIN, backend="cuda",
+                                       device=device),
+                f"fit_grid of {len(GRID_PLAIN)} orders")
+    blk = _grid_blocks(res, GRID_PLAIN)[2]  # the (1,1,1) block
+    med = blk[0][blk[3] > 0].median(dim=0).values.tolist()
+    log(f"  (1,1,1) block median [c, phi, theta] = {med} (panel made with "
+        "phi=0.6, theta=0.3)")
+    chk.require(abs(med[1] - 0.6) < 0.05 and abs(med[2] - 0.3) < 0.05,
+                "fit_grid (1,1,1) median phi, theta within 0.05")
+    del res, blk
+    n = min(4096, ROWS)
+    ys = y[:n].contiguous()
+    del y
+    r_cuda = arima.fit_grid(ys, GRID_PLAIN, backend="cuda", device=device)
+    t0 = time.perf_counter()
+    r_eager = arima.fit_grid(ys, GRID_PLAIN, backend="eager", device=device)
+    torch.cuda.synchronize()
+    log(f"  eager fit_grid on {n} rows: {time.perf_counter() - t0:.1f} s")
+    for (o, _), bc, be in zip(GRID_PLAIN, _grid_blocks(r_cuda, GRID_PLAIN),
+                              _grid_blocks(r_eager, GRID_PLAIN)):
+        both = (bc[3] > 0) & (be[3] > 0)
+        dconv = abs(float(bc[3].mean()) - float(be[3].mean()))
+        dpar = (bc[0][both] - be[0][both]).abs()
+        med_dp = float(dpar.median()) if dpar.numel() else float("inf")
+        # a row is ineligible where its nll is not finite: a start whose
+        # recursion overflows float32 in one rounding of the init and not
+        # in the other (the two inits are the moment kernel's and eager's)
+        delig = int((bc[2] != be[2]).sum())
+        log(f"  {o} cuda vs eager on {n} rows: converged share differs by "
+            f"{dconv:.4f}, median |param diff| {med_dp:.2e}, eligibility "
+            f"differs on {delig} rows")
+        chk.require(delig <= n // 1000 and dconv < 0.02 and med_dp < 1e-2,
+                    f"fit_grid {o} cuda vs eager: eligibility equal but on "
+                    "0.1 % of rows at most, the reference's parity bar")
+    r_fit = arima.fit(ys, (1, 1, 1), backend="cuda", device=device)
+    bc = _grid_blocks(r_cuda, GRID_PLAIN)[2]
+    both = (bc[3] > 0) & r_fit.converged
+    dconv = abs(float(bc[3].mean()) - float(r_fit.converged.float().mean()))
+    med_dp = float((bc[0][both] - r_fit.params[both]).abs().median())
+    log(f"  (1,1,1) block vs arima.fit on {n} rows: converged share differs "
+        f"by {dconv:.4f}, median |param diff| {med_dp:.2e}")
+    chk.require(dconv < 0.02 and med_dp < 1e-2,
+                "fit_grid (1,1,1) block vs arima.fit within the parity bar")
+    del ys, r_cuda, r_eager, r_fit, bc
+
+    # 8b: the airline model on the hourly panel (the dyn route)
+    order, seasonal = AIRLINE
+    log(f"phase 8b: arima.fit(y, {order}, seasonal={seasonal}) of the "
+        f"{HOURLY_ROWS} x {HOURLY_TIME} hourly panel")
+    y = entry.gen_hourly_panel(HOURLY_ROWS, HOURLY_TIME, seed=0,
+                               device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = arima.fit(y, order, seasonal=seasonal, device=device)
+    torch.cuda.synchronize()
+    out["airline_s"] = time.perf_counter() - t0
+    out["airline_launches"] = {**ck.LAUNCHES,
+                               **{f"{k} dyn": v
+                                  for k, v in ck.DYN_LAUNCHES.items()}}
+    counts = status_counts(res.status.cpu().numpy())
+    log(f"  wall {out['airline_s']:.3f} s; iterations max "
+        f"{int(res.iters.max())}; status {counts}; converged share "
+        f"{float(res.converged.float().mean()):.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  launches {_dyn_counts(ck)}")
+    med = res.params[res.converged].median(dim=0).values.tolist()
+    log(f"  median [c, theta, THETA] = {med}")
+    for name in ("css_fwd", "css_bwd"):
+        chk.require(ck.DYN_LAUNCHES[name] > 0,
+                    f"{name} launched on the dyn route by the airline fit")
+    chk.require(tuple(res.params.shape) == (HOURLY_ROWS, 3)
+                and float(res.converged.float().mean()) > 0.9
+                and bool(torch.isfinite(res.params[res.converged]).all()),
+                "airline fit: params [B, 3], converged share > 0.9, finite")
+    del res
+    profile_fit(lambda: arima.fit(y, order, seasonal=seasonal,
+                                  device=device), "airline fit")
+    n = min(2048, HOURLY_ROWS)
+    ys = y[:n].contiguous()
+    r_cuda = arima.fit(ys, order, seasonal=seasonal, backend="cuda",
+                       device=device)
+    t0 = time.perf_counter()
+    r_eager = arima.fit(ys, order, seasonal=seasonal, backend="eager",
+                        device=device)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    dconv, med_dp = _parity(r_cuda, r_eager)
+    log(f"  airline cuda vs eager on {n} rows (eager {eager_s:.1f} s): "
+        f"converged share differs by {dconv:.4f}, median |param diff| "
+        f"{med_dp:.2e}")
+    chk.require(torch.equal(r_cuda.status == 5, r_eager.status == 5)
+                and dconv < 0.02 and med_dp < 1e-2,
+                "airline fit cuda vs eager: exclusions equal, the parity bar")
+    del ys, r_cuda, r_eager
+
+    # 8c: the seasonal grid on the hourly panel's first rows (compaction
+    # through the quadratic coefficient maps)
+    n = min(GRID_SEASONAL_ROWS, HOURLY_ROWS)
+    log(f"phase 8c: arima.fit_grid of the seasonal group on the hourly "
+        f"panel's first {n} rows")
+    ys = y[:n].contiguous()
+    del y
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = arima.fit_grid(ys, GRID_SEASONAL, backend="cuda", device=device)
+    torch.cuda.synchronize()
+    out["grid_seasonal_s"] = time.perf_counter() - t0
+    out["grid_seasonal_launches"] = {
+        **ck.LAUNCHES, **{f"{k} dyn": v for k, v in ck.DYN_LAUNCHES.items()}}
+    log(f"  wall {out['grid_seasonal_s']:.3f} s; iterations max "
+        f"{int(res.iters.max())}; launches {_dyn_counts(ck)}")
+    _grid_report(chk, res, GRID_SEASONAL, "seasonal fit_grid")
+    elig = torch.stack([b[2] for b in _grid_blocks(res, GRID_SEASONAL)])
+    chk.require(float(elig.mean()) > 0.99 and ck.DYN_LAUNCHES["css_fwd"] > 0,
+                "seasonal fit_grid: eligible rows, dyn-route launches")
+    del ys, res
+    return out
+
+
+def phase_leftovers(chk: Checks, params_main, device, rows: int = 100_000,
+                    t: int = 1_000) -> None:
+    """Phase 8d: the statistical tests, the effects transform, AR and
+    Cochrane-Orcutt, and the spline fill, PACF and cross-correlation."""
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch.models import arima, autoregression
+    from spark_timeseries_tpu_torch.models import regression_arima
+    from spark_timeseries_tpu_torch.ops import univariate as uv
+    from spark_timeseries_tpu_torch.stats import tests as st
+
+    log(f"phase 8d: statistical tests on the {ROWS} x {TIME} headline panel"
+        " (whole panel a call)")
+    y = entry.gen_panel(ROWS, TIME, seed=0, device=device)
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        walls[name] = round(time.perf_counter() - t0, 3)
+        return r
+
+    rej = {}
+    for what, x in (("levels", y), ("differences", None)):
+        if x is None:
+            x = y[:, 1:] - y[:, :-1]
+        _, p_adf = timed(f"adf {what}", lambda: st.batch_adftest(
+            x, device=device))
+        _, p_kpss = timed(f"kpss {what}", lambda: st.batch_kpsstest(
+            x, device=device))
+        rej[what] = (float((p_adf < 0.05).float().mean()),
+                     float((p_kpss < 0.05).float().mean()))
+        del x, p_adf, p_kpss
+    log(f"  rejection shares at 5 % (ADF, KPSS): {rej}")
+    chk.require(rej["differences"][0] > rej["levels"][0] + 0.5,
+                "ADF rejects a unit root far more often on the differences")
+    chk.require(rej["levels"][1] > rej["differences"][1],
+                "KPSS rejects stationarity more often on the levels")
+    e = timed("remove_effects", lambda: arima.remove_time_dependent_effects(
+        params_main, y, (1, 1, 1), device=device))
+    del y
+    q, p_lb = timed("ljung-box", lambda: st.batch_lbtest(
+        e[:, 1:], 10, device=device))  # the first entry is a constant
+    del e
+    lb_rej = float((p_lb < 0.05).float().mean())
+    log(f"  Ljung-Box(10) on the ARIMA(1,1,1) innovations: median Q "
+        f"{float(q.median()):.3f}, rejection share at 5 % {lb_rej:.4f}")
+    chk.require(bool(torch.isfinite(q).all()) and lb_rej < 0.1,
+                "Ljung-Box: the fitted model's innovations look white")
+    del q, p_lb
+
+    log(f"phase 8d: autoregression.fit and Cochrane-Orcutt on {rows} x {t}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    z = torch.randn(t, rows, generator=gen, device=device)
+    ar = torch.empty_like(z)
+    ar[0], ar[1] = z[0], z[1]
+    for i in range(2, t):  # AR(2): c 0.2, phi 0.5, -0.3
+        ar[i] = 0.2 + 0.5 * ar[i - 1] - 0.3 * ar[i - 2] + z[i]
+    res = timed("ar_fit", lambda: autoregression.fit(ar.t(), 2,
+                                                     device=device))
+    med = res.params.median(dim=0).values.tolist()
+    log(f"  AR(2) median [c, phi_1, phi_2] = {med} (made with 0.2, 0.5, "
+        "-0.3)")
+    chk.require(max(abs(a - b) for a, b in zip(med, (0.2, 0.5, -0.3)))
+                < 0.02 and bool(res.converged.all()),
+                "AR(2) fit within 0.02 of the generating parameters")
+    X = torch.randn(rows, t, 2, generator=gen, device=device)
+    u = torch.empty_like(z)
+    u[0] = z[0]
+    for i in range(1, t):  # AR(1) errors, rho 0.6
+        u[i] = 0.6 * u[i - 1] + z[i]
+    yr = 1.0 + X @ torch.tensor([2.0, -1.0], device=device) + u.t()
+    del z, ar, u
+    co_fit = regression_arima.fit_cochrane_orcutt
+    res = timed("cochrane_orcutt", lambda: co_fit(yr, X, device=device))
+    med = res.params.median(dim=0).values.tolist()
+    log(f"  Cochrane-Orcutt median [beta_0, beta_1, beta_2, rho] = {med} "
+        "(made with 1, 2, -1, 0.6)")
+    chk.require(max(abs(a - b) for a, b in zip(med, (1.0, 2.0, -1.0, 0.6)))
+                < 0.02, "Cochrane-Orcutt within 0.02 of beta and rho")
+    del X, yr, res
+
+    log(f"phase 8d: fill_spline, pacf(20), cross_corr(20) on the "
+        f"{VOL_ROWS} x {VOL_TIME} volatility panel")
+    prices = entry.gen_garch_prices(VOL_ROWS, VOL_TIME, seed=0, device=device)
+    filled = timed("fill_spline", lambda: uv.fill_spline(prices))
+    valid = ~torch.isnan(prices)
+    idx = torch.arange(VOL_TIME, device=device)
+    first = torch.where(valid, idx, VOL_TIME).amin(1, keepdim=True)
+    last = torch.where(valid, idx, -1).amax(1, keepdim=True)
+    inside = (idx >= first) & (idx <= last)
+    chk.require(torch.equal(filled[valid], prices[valid])
+                and bool(torch.isfinite(filled[inside]).all())
+                and bool(torch.isnan(filled[~inside]).all()),
+                "fill_spline keeps the data, fills every interior gap and "
+                "leaves the edges NaN")
+    host = uv.fill_spline(prices[:256].cpu())
+    err, rel = rel_err(filled[:256].cpu(), host)
+    log(f"  fill_spline card vs host on 256 rows: max_abs={err:.3e}")
+    chk.require(rel <= 1e-5, "fill_spline card vs host within 1e-5")
+    r = 100.0 * (filled[:, 1:] - filled[:, :-1])
+    del prices, filled
+    pac = timed("pacf", lambda: uv.pacf(r, 20))
+    xc = timed("cross_corr", lambda: uv.cross_corr(r, r * r, 20))
+    fin = float(torch.isfinite(pac).all(1).float().mean())
+    log(f"  pacf [B, 20]: finite rows {fin:.4f}, median |pacf| "
+        f"{float(pac[torch.isfinite(pac)].abs().median()):.4f}; cross_corr "
+        f"[B, 41] of r with r^2, median at lag 0 "
+        f"{float(xc[:, 20].nanmedian()):.4f}")
+    chk.require(tuple(pac.shape) == (VOL_ROWS, 20)
+                and tuple(xc.shape) == (VOL_ROWS, 41) and fin > 0.99
+                and float(pac[torch.isfinite(pac)].abs().median()) < 0.05,
+                "pacf of the returns near 0, shapes [B, 20] and [B, 41]")
+    log(f"  walls (s): {walls}")
 
 
 def build() -> None:
@@ -1717,12 +1862,7 @@ def build() -> None:
     from spark_timeseries_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    logs = _build.build_all(
-        variants=[_garch_depth_key(d) for d in GARCH_DEPTHS]
-        + [("hw", d) for d in HW_VARIANTS.values()]
-        + [_hr_depth_key(d) for d in HR_DEPTHS]
-        + [_fill_depth_key(d) for d in FILL_DEPTHS]
-        + [("autocorr", d) for d in ACF_VARIANTS.values()])
+    logs = _build.build_all()
     for name in _build.SOURCES:
         _build.load(name)
     log(f"phase 2: built {sorted(logs) or 'nothing (up to date)'} in "
@@ -1885,8 +2025,7 @@ def hw_hr_report() -> None:
     stages, steps = ctypes.c_int(0), ctypes.c_int(0)
     hw.sts_hw_ring_layout(m, ctypes.byref(stages), ctypes.byref(steps))
     log(f"  hw_fwd y ring at m={m} as shipped: {stages.value} stages of "
-        f"{steps.value} steps, seasonal ring in registers (builds timed: "
-        f"{list(HW_VARIANTS)})")
+        f"{steps.value} steps, seasonal ring in registers")
     for mult, save in ((0, 0), (0, 1), (1, 0), (1, 1)):
         rc = hw.sts_hw_occupancy(m, mult, save, ctypes.byref(blocks),
                                  ctypes.byref(smem))
@@ -1900,14 +2039,11 @@ def hw_hr_report() -> None:
     rc = hr.sts_hr_occupancy(ctypes.byref(blocks), ctypes.byref(smem))
     if rc:
         raise RuntimeError(f"sts_hr_occupancy failed: {rc}")
-    log(f"  hr_moments_k<4> ring: D = {hr.sts_hr_ring_depth()} steps shipped "
-        f"(built and timed at {list(HR_DEPTHS)}): {smem.value} B dynamic "
-        f"smem a block, {blocks.value} blocks an SM; {waves((ROWS,))}")
-    builds = [("hw", (), "shipped")] + [
-        ("hw", d, v) for v, d in HW_VARIANTS.items()] + [
-        _hr_depth_key(d) + (f"D={d}",) for d in HR_DEPTHS]
-    for name, defines, what in builds:
-        loops = _sass_main_loops(_build.library_path(name, defines))
+    log(f"  hr_moments_k<4> ring: D = {hr.sts_hr_ring_depth()} steps "
+        f"shipped: {smem.value} B dynamic smem a block, {blocks.value} "
+        f"blocks an SM; {waves((ROWS,))}")
+    for name, what in (("hw", "shipped"), ("hr", "shipped")):
+        loops = _sass_main_loops(_build.library_path(name))
         if not loops:
             log("    cuobjdump not found: no SASS counts")
             return
@@ -1946,26 +2082,20 @@ def transforms_report() -> None:
     if rc:
         raise RuntimeError(f"sts_fill_occupancy failed: {rc}")
     log(f"  fill_chain_k<2> ring: D = "
-        f"{_build.load('fill').sts_fill_ring_depth()} steps shipped (built "
-        f"and timed at {list(FILL_DEPTHS)}): {smem.value} B dynamic smem a "
-        f"block, {blocks.value} blocks an SM")
+        f"{_build.load('fill').sts_fill_ring_depth()} steps shipped: "
+        f"{smem.value} B dynamic smem a block, {blocks.value} blocks an SM")
     acf = _build.load("autocorr")
     rc = acf.sts_autocorr_occupancy(VOL_TIME, 20, ctypes.byref(blocks),
                                     ctypes.byref(smem))
     if rc:
         raise RuntimeError(f"sts_autocorr_occupancy failed: {rc}")
     log(f"  autocorr at T={VOL_TIME}, 20 lags, shipped tile S="
-        f"{acf.sts_autocorr_tile()} ({_acf_route(VOL_TIME, 20)}; builds "
-        f"timed: {list(ACF_VARIANTS)}): {smem.value} B dynamic smem a "
-        f"block, {blocks.value} blocks an SM")
+        f"{acf.sts_autocorr_tile()} ({_acf_route(VOL_TIME, 20)}): "
+        f"{smem.value} B dynamic smem a block, {blocks.value} blocks an SM")
     n_el = VOL_ROWS * VOL_TIME
-    builds = [("fill", (), "shipped")] + [
-        _fill_depth_key(d) + (f"D={d}",) for d in FILL_DEPTHS] + [
-        ("autocorr", (), "shipped")] + [
-        ("autocorr", d, v) for v, d in ACF_VARIANTS.items()]
-    for name, defines, what in builds:
+    for name, what in (("fill", "shipped"), ("autocorr", "shipped")):
         # the tile's lag-product walk: 20 steps, one shared load each
-        loops = _sass_main_loops(_build.library_path(name, defines),
+        loops = _sass_main_loops(_build.library_path(name),
                                  20 if name == "autocorr" else None)
         if not loops:
             log("    cuobjdump not found: no SASS counts")
@@ -1995,8 +2125,7 @@ def garch_report() -> None:
     log("  issue floors below: one warp instruction a clock on each of 4 "
         f"schedulers of {torch.cuda.get_device_properties(0).multi_processor_count}"
         f" SMs at {_max_sm_clock()} MHz")
-    log(f"  garch ring: depth D = {depth} steps shipped (built and timed "
-        f"at {list(GARCH_DEPTHS)})")
+    log(f"  garch ring: depth D = {depth} steps shipped")
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
     for k, what in enumerate(("forward (sum)", "adjoint, per-series "
                               "cotangent, with dr", "adjoint, [T, B] "
@@ -2008,10 +2137,8 @@ def garch_report() -> None:
         log(f"    {what}: {smem.value} B dynamic smem a block, "
             f"{blocks.value} blocks an SM")
     n_el = VOL_ROWS * VOL_TIME
-    for d in sorted({depth, *GARCH_DEPTHS}):
-        path = (_build.library_path("garch") if d == depth
-                else _build.library_path(*_garch_depth_key(d)))
-        loops = _sass_main_loops(path)
+    for d in (depth,):
+        loops = _sass_main_loops(_build.library_path("garch"))
         if not loops:
             log("    cuobjdump not found: no SASS counts")
             return
@@ -2045,6 +2172,7 @@ def main() -> int:
     check_garch_divide(chk, device)
     check_hw_divide(chk, device)
     phase_kernels_smoothing(chk, device)
+    phase_kernels_seasonal(chk, device)
     if chk.failures:  # a kernel that disagrees makes the rest meaningless
         log("FAILED: " + "; ".join(chk.failures))
         return 1
@@ -2054,6 +2182,14 @@ def main() -> int:
     times = phase_timing(chk, main_run, device)
     times.update(phase_timing_volatility(chk, pipe, device))
     times.update(phase_timing_hourly(chk, hourly, device))
+    dyn = phase_timing_seasonal(chk, device)
+    search = phase_order_search(chk, device)
+    phase_leftovers(chk, main_run.pop("params"), device)
+    log(json.dumps({"css_dyn_route": {
+        "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": dyn,
+        "launches": {"airline fit (8b)": search["airline_launches"],
+                     "seasonal grid (8c)": search["grid_seasonal_launches"]},
+        "walls_s": {k: v for k, v in search.items() if k.endswith("_s")}}}))
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))
         return 1

@@ -41,6 +41,16 @@ def to_device(y, device="cuda", dtype=None) -> torch.Tensor:
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
+def as_generator(gen, device) -> torch.Generator:
+    """A simulation's random source: a ``torch.Generator`` as given, or a
+    new one on ``device`` seeded with the integer ``gen``."""
+    if isinstance(gen, torch.Generator):
+        return gen
+    g = torch.Generator(device=device)
+    g.manual_seed(int(gen))
+    return g
+
+
 def resolve_backend(backend: str, y: torch.Tensor,
                     structural_ok: bool = True) -> str:
     """Validate a fit ``backend`` and resolve ``"auto"``.

@@ -29,8 +29,8 @@ import torch
 from ..ops import cuda_kernels as ck
 from ..ops.layout import time_major
 from ..utils import optim
-from .base import (FitResult, align_right, debatch, debatch_fit,
-                   derive_status, ensure_batched, maybe_align,
+from .base import (FitResult, align_right, as_generator, debatch,
+                   debatch_fit, derive_status, ensure_batched, maybe_align,
                    require_pallas_for_count_evals, resolve_align_mode,
                    resolve_backend, to_device)
 
@@ -296,14 +296,6 @@ def _forecast(pb, rb, n_future: int, backend: str):
 # -- simulation --------------------------------------------------------------
 
 
-def _generator(gen, device) -> torch.Generator:
-    if isinstance(gen, torch.Generator):
-        return gen
-    g = torch.Generator(device=device)
-    g.manual_seed(int(gen))
-    return g
-
-
 def _params(params, device):
     p = to_device(params, device)
     return p if p.is_floating_point() else p.float()
@@ -316,7 +308,7 @@ def sample(params, gen, n: int, *, device="cuda"):
     :func:`add_time_dependent_effects`.  The draws are not the reference's
     (JAX keys); their distribution is the same."""
     p = _params(params, device)
-    eps = torch.randn(n, generator=_generator(gen, p.device),
+    eps = torch.randn(n, generator=as_generator(gen, p.device),
                       device=p.device, dtype=p.dtype)
     return add_time_dependent_effects(p, eps, device=p.device)
 

@@ -48,10 +48,12 @@ from . import _build
 from .layout import FoldedPanel, css_prefold, time_major
 
 __all__ = [
-    "LAUNCHES", "reset_launch_counts", "supported", "css_structural_ok",
+    "LAUNCHES", "DYN_LAUNCHES", "reset_launch_counts", "supported",
+    "css_structural_ok",
     "hr_structural_ok", "css_fwd", "css_fwd_plain", "css_bwd",
     "css_bwd_plain", "hr_moments", "hr_moments_plain", "css_errors",
-    "css_last_errors", "css_neg_loglik", "css_neg_loglik_folded", "hr_init",
+    "css_last_errors", "css_neg_loglik", "css_neg_loglik_folded",
+    "css_sse_folded", "hr_init",
     "css_prefold", "autocorr_structural_ok", "fill_chain",
     "fill_chain_plain", "autocorr", "autocorr_plain", "garch_fwd",
     "garch_fwd_plain", "garch_bwd", "garch_bwd_plain", "fill_linear_chain",
@@ -70,15 +72,26 @@ LAUNCHES = {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0, "fill_chain": 0,
             "autocorr": 0, "garch_fwd": 0, "garch_bwd": 0, "ewma_fwd": 0,
             "ewma_bwd": 0, "hw_fwd": 0, "hw_bwd": 0}
 
+# of the CSS launches, those on css.cu's dyn route (rings in local memory,
+# past its register rings of up to _CSS_REG_LAG lags)
+DYN_LAUNCHES = {"css_fwd": 0, "css_bwd": 0}
+
 _MODES = {"e": 0, "sum": 1, "both": 2, "tail": 3}
+_CSS_REG_LAG = 8
 _MAX_CSS_LAG = 512
 _MAX_ACF_LAG = 1024
 _MAX_HW_PERIOD = 1024
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, DYN_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _count_dyn(counter: str, p: int, q: int) -> None:
+    if p > _CSS_REG_LAG or q > _CSS_REG_LAG:
+        DYN_LAUNCHES[counter] += 1
 
 
 def supported(x: torch.Tensor) -> bool:
@@ -215,6 +228,7 @@ def css_fwd(yt, params, zb, p: int, q: int, mode: str, t_limit=None):
         _launch("css", "sts_css_fwd", "css_fwd", dev, _ptr(yt), _ptr(par_t),
                 _ptr(zb), _ptr(e), _ptr(sse), _ptr(tail), B, T, p, q,
                 t_limit, _MODES[mode])
+        _count_dyn("css_fwd", p, q)
     return _fwd_out(mode, e, sse, None if tail is None else tail.t())
 
 
@@ -293,6 +307,7 @@ def css_bwd(yt, et, params, zb, g, p: int, q: int, want_gy: bool = False,
         _launch("css", "sts_css_bwd", "css_bwd", dev, _ptr(yt), _ptr(et),
                 _ptr(par_t), _ptr(zb), _ptr(g), _ptr(gpar), _ptr(gy), B, T,
                 p, q, t_limit, int(g_is_sse))
+        _count_dyn("css_bwd", p, q)
     return gpar.t(), gy
 
 
@@ -1126,6 +1141,17 @@ def kernel_params(params, include_intercept: bool):
     return torch.cat([params.new_zeros(params.shape[0], 1), params], dim=1)
 
 
+def css_sse_folded(params, yt, zb, p: int, q: int, t_limit=None):
+    """Per-series CSS sum of squares ``[B]`` of a panel in the kernels'
+    layout, for kernel-layout ``params [B, 1+p+q]`` and conditioning start
+    ``zb [B]``.  Differentiable in ``params`` (and in ``yt``) through the
+    adjoint kernel; the seasonal and grid fits call it with their expanded
+    lag coefficients."""
+    t_limit = yt.shape[0] if t_limit is None else int(t_limit)
+    return _CssSSE.apply(params, yt, zb, p, q, t_limit,
+                         _needs_grad(params, yt))
+
+
 def css_neg_loglik_folded(params, yt, zb, n: int, order,
                           include_intercept: bool, n_valid=None):
     """Batched CSS negative log-likelihood ``[B]`` from a panel already in
@@ -1137,7 +1163,7 @@ def css_neg_loglik_folded(params, yt, zb, n: int, order,
     nv = (torch.full((b,), n, dtype=params.dtype, device=params.device)
           if n_valid is None else n_valid.to(params.dtype))
     pk = kernel_params(params, include_intercept).contiguous()
-    css = _CssSSE.apply(pk, yt, zb, p, q, n, _needs_grad(pk, yt))
+    css = css_sse_folded(pk, yt, zb, p, q, n)
     n_eff = nv - p
     sigma2 = css / n_eff
     return 0.5 * n_eff * (torch.log(2.0 * math.pi * sigma2) + 1.0)

@@ -10,15 +10,16 @@ the kernel for a float32 panel on a CUDA device whose shape the kernel
 takes, ``"cuda"`` insists (and raises where it cannot run), ``"eager"``
 runs the plain PyTorch functions here on any device.
 
-Not ported yet (ROADMAP queue 1): ``fill_spline``, ``pacf``,
-``cross_corr``, ``trim_leading`` / ``trim_trailing`` and the resampling
-functions.
+The trims, the partial autocorrelation, the cross-correlation, the
+resampling functions and the spline fill run no kernel in the reference
+either; here they are plain PyTorch on the input's device.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..models.base import BACKENDS, resolve_backend
@@ -29,6 +30,8 @@ __all__ = [
     "first_not_nan_loc",
     "last_not_nan_loc",
     "autocorr",
+    "pacf",
+    "cross_corr",
     "lag",
     "lags",
     "differences_at_lag",
@@ -41,7 +44,13 @@ __all__ = [
     "fill_next",
     "fill_nearest",
     "fill_linear",
+    "fill_spline",
     "fillts",
+    "trim_leading",
+    "trim_trailing",
+    "downsample",
+    "upsample",
+    "resample",
     "batched",
     "batch_autocorr",
     "batch_fill",
@@ -72,6 +81,22 @@ def last_not_nan_loc(x: torch.Tensor) -> torch.Tensor:
     return torch.where(valid.any(-1), x.shape[-1] - 1 - rev, -1)
 
 
+def trim_leading(x):
+    """Drop the leading NaN run of one series (dynamic shape: a tensor
+    stays a tensor, anything else comes back as a numpy array)."""
+    xt = x if isinstance(x, torch.Tensor) else np.asarray(x)
+    loc = int(first_not_nan_loc(torch.as_tensor(xt)))
+    return xt[loc:]
+
+
+def trim_trailing(x):
+    """Drop the trailing NaN run of one series (dynamic shape, as
+    :func:`trim_leading`)."""
+    xt = x if isinstance(x, torch.Tensor) else np.asarray(x)
+    loc = int(last_not_nan_loc(torch.as_tensor(xt)))
+    return xt[:loc + 1]
+
+
 # ---------------------------------------------------------------------------
 # Correlation
 # ---------------------------------------------------------------------------
@@ -95,6 +120,55 @@ def autocorr(x: torch.Tensor, num_lags: int) -> torch.Tensor:
     denom = (d * d).sum(-1)
     return torch.stack([(d[..., k:] * d[..., :n_t - k]).sum(-1) / denom
                         for k in range(1, num_lags + 1)], dim=-1)
+
+
+def pacf(x: torch.Tensor, num_lags: int) -> torch.Tensor:
+    """Sample partial autocorrelation at lags ``1..num_lags`` ->
+    ``[..., num_lags]``: the Durbin-Levinson recursion on
+    :func:`autocorr`'s sample autocorrelations (the Yule-Walker solution),
+    with its valid-sample convention for NaNs."""
+    r = autocorr(x, num_lags)
+    rho = torch.cat([torch.ones_like(r[..., :1]), r], dim=-1)
+    idx = torch.arange(num_lags, device=x.device)
+    phi = torch.zeros_like(r)  # the order-(k-1) model's coefficients
+    out = []
+    for k in range(1, num_lags + 1):
+        prev = idx < k - 1
+        num = rho[..., k] - torch.where(
+            prev, phi * rho[..., (k - 1 - idx).abs()], 0.0).sum(-1)
+        den = 1.0 - torch.where(prev, phi * rho[..., idx + 1], 0.0).sum(-1)
+        pk = num / den
+        # phi_j^(k) = phi_j^(k-1) - pk * phi_{k-j}^(k-1)
+        # (indices past the end sit where prev is False: clamp them)
+        rev = torch.where(
+            prev, phi[..., (k - 2 - idx).abs().clamp(max=num_lags - 1)], 0.0)
+        phi = torch.where(prev, phi - pk[..., None] * rev, phi)
+        phi = torch.where(idx == k - 1, pk[..., None], phi)
+        out.append(pk)
+    return torch.stack(out, dim=-1)
+
+
+def cross_corr(x: torch.Tensor, y: torch.Tensor,
+               num_lags: int) -> torch.Tensor:
+    """Cross-correlation of ``x`` with ``y`` at lags ``-num_lags ..
+    num_lags`` -> ``[..., 2 num_lags + 1]``, over the non-NaN entries."""
+    n = x.shape[-1]
+    xd = x - torch.nanmean(x, dim=-1, keepdim=True)
+    yd = y - torch.nanmean(y, dim=-1, keepdim=True)
+    sx = torch.sqrt(torch.nansum(xd * xd, dim=-1))
+    sy = torch.sqrt(torch.nansum(yd * yd, dim=-1))
+    xz = torch.where(_isvalid(xd), xd, 0.0)
+    yz = torch.where(_isvalid(yd), yd, 0.0)
+    out = []
+    for k in range(-num_lags, num_lags + 1):
+        if k >= n:
+            prod = torch.zeros_like(sx)
+        elif k >= 0:
+            prod = (xz[..., k:] * yz[..., :n - k]).sum(-1)
+        else:
+            prod = (yz[..., -k:] * xz[..., :n + k]).sum(-1)
+        out.append(prod / (sx * sy))
+    return torch.stack(out, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -237,13 +311,80 @@ def fill_linear(x: torch.Tensor) -> torch.Tensor:
                        torch.where(interior, interp, float("nan")))
 
 
+def fill_spline(x: torch.Tensor) -> torch.Tensor:
+    """Natural cubic spline through the valid points; edge NaNs remain.
+
+    The valid knots are compacted to the front by a stable sort, the
+    natural spline's tridiagonal system is solved by the Thomas algorithm
+    as a loop over time on ``[B]`` vectors (every series at once), and each
+    interior NaN is evaluated on its bracketing knot interval.  Matches
+    ``scipy.interpolate.CubicSpline(bc_type='natural')`` on the valid
+    points, as the reference does.
+    """
+    shape = x.shape
+    n = shape[-1]
+    xb = x.reshape(-1, n)
+    dtype = xb.dtype
+    valid = _isvalid(xb)
+    m = valid.sum(-1, keepdim=True)  # knots a series
+    ar = torch.arange(n, device=x.device)
+    order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices
+    knot = ar[None, :] < m
+    kx = torch.where(knot, order, n)  # knot positions, padded with n
+    ky = torch.where(knot, torch.gather(xb, -1, order), 0.0)
+    kxf = kx.to(dtype)
+    h = torch.clamp(kxf[:, 1:] - kxf[:, :-1], min=1e-30)  # spacings
+    dy = (ky[:, 1:] - ky[:, :-1]) / h
+    # interior rows i = 1..m-2: h[i-1] M[i-1] + 2 (h[i-1] + h[i]) M[i]
+    # + h[i] M[i+1] = 6 (dy[i] - dy[i-1]); M[0] = M[m-1] = 0
+    z = xb.new_zeros(xb.shape[0], 1)
+    interior = (ar[None, :] >= 1) & (ar[None, :] < torch.clamp(m - 1, min=1))
+    h_lo = torch.cat([z, h], dim=1)
+    h_hi = torch.cat([h, z], dim=1)
+    a = torch.where(interior, h_lo, 0.0)
+    b = torch.where(interior, 2.0 * (h_lo + h_hi), 1.0)
+    c = torch.where(interior, h_hi, 0.0)
+    rhs = torch.where(interior, torch.cat(
+        [z, 6.0 * (dy[:, 1:] - dy[:, :-1]), z], dim=1)[:, :n], 0.0)
+    # Thomas algorithm: forward elimination, then back substitution
+    cp_prev = dp_prev = xb.new_zeros(xb.shape[0])
+    cps, dps = [], []
+    for t in range(n):
+        denom = b[:, t] - a[:, t] * cp_prev
+        cp_prev = c[:, t] / denom
+        dp_prev = (rhs[:, t] - a[:, t] * dp_prev) / denom
+        cps.append(cp_prev)
+        dps.append(dp_prev)
+    mi = xb.new_zeros(xb.shape[0])
+    ms = [None] * n
+    for t in reversed(range(n)):
+        mi = dps[t] - cps[t] * mi
+        ms[t] = mi
+    M = torch.stack(ms, dim=1)  # second derivatives at the knots
+    keys = torch.where(knot, kx, torch.iinfo(torch.int32).max).contiguous()
+    tq = ar.expand(xb.shape[0], n).contiguous()
+    j = torch.clamp(torch.searchsorted(keys, tq, right=True) - 1, 0, n - 2)
+    x0, x1 = kxf.gather(1, j), kxf.gather(1, j + 1)
+    y0, y1 = ky.gather(1, j), ky.gather(1, j + 1)
+    M0, M1 = M.gather(1, j), M.gather(1, j + 1)
+    hj = torch.clamp(x1 - x0, min=1e-30)
+    tt = tq.to(dtype)
+    A = (x1 - tt) / hj
+    B = (tt - x0) / hj
+    s = (A * y0 + B * y1
+         + ((A ** 3 - A) * M0 + (B ** 3 - B) * M1) * (hj ** 2) / 6.0)
+    inside = (_prev_valid_idx(valid) >= 0) & (_next_valid_idx(valid) < n)
+    out = torch.where(valid, xb, torch.where(inside, s, float("nan")))
+    return out.reshape(shape)
+
+
 _FILLS: dict = {
     "value": None,  # needs an argument; handled in fillts
     "previous": fill_previous,
     "next": fill_next,
     "nearest": fill_nearest,
     "linear": fill_linear,
-    "spline": None,  # not ported yet
+    "spline": fill_spline,
     "zero": lambda x: fill_value(x, 0.0),
 }
 
@@ -257,11 +398,36 @@ def fillts(x: torch.Tensor, method: str, value=None) -> torch.Tensor:
     if method not in _FILLS:
         raise ValueError(f"unknown fill method {method!r}; options: "
                          f"{sorted(_FILLS)}")
-    if method == "spline":
-        raise NotImplementedError(
-            "fill_spline is not ported yet (ROADMAP.md queue 1); use "
-            "spark_timeseries_tpu")
     return _FILLS[method](x)
+
+
+# ---------------------------------------------------------------------------
+# Resampling
+# ---------------------------------------------------------------------------
+
+
+def downsample(x: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """Every ``n``-th element starting at ``offset``."""
+    return x[..., offset::n]
+
+
+def upsample(x: torch.Tensor, n: int, offset: int = 0,
+             use_nan: bool = True) -> torch.Tensor:
+    """Spread the elements ``n`` apart, padding with NaN (or 0) between."""
+    out = x.new_full((*x.shape[:-1], x.shape[-1] * n),
+                     float("nan") if use_nan else 0.0)
+    out[..., offset::n] = x
+    return out
+
+
+def resample(x: torch.Tensor, ratio: int,
+             aggr: Callable = torch.nanmean) -> torch.Tensor:
+    """Aggregate consecutive windows of length ``ratio`` (e.g. hourly ->
+    daily) with ``aggr(windows, dim=-1)``; a trailing partial window is
+    dropped."""
+    n_out = x.shape[-1] // ratio
+    win = x[..., :n_out * ratio].reshape(*x.shape[:-1], n_out, ratio)
+    return aggr(win, dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -266,6 +266,29 @@ def _run(fb, state: _State, k: int, max_iters: int, stop_at: int, knobs):
         k += 1
 
 
+def minimize_lbfgs(
+    fun: Callable[[torch.Tensor], torch.Tensor],
+    x0: torch.Tensor,
+    *,
+    max_iters: int = 50,
+    history: int = 8,
+    tol: float = 1e-6,
+    ftol: Optional[float] = None,
+    max_linesearch: int = 20,
+    c1: float = 1e-4,
+) -> LBFGSResult:
+    """Minimize ``fun(x [d]) -> scalar`` from ``x0 [d]`` with a fixed
+    budget: one row of :func:`minimize_lbfgs_batched` (the same steps, the
+    same relative gradient-norm and ``ftol`` stopping rules, the best-seen
+    iterate returned; non-finite values count as +inf)."""
+    x0 = torch.as_tensor(x0)
+    res = minimize_lbfgs_batched(
+        lambda X: fun(X[0]).reshape(1), x0[None, :], max_iters=max_iters,
+        history=history, tol=tol, ftol=ftol, max_linesearch=max_linesearch,
+        c1=c1)
+    return LBFGSResult(*(a[0] for a in res))
+
+
 def minimize_lbfgs_batched(
     fun_batched: Callable[[torch.Tensor], torch.Tensor],
     x0: torch.Tensor,

@@ -272,8 +272,14 @@ def test_entry_step_on_cpu():
 
 def test_seasonal_and_unknown_method_raise():
     y = _arma_panel(2, 50, d_int=True)
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        tarima.fit(y, (1, 1, 1), seasonal=(1, 0, 0, 4), device="cpu")
+    # seasonal orders are ported; the reference's refusals raise as there
+    for kwargs in (dict(method="hannan-rissanen"), dict(count_evals=True),
+                   dict(seasonal=(1, 0, 0, 1))):
+        kw = {"seasonal": (1, 0, 0, 4), **kwargs}
+        with pytest.raises(ValueError):
+            jarima.fit(jnp.asarray(y), (1, 1, 1), **kw)
+        with pytest.raises(ValueError):
+            tarima.fit(y, (1, 1, 1), device="cpu", **kw)
     with pytest.raises(ValueError):
         tarima.fit(y, (1, 1, 1), method="newton", device="cpu")
 

@@ -227,17 +227,17 @@ inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
 """
 
-# the GARCH ring depths chip_smoke.py builds and times; csrc/garch.cu ships
+# the GARCH ring depths garch.cu builds at (-DSTS_GARCH_DEPTH); it ships
 # one of them
 GARCH_DEPTHS = (8, 16, 32)
-# the Holt-Winters forward's builds chip_smoke.py times (y ring stages) and
-# the moment sweep's ring depths (0: one load of y a step, the design
-# before the ring); csrc ships one of each
+# the Holt-Winters forward's builds (y ring stages) and the moment sweep's
+# ring depths (0: one load of y a step, the design before the ring); csrc
+# ships one of each
 HW_VARIANTS = {"S2": ["-DSTS_HW_STAGES=2"], "S3": ["-DSTS_HW_STAGES=3"]}
 HR_DEPTHS = (0, 8, 16, 32)
 # the fill chain's ring depths and the autocorrelation's tiles (series a
-# block; 0: the two-pass stream for every T) chip_smoke.py builds and
-# times; csrc ships one of each
+# block; 0: the two-pass stream for every T) the sources build at; csrc
+# ships one of each
 FILL_DEPTHS = (8, 16, 32)
 ACF_TILES = (0, 8, 16)
 
@@ -604,15 +604,35 @@ def test_garch_bwd_source(kernels, garch_depth, t_of_d, b, cotangent,
             _close(a, e)
 
 
-@pytest.mark.parametrize("p,q", [(1, 1), (3, 2), (0, 2), (10, 3)])
+def _seasonal_rows(b, p, q, g):
+    """Kernel rows ``[c, phi, theta]`` of seasonal expansions at period 24:
+    (0,0,1)(0,0,1,24) (the airline model's MA side, q = 25) and, with
+    p = 25, (1,0,1)(1,0,1,24): non-zeros at lags 1, 24 and 25 only."""
+    u = lambda: 1.6 * torch.rand(b, generator=g) - 0.8  # noqa: E731
+    params = torch.zeros(b, 1 + p + q)
+    params[:, 0] = 0.2 * torch.randn(b, generator=g)
+    for off, cross, n in ((1, -1.0, p), (1 + p, 1.0, q)):
+        if n:
+            a, s = u(), u()
+            params[:, off], params[:, off + 23] = a, s
+            params[:, off + 24] = cross * a * s
+    return params.contiguous()
+
+
+@pytest.mark.parametrize("p,q", [(1, 1), (3, 2), (0, 2), (10, 3), (0, 25),
+                                 (25, 25)])
 def test_css_sources(kernels, p, q):
     # the slice-1 kernels through the same emulation: register rings and
-    # the local-memory rings past 8 lags
+    # the local-memory rings past 8 lags, with the seasonal fits' expanded
+    # coefficients on the latter
     b, t = 130, 90
     g = torch.Generator().manual_seed(p * 10 + q)
     yt = torch.randn(t, b, generator=g)
     zb = torch.randint(p, t // 2, (b,), generator=g).float()
-    params = (0.2 * torch.randn(b, 1 + p + q, generator=g)).contiguous()
+    if q >= 24:
+        params = _seasonal_rows(b, p, q, g)
+    else:
+        params = (0.2 * torch.randn(b, 1 + p + q, generator=g)).contiguous()
     for mode in ("e", "sum", "tail"):
         _close(ck.css_fwd(yt, params, zb, p, q, mode),
                ck.css_fwd_plain(yt, params, zb, p, q, mode))
@@ -630,6 +650,35 @@ def test_css_sources(kernels, p, q):
         _close(ck.hr_moments(yt, zb, p, q, True, m + q, m, beta),
                ck.hr_moments_plain(yt, zb, p, q, True, m + q, m, beta))
     assert kernels["css_fwd"] == 3 and kernels["css_bwd"] == 2
+
+
+@pytest.mark.parametrize("order,seasonal", [((0, 1, 1), (0, 1, 1, 24)),
+                                            ((1, 0, 1), (1, 1, 1, 24))])
+def test_sarima_objective_through_the_kernels(kernels, order, seasonal):
+    # the seasonal fit's cuda objective (expanded rows through css_fwd and,
+    # for the gradient, css_bwd) against the eager objective, 1e-5
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import layout
+
+    b, t = 70, 110
+    g = torch.Generator().manual_seed(sum(order) + seasonal[0])
+    yd = torch.randn(b, t, generator=g)
+    nv = torch.randint(t // 2, t + 1, (b,), generator=g).to(torch.int32)
+    k = arima._n_params_seasonal(order, seasonal, True)
+    pr = 0.6 * torch.rand(b, k, generator=g) - 0.3
+    p_full, q_full, _ = arima.seasonal_lag_span(order, seasonal)
+    yt, zb = layout.css_prefold(yd, (p_full, 0, q_full), nv)
+    pk = pr.clone().requires_grad_(True)
+    got = ck.css_neg_loglik_folded(
+        arima._sarima_kernel_params(pk, order, seasonal, True), yt, zb, t,
+        (p_full, 0, q_full), True, nv)
+    (g_k,) = torch.autograd.grad(got.sum(), pk)
+    assert kernels["css_fwd"] == 1 and kernels["css_bwd"] == 1
+    pe = pr.clone().requires_grad_(True)
+    ref = arima.sarima_neg_loglik(pe, yd, order, seasonal, True, nv)
+    (g_e,) = torch.autograd.grad(ref.sum(), pe)
+    _close(got.detach(), ref.detach())
+    _close(g_k, g_e)
 
 
 def _ewma_inputs(t, b, seed):
@@ -761,7 +810,7 @@ def _hw_layout(lib, m):
 
 @pytest.fixture(params=sorted(HW_VARIANTS))
 def hw_variant(request, emulated):
-    """``(name, library)`` of each Holt-Winters build chip_smoke.py times."""
+    """``(name, library)`` of each Holt-Winters build of ``HW_VARIANTS``."""
     return request.param, emulated[f"hw-{request.param}"]
 
 

@@ -17,6 +17,8 @@ import pytest
 # reference's Pallas one
 MODULES = {
     "models.arima": "models.arima",
+    "models.autoregression": "models.autoregression",
+    "models.regression_arima": "models.regression_arima",
     "models.base": "models.base",
     "models.ewma": "models.ewma",
     "models.garch": "models.garch",
@@ -28,6 +30,7 @@ MODULES = {
     "ops.lagmat": "ops.lagmat",
     "ops.cuda_kernels": "ops.pallas_kernels",
     "reliability.status": "reliability.status",
+    "stats.tests": "stats.tests",
 }
 
 _DEVICE = ({"device"}, set())
@@ -36,7 +39,18 @@ _INTERPRET = (set(), {"interpret"})
 # reference takes), each a recorded difference
 ALLOWED = {
     # every entry point takes device= (default "cuda")
-    **{("models.arima", n): _DEVICE for n in ("fit", "forecast")},
+    **{("models.arima", n): _DEVICE
+       for n in ("fit", "forecast", "fit_grid", "add_time_dependent_effects",
+                 "remove_time_dependent_effects")},
+    **{("models.autoregression", n): _DEVICE
+       for n in ("fit", "forecast", "add_time_dependent_effects",
+                 "remove_time_dependent_effects")},
+    **{("models.regression_arima", n): _DEVICE
+       for n in ("fit_cochrane_orcutt", "predict")},
+    **{("stats.tests", n): _DEVICE
+       for n in ("adftest", "dwtest", "bgtest", "bptest", "lbtest",
+                 "kpsstest", "batch_adftest", "batch_dwtest", "batch_lbtest",
+                 "batch_kpsstest", "batch_bgtest", "batch_bptest")},
     **{("models.ewma", n): _DEVICE
        for n in ("fit", "add_time_dependent_effects",
                  "remove_time_dependent_effects")},
@@ -51,6 +65,8 @@ ALLOWED = {
     # a torch.Generator or an integer seed in place of a JAX key
     ("models.garch", "sample"): ({"device", "gen"}, {"key"}),
     ("models.garch", "argarch_sample"): ({"device", "gen"}, {"key"}),
+    ("models.arima", "sample"): ({"device", "gen"}, {"key"}),
+    ("models.autoregression", "sample"): ({"device", "gen"}, {"key"}),
     # the backend resolves on the panel itself, with the port's names
     ("models.base", "resolve_backend"): ({"y"}, {"dtype", "n_time"}),
     ("ops.cuda_kernels", "supported"): ({"x"}, {"dtype", "n_time"}),

@@ -97,8 +97,10 @@ def test_argument_errors_match_reference():
                 lambda: tuv.fillts(x, "value")):
         with pytest.raises(ValueError):
             bad()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tuv.fillts(x, "spline")
+    # the spline fill is ported: fillts dispatches it, as the reference's
+    xs = torch.tensor([np.nan, 1.0, np.nan, 3.0, 2.0, np.nan])
+    _close(tuv.fillts(xs, "spline"), juv.fillts(jnp.asarray(xs.numpy()),
+                                               "spline"))
 
 
 def test_lagmat_matches_reference():
