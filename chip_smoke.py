@@ -12,8 +12,9 @@ Phases; each failure makes the script exit non-zero with no result line:
    frames and spills (per instantiation for the Holt-Winters, GARCH,
    moment and transform kernels), and for the kernels that stream through
    a ring or a tile (GARCH, the Holt-Winters forward, the moment sweep,
-   the fill chain, the autocorrelation) its shared memory, blocks an SM,
-   SASS instructions a step and the issue-rate floor they imply;
+   the fill chain, the autocorrelation, the CSS lag route) its shared
+   memory, blocks an SM, SASS instructions a step and the issue-rate floor
+   they imply;
 3. hold each of the eleven kernels against its plain PyTorch version on the
    card, at B = 65,537 x T = 1,000 and B = 4,097 x T = 3,000 (ragged
    panels; for the transforms also all-NaN, constant and trailing-NaN rows,
@@ -25,9 +26,11 @@ Phases; each failure makes the script exit non-zero with no result line:
    fast divide's range, and that divide against ``__fdiv_rn`` bit for bit
    over 2^35 pseudo-random pairs each; the Holt-Winters forward bit for
    bit at every register period and the global route; the CSS kernels on
-   their dyn route with seasonal expansions, the airline model's (q_full
-   = 25) and (1,0,1)(1,1,1,24)'s (p_full = q_full = 25), at B = 65,537 x
-   T = 935);
+   their lag and local routes with seasonal expansions at T = 935, each
+   with its structural lags and with every lag: the airline model's
+   (q_full = 25) and (1,0,1)(1,1,1,24)'s (p_full = q_full = 25) at B =
+   65,537, s = 7 and 52 at B = 16,385, and s = 168 (the local route)
+   with its support at B = 4,097);
 4. drive the ARIMA path: ``arima.fit`` of a 1,000,000 x 1,000 float32
    ARIMA(1,1,1) panel (the BASELINE.json headline) built on the card from a
    seeded generator, then ``arima.forecast(..., 30)``, with the kernel
@@ -56,25 +59,26 @@ Phases; each failure makes the script exit non-zero with no result line:
    rows its fit takes; at the hourly path's shape first hold every
    smoothing-kernel variant that path runs against its plain version (the
    forward bit for bit) and count the rows the multiplicative forward
-   walks again with ``__fdiv_rn``; time the CSS kernels' dyn route at the
-   airline fit's shape [935, 1M] (forward sum and both, adjoint);
+   walks again with ``__fdiv_rn``; time the CSS kernels' lag route at the
+   airline fit's shape [935, 1M] (forward sum and both, adjoint), with
+   the airline model's support and with every lag listed;
 8. drive the order-search path: (a) ``arima.fit_grid`` of (1,1,0),
    (0,1,1), (1,1,1) and (2,1,2) over the 1,000,000 x 1,000 headline panel
    on the kernels with straggler compaction, held against the eager grid
    and against ``arima.fit`` on 4,096 rows; (b) the airline model
    ``arima.fit(y, (0,1,1), seasonal=(0,1,1,24))`` of the 1,000,000 x 960
-   hourly panel (the dyn route), held against eager on 2,048 rows; (c)
+   hourly panel (the lag route), held against eager on 2,048 rows; (c)
    the seasonal grid (0,1,1)(0,1,1,24), (1,1,0)(1,1,0,24),
    (1,1,1)(1,1,1,24) on the hourly panel's first 100,000 rows; (d) ADF and
    KPSS on the headline panel's levels and differences, Ljung-Box on the
    ARIMA fit's innovations, AR(2) and Cochrane-Orcutt fits of 100,000 x
    1,000 seeded rows, and the spline fill, PACF and cross-correlation on
-   the volatility panel.  Launch counts of the CSS kernels (and of their
-   dyn route) are read for each fit; warm fits of (a) and (b) are
-   profiled.
+   the volatility panel.  Launch counts of the CSS kernels (by route) are
+   read for each fit, and (b) and (c) must have run on the lag route
+   alone; warm fits of (a) and (b) are profiled.
 
 The line before the last is a JSON object with one entry per kernel, and
-an earlier line a JSON object with the dyn route's times, bounds and
+an earlier line a JSON object with the lag route's times, bounds and
 launches; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -1446,112 +1450,192 @@ GRID_SEASONAL = (((0, 1, 1), (0, 1, 1, SEASON)),
                  ((1, 1, 0), (1, 1, 0, SEASON)),
                  ((1, 1, 1), (1, 1, 1, SEASON)))
 GRID_SEASONAL_ROWS = 100_000
-# (label, order, seasonal) of the dyn-route kernel checks: the airline
-# model's expansion (q_full = 25) and one with p_full = q_full = 25
-DYN_CASES = (("airline (0,1,1)(0,1,1,24)", *AIRLINE),
-             ("(1,0,1)(1,1,1,24)", (1, 0, 1), (1, 1, 1, SEASON)))
+# (label, order, seasonal, rows, listings) of the CSS kernels' seasonal
+# checks, run with the order's structural support (the lag route) and with
+# every lag listed (the lag route up to 32 lags a side, else the local
+# route): the airline model (q_full = 25), (1,0,1)(1,1,1,24) (p_full =
+# q_full = 25), s = 7 and 52; and s = 168 with its support only, whose
+# rings do not fit a block's shared memory (the local route; with every lag
+# listed its plain version alone would take most of a minute)
+LAG_CASES = (("airline (0,1,1)(0,1,1,24)", *AIRLINE, 65_537, 2),
+             ("(1,0,1)(1,1,1,24)", (1, 0, 1), (1, 1, 1, SEASON), 65_537, 2),
+             ("(2,0,2)(2,0,2,7)", (2, 0, 2), (2, 0, 2, 7), 16_385, 2),
+             ("(1,0,1)(1,1,1,52)", (1, 0, 1), (1, 1, 1, 52), 16_385, 2),
+             ("(1,0,1)(1,0,1,168)", (1, 0, 1), (1, 0, 1, 168), 4_097, 1))
 
 
 def _expanded_rows(b: int, order, seasonal, gen, device):
     """CSS kernel rows ``[c, phi_full, theta_full]`` of a seasonal model
-    with parameters drawn in (-0.8, 0.8) (c in (-0.1, 0.1)), expanded as
-    the seasonal fit expands them."""
+    with parameters drawn in (-a, a), a = 0.8 / the largest of p, q, P, Q
+    (c in (-a/8, a/8)), expanded as the seasonal fit expands them: each
+    factor polynomial then has coefficients whose magnitudes sum below 1,
+    so the MA side is invertible and the errors stay finite over T."""
     from spark_timeseries_tpu_torch.models import arima
 
     k = arima._n_params_seasonal(order, seasonal, True)
-    par = 1.6 * torch.rand(b, k, generator=gen, device=device) - 0.8
+    a = 0.8 / max(order[0], order[2], seasonal[0], seasonal[2], 1)
+    par = 2 * a * torch.rand(b, k, generator=gen, device=device) - a
     par[:, 0] *= 0.125
     return arima._sarima_kernel_params(par, order, seasonal, True)
 
 
-def phase_kernels_seasonal(chk: Checks, device, b: int = 65_537,
-                           t: int = 935) -> None:
-    """Phase 3, the seasonal fits' route: css_fwd in every mode and css_bwd
-    with both cotangents (and the data cotangent) on css.cu's dyn route,
-    against their plain versions, with expanded seasonal coefficients."""
+def phase_kernels_seasonal(chk: Checks, device, t: int = 935) -> None:
+    """Phase 3, the seasonal fits' routes: css_fwd in every mode and css_bwd
+    with both cotangents (and the data cotangent) on css.cu's lag and local
+    routes, against their plain versions with the same lags, with expanded
+    seasonal coefficients; the unlisted gradient columns exactly 0 and
+    every launch on the route ``ck.css_route`` names."""
     from spark_timeseries_tpu_torch.models import arima
     from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
 
-    log(f"phase 3: CSS kernels on the dyn route vs plain at B={b} T={t}")
     gen = torch.Generator(device=device)
     gen.manual_seed(24)
-    for label, order, seasonal in DYN_CASES:
+    routes = set()
+    for label, order, seasonal, b, listings in LAG_CASES:
         p, q, _ = arima.seasonal_lag_span(order, seasonal)
+        support = arima._lag_support(order, seasonal)
         yt, zb, _, _ = ragged_panel(b, t, p, seed=p + q, device=device)
         params = _expanded_rows(b, order, seasonal, gen, device)
-        for mode in ("e", "sum", "tail"):
-            chk.compare("css_fwd", f"{label}, mode {mode}",
-                        ck.css_fwd(yt, params, zb, p, q, mode),
-                        ck.css_fwd_plain(yt, params, zb, p, q, mode))
-        e_both, s_both = ck.css_fwd(yt, params, zb, p, q, "both")
-        chk.require(torch.equal(s_both,
-                                ck.css_fwd(yt, params, zb, p, q, "sum")),
-                    f"css_fwd {label}: sum == both bitwise")
-        e = ck.css_fwd_plain(yt, params, zb, p, q, "e")
-        chk.compare("css_fwd", f"{label}, mode both (errors)", e_both, e)
-        del e_both
-        gbar = torch.rand(b, generator=gen, device=device) / t
-        gpan = torch.randn(t, b, generator=gen, device=device)
-        for g, name in ((gbar, "per-series"), (gpan, "[T, B]")):
-            gp, gy = ck.css_bwd(yt, e, params, zb, g, p, q, True)
-            gp_r, gy_r = ck.css_bwd_plain(yt, e, params, zb, g, p, q, True)
-            chk.compare("css_bwd", f"{label}, gparams, {name}", gp, gp_r)
-            chk.compare("css_bwd", f"{label}, gy, {name}", gy, gy_r)
-            del gp, gy, gp_r, gy_r
-        del yt, e, gpan
+        for lags in (support, None)[:listings]:
+            route = ck.css_route(p, q, lags)
+            what = (f"{label}, {'support' if lags else 'every lag'} "
+                    f"({route})")
+            log(f"phase 3: CSS kernels, {what}, vs plain at B={b} T={t}")
+            t0 = time.perf_counter()
+            ck.reset_launch_counts()
+            hold_css(chk, yt, params, zb, p, q, lags, what, gen)
+            n_fwd, n_bwd = ck.LAUNCHES["css_fwd"], ck.LAUNCHES["css_bwd"]
+            chk.require(
+                ck.ROUTE_LAUNCHES["css_fwd"][route] == n_fwd > 0
+                and ck.ROUTE_LAUNCHES["css_bwd"][route] == n_bwd > 0,
+                f"{what}: every launch on the {route} route")
+            routes.add(route)
+            log(f"  ({time.perf_counter() - t0:.1f} s)")
+        del yt
         torch.cuda.synchronize()
+    chk.require(routes == {"lag", "local"},
+                f"phase 3 held the lag and local routes ({sorted(routes)})")
+
+
+def hold_css(chk: Checks, yt, params, zb, p: int, q: int, lags, what: str,
+             gen) -> None:
+    """css_fwd in every mode and css_bwd with both cotangents (and gy)
+    against their plain versions with ``lags``; sum == both bitwise."""
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+
+    t, b = yt.shape
+    for mode in ("e", "sum", "tail"):
+        chk.compare("css_fwd", f"{what}, mode {mode}",
+                    ck.css_fwd(yt, params, zb, p, q, mode, lags=lags),
+                    ck.css_fwd_plain(yt, params, zb, p, q, mode, lags=lags))
+    e_both, s_both = ck.css_fwd(yt, params, zb, p, q, "both", lags=lags)
+    chk.require(torch.equal(s_both, ck.css_fwd(yt, params, zb, p, q, "sum",
+                                               lags=lags)),
+                f"css_fwd {what}: sum == both bitwise")
+    e = ck.css_fwd_plain(yt, params, zb, p, q, "e", lags=lags)
+    chk.compare("css_fwd", f"{what}, mode both (errors)", e_both, e)
+    del e_both
+    unlisted = list(ck._unlisted(p, q, ck._css_lags(p, q, lags)))
+    gbar = torch.rand(b, generator=gen, device=yt.device) / t
+    gpan = torch.randn(t, b, generator=gen, device=yt.device)
+    for g, name in ((gbar, "per-series"), (gpan, "[T, B]")):
+        gp, gy = ck.css_bwd(yt, e, params, zb, g, p, q, True, lags=lags)
+        gp_r, gy_r = ck.css_bwd_plain(yt, e, params, zb, g, p, q, True,
+                                      lags=lags)
+        chk.compare("css_bwd", f"{what}, gparams, {name}", gp, gp_r)
+        chk.compare("css_bwd", f"{what}, gy, {name}", gy, gy_r)
+        if unlisted:
+            chk.require(not bool(gp[:, unlisted].any()),
+                        f"css_bwd {what}, {name}: unlisted columns 0")
+        del gp, gy, gp_r, gy_r
+    del e, gpan
+
+
+def _support_bound(n_el: int, rows: int, ka: int, km: int):
+    """Bytes and flops of the CSS kernels' work on ``n_el`` panel elements
+    of ``rows`` series with ka AR and km MA lags listed: each input read
+    once and each output written once.  The forward reads y, the listed
+    coefficients and zb and writes sse (and e for both); the adjoint with
+    the per-series cotangent reads y only with AR lags, e (for g_t = 2 e_t
+    gbar, and the MA sums), the coefficients, zb and gbar, and writes the
+    listed gradient rows."""
+    f, k = 4, 1 + ka + km
+    fwd = f * (n_el + rows * k + 2 * rows)
+    bwd = f * (n_el * ((ka > 0) + 1) + 2 * rows * k + 2 * rows)
+    return {"css_fwd sum": (fwd, n_el * (2 * (ka + km) + 3)),
+            "css_fwd both": (fwd + f * n_el, n_el * (2 * (ka + km) + 3)),
+            "css_bwd": (bwd, n_el * (2 * (km + k) + 4))}
 
 
 def phase_timing_seasonal(chk: Checks, device) -> dict:
-    """Phase 7, the dyn route at the airline fit's shape [935, 1M]:
-    css_fwd sum and both and css_bwd with the per-series cotangent, each
-    against its plain version once more, timed beside its bound."""
+    """Phase 7, the lag route at the airline fit's shape [935, 1M]: css_fwd
+    sum and both and css_bwd with the per-series cotangent, with the
+    airline model's support (MA lags 1, 24, 25) and with every lag listed,
+    each against its plain version once more, timed beside its bound (the
+    bytes the listed lags' work moves) and the dense-k bound (both
+    panels and all 26 coefficients)."""
     from spark_timeseries_tpu_torch.models import arima
     from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
 
     rows, t = HOURLY_ROWS, HOURLY_TIME - 1 - SEASON
     order, seasonal = AIRLINE
     p, q, _ = arima.seasonal_lag_span(order, seasonal)
-    log(f"phase 7: the dyn route at the airline fit's shape [T, B] = "
-        f"[{t}, {rows}] (p_full={p}, q_full={q})")
+    support = arima._lag_support(order, seasonal)
+    log(f"phase 7: the lag route at the airline fit's shape [T, B] = "
+        f"[{t}, {rows}] (p_full={p}, q_full={q}, support {support})")
     gen = torch.Generator(device=device)
     gen.manual_seed(25)
     yt, zb, _, _ = ragged_panel(rows, t, p, seed=26, device=device)
     params = _expanded_rows(rows, order, seasonal, gen, device)
-    e = ck.css_fwd(yt, params, zb, p, q, "e")
+    e = ck.css_fwd(yt, params, zb, p, q, "e", lags=support)
     gbar = torch.full((rows,), 1.0 / t, device=device)
-    chk.compare("css_fwd", "airline mode sum, [935, 1M]",
-                ck.css_fwd(yt, params, zb, p, q, "sum"),
-                ck.css_fwd_plain(yt, params, zb, p, q, "sum"))
-    chk.compare("css_bwd", "airline gparams, [935, 1M]",
-                ck.css_bwd(yt, e, params, zb, gbar, p, q)[0],
-                ck.css_bwd_plain(yt, e, params, zb, gbar, p, q)[0])
     f, n_el, k = 4, t * rows, 1 + p + q
-    flops = n_el * (2 * (p + q) + 3)
-    cases = {
-        "css_fwd sum": (lambda: ck.css_fwd(yt, params, zb, p, q, "sum"),
-                        lambda: ck.css_fwd_plain(yt, params, zb, p, q,
-                                                 "sum"),
-                        f * (n_el + rows * k + 2 * rows), flops),
-        "css_fwd both": (lambda: ck.css_fwd(yt, params, zb, p, q, "both"),
-                         lambda: ck.css_fwd_plain(yt, params, zb, p, q,
-                                                  "both"),
-                         f * (2 * n_el + rows * k + 2 * rows), flops),
-        "css_bwd": (lambda: ck.css_bwd(yt, e, params, zb, gbar, p, q),
-                    lambda: ck.css_bwd_plain(yt, e, params, zb, gbar, p, q),
-                    f * (2 * n_el + 2 * rows * k + 2 * rows),
-                    n_el * (2 * (q + k) + 4)),
-    }
     out = {}
-    for name, (fn, plain_fn, nbytes, fl) in cases.items():
-        ms = cuda_ms(fn)
-        plain = cuda_ms(plain_fn, reps=1)
-        bms, by = _bound(nbytes, fl)
-        out[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
-                     "bound_by": by, "share_of_bound": bms / ms}
-        log(f"  {name:12s} dyn {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
-            f"{bms:.3f} ms ({by}; {nbytes / 1e9:.2f} GB, "
-            f"{fl / 1e9:.1f} GFLOP) = {100 * bms / ms:.1f} % of it")
+    for name, lags in (("support", support), ("every lag", None)):
+        chk.compare("css_fwd", f"airline {name} mode sum, [935, 1M]",
+                    ck.css_fwd(yt, params, zb, p, q, "sum", lags=lags),
+                    ck.css_fwd_plain(yt, params, zb, p, q, "sum", lags=lags))
+        chk.compare("css_bwd", f"airline {name} gparams, [935, 1M]",
+                    ck.css_bwd(yt, e, params, zb, gbar, p, q,
+                               lags=lags)[0],
+                    ck.css_bwd_plain(yt, e, params, zb, gbar, p, q,
+                                     lags=lags)[0])
+        ka, km = (len(support[0]), len(support[1])) if lags else (p, q)
+        work = _support_bound(n_el, rows, ka, km)
+        cases = {
+            "css_fwd sum": (
+                lambda: ck.css_fwd(yt, params, zb, p, q, "sum", lags=lags),
+                lambda: ck.css_fwd_plain(yt, params, zb, p, q, "sum",
+                                         lags=lags)),
+            "css_fwd both": (
+                lambda: ck.css_fwd(yt, params, zb, p, q, "both", lags=lags),
+                lambda: ck.css_fwd_plain(yt, params, zb, p, q, "both",
+                                         lags=lags)),
+            "css_bwd": (
+                lambda: ck.css_bwd(yt, e, params, zb, gbar, p, q,
+                                   lags=lags),
+                lambda: ck.css_bwd_plain(yt, e, params, zb, gbar, p, q,
+                                         lags=lags)),
+        }
+        # the dense-k bound: both panels and every coefficient, whatever
+        # the listing
+        dense_k = {"css_fwd sum": f * (n_el + rows * k + 2 * rows),
+                   "css_fwd both": f * (2 * n_el + rows * k + 2 * rows),
+                   "css_bwd": f * (2 * n_el + 2 * rows * k + 2 * rows)}
+        for kern, (fn, plain_fn) in cases.items():
+            ms = cuda_ms(fn)
+            plain = cuda_ms(plain_fn, reps=1)
+            nbytes, fl = work[kern]
+            bms, by = _bound(nbytes, fl)
+            old_bms, _ = _bound(dense_k[kern], fl)
+            out[f"{kern}, {name}"] = {
+                "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                "share_of_bound": bms / ms, "dense_k_bound_ms": old_bms}
+            log(f"  {kern:12s} {name:9s} lag {ms:8.3f} ms  plain "
+                f"{plain:10.3f} ms  bound {bms:.3f} ms ({by}; "
+                f"{nbytes / 1e9:.2f} GB, {fl / 1e9:.1f} GFLOP) = "
+                f"{100 * bms / ms:.1f} % of it; dense-k bound "
+                f"{old_bms:.3f} ms")
     del yt, e
     return out
 
@@ -1584,11 +1668,28 @@ def _grid_report(chk: Checks, res, specs, what: str) -> None:
             f"{[round(v, 4) for v in med]}")
 
 
-def _dyn_counts(ck) -> str:
-    return (f"css_fwd {ck.LAUNCHES['css_fwd']} (dyn route "
-            f"{ck.DYN_LAUNCHES['css_fwd']}), css_bwd {ck.LAUNCHES['css_bwd']}"
-            f" (dyn route {ck.DYN_LAUNCHES['css_bwd']}), hr_moments "
+def _route_counts(ck) -> str:
+    return (f"css_fwd {ck.LAUNCHES['css_fwd']} (by route "
+            f"{ck.ROUTE_LAUNCHES['css_fwd']}), css_bwd "
+            f"{ck.LAUNCHES['css_bwd']} (by route "
+            f"{ck.ROUTE_LAUNCHES['css_bwd']}), hr_moments "
             f"{ck.LAUNCHES['hr_moments']}")
+
+
+def _launches(ck) -> dict:
+    """Launch counts, the CSS kernels' by route too."""
+    return {**ck.LAUNCHES, **{f"{k} {r}": n
+                              for k, v in ck.ROUTE_LAUNCHES.items()
+                              for r, n in v.items()}}
+
+
+def _require_lag_route(chk: Checks, ck, what: str) -> None:
+    """Every CSS launch since the counts were reset ran on the lag route."""
+    for name in ("css_fwd", "css_bwd"):
+        by = ck.ROUTE_LAUNCHES[name]
+        chk.require(by["lag"] == ck.LAUNCHES[name] > 0,
+                    f"{what}: {name} launched on the lag route only "
+                    f"({by})")
 
 
 def phase_order_search(chk: Checks, device) -> dict:
@@ -1614,7 +1715,7 @@ def phase_order_search(chk: Checks, device) -> dict:
     log(f"  wall {out['grid_s']:.3f} s; iterations max "
         f"{int(res.iters.max())}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
-        f"{_dyn_counts(ck)}")
+        f"{_route_counts(ck)}")
     for name in ("css_fwd", "css_bwd", "hr_moments"):
         n_launch = out["grid_launches"][name]
         chk.require(n_launch > 0, f"{name} launched by fit_grid ({n_launch})")
@@ -1664,7 +1765,7 @@ def phase_order_search(chk: Checks, device) -> dict:
                 "fit_grid (1,1,1) block vs arima.fit within the parity bar")
     del ys, r_cuda, r_eager, r_fit, bc
 
-    # 8b: the airline model on the hourly panel (the dyn route)
+    # 8b: the airline model on the hourly panel (the lag route)
     order, seasonal = AIRLINE
     log(f"phase 8b: arima.fit(y, {order}, seasonal={seasonal}) of the "
         f"{HOURLY_ROWS} x {HOURLY_TIME} hourly panel")
@@ -1677,20 +1778,17 @@ def phase_order_search(chk: Checks, device) -> dict:
     res = arima.fit(y, order, seasonal=seasonal, device=device)
     torch.cuda.synchronize()
     out["airline_s"] = time.perf_counter() - t0
-    out["airline_launches"] = {**ck.LAUNCHES,
-                               **{f"{k} dyn": v
-                                  for k, v in ck.DYN_LAUNCHES.items()}}
+    out["airline_launches"] = _launches(ck)
     counts = status_counts(res.status.cpu().numpy())
     log(f"  wall {out['airline_s']:.3f} s; iterations max "
         f"{int(res.iters.max())}; status {counts}; converged share "
         f"{float(res.converged.float().mean()):.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"  launches {_dyn_counts(ck)}")
+    log(f"  launches {_route_counts(ck)}")
     med = res.params[res.converged].median(dim=0).values.tolist()
     log(f"  median [c, theta, THETA] = {med}")
-    for name in ("css_fwd", "css_bwd"):
-        chk.require(ck.DYN_LAUNCHES[name] > 0,
-                    f"{name} launched on the dyn route by the airline fit")
+    _require_lag_route(chk, ck, "airline fit")
+    chk.require(bool((res.status == 0).all()), "airline fit: every row OK")
     chk.require(tuple(res.params.shape) == (HOURLY_ROWS, 3)
                 and float(res.converged.float().mean()) > 0.9
                 and bool(torch.isfinite(res.params[res.converged]).all()),
@@ -1728,14 +1826,14 @@ def phase_order_search(chk: Checks, device) -> dict:
     res = arima.fit_grid(ys, GRID_SEASONAL, backend="cuda", device=device)
     torch.cuda.synchronize()
     out["grid_seasonal_s"] = time.perf_counter() - t0
-    out["grid_seasonal_launches"] = {
-        **ck.LAUNCHES, **{f"{k} dyn": v for k, v in ck.DYN_LAUNCHES.items()}}
+    out["grid_seasonal_launches"] = _launches(ck)
     log(f"  wall {out['grid_seasonal_s']:.3f} s; iterations max "
-        f"{int(res.iters.max())}; launches {_dyn_counts(ck)}")
+        f"{int(res.iters.max())}; launches {_route_counts(ck)}")
+    _require_lag_route(chk, ck, "seasonal fit_grid")
     _grid_report(chk, res, GRID_SEASONAL, "seasonal fit_grid")
     elig = torch.stack([b[2] for b in _grid_blocks(res, GRID_SEASONAL)])
-    chk.require(float(elig.mean()) > 0.99 and ck.DYN_LAUNCHES["css_fwd"] > 0,
-                "seasonal fit_grid: eligible rows, dyn-route launches")
+    chk.require(float(elig.mean()) > 0.99,
+                "seasonal fit_grid: eligible rows")
     del ys, res
     return out
 
@@ -1875,11 +1973,16 @@ def build() -> None:
             f"{min(regs, default=0)}..{max(regs, default=0)}, largest stack "
             f"frame {max(frame, default=0)} B, spill stores {sum(spill)} B")
         if name.startswith(("libhw", "libgarch", "libhr", "libfill",
-                            "libautocorr")):  # each kernel
+                            "libautocorr", "libcss")):  # each kernel
             for kern, info in _ptxas_entries(text):
-                # of the variants, hr.cu and the transforms, the path's
-                # instantiations
-                if ((name.startswith("libhr") and "<4>" not in kern)
+                # of the variants, hr.cu, the transforms and the CSS lag
+                # route, the path's instantiations
+                if ((name.startswith("libcss")
+                     and not kern.startswith(("css_fwd_lag_k<0, 3",
+                                              "css_fwd_lag_k<3, 3",
+                                              "css_bwd_lag_k<0, 3",
+                                              "css_bwd_lag_k<3, 3")))
+                        or (name.startswith("libhr") and "<4>" not in kern)
                         or (name.startswith(("libfill", "libautocorr"))
                             and not kern.endswith(("k<2>", "k<20>")))
                         or (name.startswith("libhw-STS_")
@@ -1889,6 +1992,7 @@ def build() -> None:
     garch_report()
     hw_hr_report()
     transforms_report()
+    css_report()
 
 
 def _ptxas_entries(text: str):
@@ -2154,6 +2258,39 @@ def garch_report() -> None:
                 f"{_issue_floor_ms(per_step, n_el):.3f} ms")
 
 
+def css_report() -> None:
+    """The CSS lag route at the airline model's support: dynamic shared
+    memory and blocks an SM (from the card), SASS instructions a step of
+    the forward's and the adjoint's main loops and the issue-rate floor
+    they imply at the airline fit's shape [935, 1M]."""
+    from spark_timeseries_tpu_torch.ops import _build
+
+    lib = _build.load("css")
+    blocks, smem = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
+    rc = lib.sts_css_lag_occupancy(SEASON, blocks, smem)
+    if rc:
+        raise RuntimeError(f"sts_css_lag_occupancy failed: {rc}")
+    for i, what in enumerate(("forward", "adjoint, per-series cotangent")):
+        log(f"  css lag route, airline {what}: {smem[i]} B dynamic smem a "
+            f"block of 128 threads, {blocks[i]} blocks an SM")
+    loops = _sass_main_loops(_build.library_path("css"))
+    if not loops:
+        log("    cuobjdump not found: no SASS counts")
+        return
+    n_el = (HOURLY_TIME - 1 - SEASON) * HOURLY_ROWS
+    # shared loads a step: the streamed panel's word and the three MA lags
+    for kern in ("css_fwd_lag_k<0, 3>", "css_bwd_lag_k<0, 3, 1>"):
+        n_ins, n_lds = loops.get(kern, (0, 0))
+        if not n_lds:
+            log(f"    {kern}: no loop with shared loads found")
+            continue
+        per_step = n_ins * 4 / n_lds
+        log(f"    {kern}: main loop {n_ins} SASS instructions for "
+            f"{n_lds // 4} steps = {per_step:.1f} a step; issue floor at "
+            f"[{HOURLY_TIME - 1 - SEASON}, {HOURLY_ROWS}] "
+            f"{_issue_floor_ms(per_step, n_el):.3f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2182,11 +2319,11 @@ def main() -> int:
     times = phase_timing(chk, main_run, device)
     times.update(phase_timing_volatility(chk, pipe, device))
     times.update(phase_timing_hourly(chk, hourly, device))
-    dyn = phase_timing_seasonal(chk, device)
+    lag = phase_timing_seasonal(chk, device)
     search = phase_order_search(chk, device)
     phase_leftovers(chk, main_run.pop("params"), device)
-    log(json.dumps({"css_dyn_route": {
-        "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": dyn,
+    log(json.dumps({"css_lag_route": {
+        "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": lag,
         "launches": {"airline fit (8b)": search["airline_launches"],
                      "seasonal grid (8c)": search["grid_seasonal_launches"]},
         "walls_s": {k: v for k, v in search.items() if k.endswith("_s")}}}))

@@ -36,6 +36,13 @@
   __VA_ARGS__<<<(grid), ::sts::kThreads, (smem), (stream)>>>
 #endif
 
+// The same with `threads` threads a block (a host emulation runs them one
+// after another, as STS_LAUNCH_SMEM's).
+#ifndef STS_LAUNCH_BLOCK
+#define STS_LAUNCH_BLOCK(grid, threads, smem, stream, ...) \
+  __VA_ARGS__<<<(grid), (threads), (smem), (stream)>>>
+#endif
+
 // The same, with `threads` threads a block, for a kernel whose threads
 // share shared memory across __syncthreads barriers (a host emulation runs
 // a block's threads together).

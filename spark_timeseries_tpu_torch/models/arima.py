@@ -243,6 +243,24 @@ def _expanded(params, order: Order, seasonal: Optional[Seasonal],
             _expand_seasonal_poly(theta, stheta, s, 1.0))
 
 
+def _lag_support(order: Order, seasonal: Optional[Seasonal]
+                 ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """``(ar_lags, ma_lags)``: the sorted lags whose expanded coefficient
+    the order can make non-zero, ``{1..p} | {js} | {js + i}`` a side (j up
+    to P or Q, i up to p or q).  Decided from the order alone, never from
+    the values: a free coefficient may sit at exactly 0 (the seasonal
+    terms start there) and still needs its gradient."""
+    p, _, q = order
+    P, _, Q, s = seasonal if seasonal is not None else (0, 0, 0, 0)
+
+    def side(n, N):
+        return tuple(sorted({*range(1, n + 1),
+                             *(j * s + i for j in range(1, N + 1)
+                               for i in range(n + 1))}))
+
+    return side(p, P), side(q, Q)
+
+
 def _sarima_css_errors(params, yd, order: Order, seasonal: Seasonal,
                        include_intercept: bool, condition: bool = True,
                        n_valid=None):
@@ -585,10 +603,12 @@ def _fit_sarima(yb, order: Order, seasonal: Seasonal,
         ok = ok & (nvd >= 4 * (p + q + 1))
     n_eff = torch.clamp(nvd - p_full, min=1).to(yd.dtype)
     if backend == "cuda":
+        lags = _lag_support(order, seasonal)
+
         def fb(P_, yt=yt, zb=zb, nv=nvd, ne=n_eff):
             kp = _sarima_kernel_params(P_, order, seasonal, include_intercept)
-            return ck.css_neg_loglik_folded(kp, yt, zb, T, (p_full, 0, q_full),
-                                            True, nv) / ne
+            css = ck.css_sse_folded(kp, yt, zb, p_full, q_full, lags=lags)
+            return _concentrated(css, nv.to(kp.dtype) - p_full) / ne
 
         def straggler(idxc):
             sub = (yt[:, idxc].contiguous(), zb[idxc], nvd[idxc],
@@ -710,6 +730,19 @@ def _grid_coef_maps(infos, include_intercept: bool, k_max: int, p_max: int,
     return lin_c, lin_phi, quad_phi, lin_th, quad_th
 
 
+def _grid_lag_union(maps, p_max: int, q_max: int):
+    """``(ar_lags, ma_lags)`` the grid's compacted launches read: the lag
+    slots that any order's (linear, quadratic) map of
+    :func:`_grid_coef_maps` (host constants) can make non-zero."""
+    _, lin_phi, quad_phi, lin_th, quad_th = maps
+
+    def side(lin, quad, n):
+        return tuple(k + 1 for k in range(n)
+                     if lin[:, k].any() or quad[:, k].any())
+
+    return side(lin_phi, quad_phi, p_max), side(lin_th, quad_th, q_max)
+
+
 def fit_grid(y, specs, include_intercept: bool = True, *,
              method: str = "css-lbfgs", max_iters: int = 60,
              tol: Optional[float] = None, backend: str = "auto",
@@ -828,6 +861,7 @@ def _fit_grid(yb, infos, include_intercept: bool, backend: str,
         for sig in sigs.values():
             del sig["yd"]  # the objectives read the time-major copies only
         zbs = [sigs[_grid_sig(i)]["start"] + i["p_full"] for i in infos]
+        supports = [_lag_support(i["order"], i["seasonal"]) for i in infos]
 
         def fb(p_flat):
             pk = p_flat.reshape(K, bsz, k_max)
@@ -838,7 +872,7 @@ def _fit_grid(yb, infos, include_intercept: bool, backend: str,
                                            include_intercept)
                 css = ck.css_sse_folded(kp, sigs[_grid_sig(info)]["yt"],
                                         zbs[g], info["p_full"],
-                                        info["q_full"])
+                                        info["q_full"], lags=supports[g])
                 out.append(_concentrated(css, n_effs[g]) / n_effs[g])
             return torch.cat(out)
     else:
@@ -893,9 +927,10 @@ def _fit_grid(yb, infos, include_intercept: bool, backend: str,
     straggler_fun = None
     if cap is not None:
         (sig0,) = sigs.values()
-        maps = [torch.as_tensor(m, dtype=dtype, device=dev)
-                for m in _grid_coef_maps(infos, include_intercept, k_max,
-                                         p_max, q_max)]
+        np_maps = _grid_coef_maps(infos, include_intercept, k_max, p_max,
+                                  q_max)
+        union = _grid_lag_union(np_maps, p_max, q_max)
+        maps = [torch.as_tensor(m, dtype=dtype, device=dev) for m in np_maps]
         nvd_all = torch.cat(nvds)
         ne_all = torch.cat(n_effs)
         cp_all = torch.cat([torch.full((bsz,), i["p_full"], dtype=torch.long,
@@ -927,7 +962,7 @@ def _fit_grid(yb, infos, include_intercept: bool, backend: str,
                     kp = torch.cat([c[:, None], phi, theta],
                                    dim=1).contiguous()
                     css = ck.css_sse_folded(kp, data[0], data[1], p_max,
-                                            q_max)
+                                            q_max, lags=union)
                 else:
                     e = _css_errors_poly(c, phi, theta, data[0],
                                          n_valid=data[1], condition_lags=cp_s)

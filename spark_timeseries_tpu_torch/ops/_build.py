@@ -33,12 +33,15 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures: every pointer and the stream are void*, sizes int
+_IP = ctypes.POINTER(ctypes.c_int)
+# C signatures: every device pointer and the stream are void*, sizes int,
+# host arrays int*
 SIGNATURES = {
     "css": {
-        "sts_css_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "sts_css_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P],
+        "sts_css_fwd": [_P] * 6 + [_I] * 4 + [_IP, _I, _I, _I, _I, _P],
+        "sts_css_bwd": [_P] * 7 + [_I] * 4 + [_IP, _I, _I, _I, _I, _P],
+        "sts_css_route": [_I, _I, _IP, _I, _I],
+        "sts_css_lag_occupancy": [_I, _P, _P],
     },
     "hr": {
         "sts_hr_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

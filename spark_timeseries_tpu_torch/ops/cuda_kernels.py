@@ -40,6 +40,7 @@ The CSS, GARCH, EWMA and Holt-Winters objectives are
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -48,8 +49,8 @@ from . import _build
 from .layout import FoldedPanel, css_prefold, time_major
 
 __all__ = [
-    "LAUNCHES", "DYN_LAUNCHES", "reset_launch_counts", "supported",
-    "css_structural_ok",
+    "LAUNCHES", "ROUTE_LAUNCHES", "reset_launch_counts", "supported",
+    "css_structural_ok", "css_route",
     "hr_structural_ok", "css_fwd", "css_fwd_plain", "css_bwd",
     "css_bwd_plain", "hr_moments", "hr_moments_plain", "css_errors",
     "css_last_errors", "css_neg_loglik", "css_neg_loglik_folded",
@@ -72,26 +73,31 @@ LAUNCHES = {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0, "fill_chain": 0,
             "autocorr": 0, "garch_fwd": 0, "garch_bwd": 0, "ewma_fwd": 0,
             "ewma_bwd": 0, "hw_fwd": 0, "hw_bwd": 0}
 
-# of the CSS launches, those on css.cu's dyn route (rings in local memory,
-# past its register rings of up to _CSS_REG_LAG lags)
-DYN_LAUNCHES = {"css_fwd": 0, "css_bwd": 0}
+# the CSS launches by css.cu's route (:func:`css_route`)
+CSS_ROUTES = ("register", "lag", "local")
+ROUTE_LAUNCHES = {name: dict.fromkeys(CSS_ROUTES, 0)
+                  for name in ("css_fwd", "css_bwd")}
 
 _MODES = {"e": 0, "sum": 1, "both": 2, "tail": 3}
 _CSS_REG_LAG = 8
 _MAX_CSS_LAG = 512
 _MAX_ACF_LAG = 1024
 _MAX_HW_PERIOD = 1024
+# css.cu's lag route: listed lags a side, a ring row (one float a thread of
+# a 128-thread block), the panel stream's depth in steps, and the dynamic
+# shared memory a block may have
+_CSS_LAG_CAP = 32
+_CSS_ROW_BYTES = 4 * 128
+_CSS_STREAM_DEPTH = 32
+_SMEM_LIMIT = 227 * 1024
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DYN_LAUNCHES):
-        for name in counts:
-            counts[name] = 0
-
-
-def _count_dyn(counter: str, p: int, q: int) -> None:
-    if p > _CSS_REG_LAG or q > _CSS_REG_LAG:
-        DYN_LAUNCHES[counter] += 1
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    for counts in ROUTE_LAUNCHES.values():
+        for route in counts:
+            counts[route] = 0
 
 
 def supported(x: torch.Tensor) -> bool:
@@ -103,6 +109,46 @@ def css_structural_ok(p: int, q: int) -> bool:
     """Orders the CSS kernels take: rings of up to 512 lags (the
     reference's bound, ``pallas_kernels.css_structural_ok``)."""
     return 0 <= p <= _MAX_CSS_LAG and 0 <= q <= _MAX_CSS_LAG
+
+
+def _css_lags(p: int, q: int, lags):
+    """``lags`` as ``(ar, ma)``: sorted tuples of distinct lags in ``1..p``
+    and ``1..q``; None for None or for every lag of both sides."""
+    if lags is None:
+        return None
+    ar, ma = (tuple(sorted({int(v) for v in side})) for side in lags)
+    if (ar and not 1 <= ar[0] <= ar[-1] <= p) or \
+            (ma and not 1 <= ma[0] <= ma[-1] <= q):
+        raise ValueError(f"lags {lags} outside 1..p={p}, 1..q={q}")
+    if ar == tuple(range(1, p + 1)) and ma == tuple(range(1, q + 1)):
+        return None
+    return ar, ma
+
+
+def _ring_len(n: int) -> int:
+    """Least power of two above ``n``."""
+    return 1 << int(n).bit_length()
+
+
+def css_route(p: int, q: int, lags=None) -> str:
+    """The route of ``csrc/css.cu`` for order ``(p, q)`` with structural
+    lags ``lags`` (``(ar, ma)``; None: every lag), as its ``route_of``
+    takes it: ``"register"`` (p, q <= 8, every lag), ``"lag"`` (up to 32
+    listed lags a side whose shared-memory rings fit a block: the panel
+    stream, the forward's y and e rings with the tail's e ring, the
+    adjoint's three streamed panels and a ring) or ``"local"``."""
+    lags = _css_lags(p, q, lags)
+    if lags is None and p <= _CSS_REG_LAG and q <= _CSS_REG_LAG:
+        return "register"
+    ar, ma = lags or (range(1, p + 1), range(1, q + 1))
+    if len(ar) > _CSS_LAG_CAP or len(ma) > _CSS_LAG_CAP:
+        return "local"
+    da, dm = max(ar, default=0), max(ma, default=0)
+    fwd = (_CSS_STREAM_DEPTH + (_ring_len(da) if ar else 0)
+           + (_ring_len(max(q, dm)) if ma or q else 0))
+    bwd = 3 * _CSS_STREAM_DEPTH + (_ring_len(max(da, dm)) if ar or ma else 0)
+    return ("lag" if max(fwd, bwd) * _CSS_ROW_BYTES <= _SMEM_LIMIT
+            else "local")
 
 
 def hr_structural_ok(p: int, q: int) -> bool:
@@ -196,14 +242,17 @@ def _t_limit(t_limit, T: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def css_fwd(yt, params, zb, p: int, q: int, mode: str, t_limit=None):
+def css_fwd(yt, params, zb, p: int, q: int, mode: str, t_limit=None,
+            lags=None):
     """CSS errors of ``[T, B]`` panel ``yt`` under ``params [B, 1+p+q]``
     (``[c, phi, theta]``) with the live mask ``zb <= t < t_limit``.
 
     ``mode``: ``"e"`` -> errors ``[T, B]``; ``"sum"`` -> per-series SSE
     ``[B]``; ``"both"`` -> ``(e, sse)`` with the SSE bitwise equal to
     ``"sum"``; ``"tail"`` -> the last ``q`` errors before ``t_limit``,
-    ``[B, q]`` oldest first.
+    ``[B, q]`` oldest first.  ``lags``: ``(ar, ma)``, the structural lags
+    the recursion reads (the other coefficients are taken as 0); None:
+    every lag.
     """
     if mode not in _MODES:
         raise ValueError(f"unknown css_fwd mode {mode!r}")
@@ -218,29 +267,87 @@ def css_fwd(yt, params, zb, p: int, q: int, mode: str, t_limit=None):
     t_limit = _t_limit(t_limit, T)
     if mode == "tail" and t_limit < q:
         raise ValueError(f"t_limit {t_limit} < q={q}")
+    lags = _css_lags(p, q, lags)
     if not _on_cuda(dev):
-        return css_fwd_plain(yt, params, zb, p, q, mode, t_limit)
+        return css_fwd_plain(yt, params, zb, p, q, mode, t_limit, lags)
     e = torch.empty_like(yt) if mode in ("e", "both") else None
     sse = yt.new_empty(B) if mode in ("sum", "both") else None
     tail = yt.new_empty(q, B) if mode == "tail" else None
     if B:
-        par_t = params.t().contiguous()
+        route = css_route(p, q, lags)
+        par_t = _css_rows(params, p, q, lags, route)
         _launch("css", "sts_css_fwd", "css_fwd", dev, _ptr(yt), _ptr(par_t),
                 _ptr(zb), _ptr(e), _ptr(sse), _ptr(tail), B, T, p, q,
-                t_limit, _MODES[mode])
-        _count_dyn("css_fwd", p, q)
+                *_c_lags(lags), t_limit, _MODES[mode])
+        ROUTE_LAUNCHES["css_fwd"][route] += 1
     return _fwd_out(mode, e, sse, None if tail is None else tail.t())
+
+
+def _c_lags(lags) -> tuple:
+    """``(lags, ka, km)`` as ``sts_css_fwd`` / ``sts_css_bwd`` take them: a
+    host int array of the AR then the MA lags, or null for every lag."""
+    if lags is None:
+        return None, 0, 0
+    ar, ma = lags
+    return (ctypes.c_int * max(len(ar) + len(ma), 1))(*ar, *ma), len(ar), \
+        len(ma)
+
+
+_INDEX = {}  # (device, rows) -> index tensor, made once
+
+
+def _index(device, rows: tuple) -> torch.Tensor:
+    key = (device, rows)
+    idx = _INDEX.get(key)
+    if idx is None:
+        idx = _INDEX[key] = torch.tensor(rows, dtype=torch.long,
+                                         device=device)
+    return idx
+
+
+def _unlisted(p: int, q: int, lags) -> tuple:
+    """Rows of ``[c, phi, theta]`` outside the lags (none for None)."""
+    if lags is None:
+        return ()
+    ar, ma = lags
+    listed = {0, *ar, *(p + j for j in ma)}
+    return tuple(r for r in range(1 + p + q) if r not in listed)
+
+
+def _css_rows(params, p: int, q: int, lags, route: str):
+    """The coefficient rows a route's kernel reads: ``[1 + KA + KM, B]``
+    of the listed lags on the lag route, else ``[1+p+q, B]`` with the
+    unlisted rows zeroed."""
+    if lags is None:
+        return params.t().contiguous()
+    if route == "lag":
+        ar, ma = lags
+        rows = (0, *ar, *(p + j for j in ma))
+        return params.t().index_select(0, _index(params.device, rows))
+    par_t = params.t().contiguous()
+    return par_t.index_fill_(0, _index(params.device,
+                                       _unlisted(p, q, lags)), 0.0)
 
 
 def _fwd_out(mode, e, sse, tail):
     return {"e": e, "sum": sse, "both": (e, sse), "tail": tail}[mode]
 
 
-def css_fwd_plain(yt, params, zb, p: int, q: int, mode: str, t_limit=None):
+def _lag_slots(p: int, q: int, lags):
+    """The listed lags as 0-based window slots ``(ar, ma)``, ascending."""
+    lags = _css_lags(p, q, lags)
+    if lags is None:
+        return range(p), range(q)
+    return [i - 1 for i in lags[0]], [j - 1 for j in lags[1]]
+
+
+def css_fwd_plain(yt, params, zb, p: int, q: int, mode: str, t_limit=None,
+                  lags=None):
     """Plain PyTorch version of :func:`css_fwd` (same arguments, same
     per-step arithmetic and summation order)."""
     T, B = yt.shape
     t_limit = T if t_limit is None else int(t_limit)
+    ar, ma = _lag_slots(p, q, lags)
     c = params[:, 0]
     phi = params[:, 1:1 + p]
     th = params[:, 1 + p:1 + p + q]
@@ -252,9 +359,9 @@ def css_fwd_plain(yt, params, zb, p: int, q: int, mode: str, t_limit=None):
     for t in range(t_limit if mode == "tail" else T):
         yv = yt[t]
         pred = c
-        for i in range(p):
+        for i in ar:
             pred = pred + phi[:, i] * yl[i]
-        for j in range(q):
+        for j in ma:
             pred = pred + th[:, j] * el[j]
         live = (zb <= t) & (t < t_limit)
         et = torch.where(live, yv - pred, 0.0)
@@ -277,14 +384,15 @@ def css_fwd_plain(yt, params, zb, p: int, q: int, mode: str, t_limit=None):
 
 
 def css_bwd(yt, et, params, zb, g, p: int, q: int, want_gy: bool = False,
-            t_limit=None):
+            t_limit=None, lags=None):
     """Gradients of the CSS errors' cotangent ``g`` -> ``(gparams [B, k],
     gy [T, B] or None)``.
 
     ``g`` is either the errors' cotangent ``[T, B]`` or, for the objective
     ``sum_t e_t^2``, its per-series cotangent ``[B]`` (``g_t = 2 e_t g`` is
     formed in the kernel).  ``gy`` (the data cotangent) is computed only
-    with ``want_gy``.
+    with ``want_gy``.  ``lags`` as :func:`css_fwd`'s; the gradient of an
+    unlisted coefficient is exactly 0.
     """
     if not css_structural_ok(p, q):
         raise ValueError(f"CSS kernel supports p, q <= {_MAX_CSS_LAG} "
@@ -298,25 +406,32 @@ def css_bwd(yt, et, params, zb, g, p: int, q: int, want_gy: bool = False,
     g_is_sse = g.dim() == 1
     _check("g", g, (B,) if g_is_sse else (T, B), dev)
     t_limit = _t_limit(t_limit, T)
+    lags = _css_lags(p, q, lags)
     if not _on_cuda(dev):
-        return css_bwd_plain(yt, et, params, zb, g, p, q, want_gy, t_limit)
-    gpar = yt.new_empty(1 + p + q, B)
+        return css_bwd_plain(yt, et, params, zb, g, p, q, want_gy, t_limit,
+                             lags)
+    route = css_route(p, q, lags)
+    # the lag route writes the listed rows only
+    gpar = (yt.new_zeros if route == "lag" else yt.new_empty)(1 + p + q, B)
     gy = torch.empty_like(yt) if want_gy else None
     if B:
-        par_t = params.t().contiguous()
+        par_t = _css_rows(params, p, q, lags, route)
         _launch("css", "sts_css_bwd", "css_bwd", dev, _ptr(yt), _ptr(et),
                 _ptr(par_t), _ptr(zb), _ptr(g), _ptr(gpar), _ptr(gy), B, T,
-                p, q, t_limit, int(g_is_sse))
-        _count_dyn("css_bwd", p, q)
+                p, q, *_c_lags(lags), t_limit, int(g_is_sse))
+        ROUTE_LAUNCHES["css_bwd"][route] += 1
+        if route == "local" and lags is not None:
+            gpar.index_fill_(0, _index(dev, _unlisted(p, q, lags)), 0.0)
     return gpar.t(), gy
 
 
 def css_bwd_plain(yt, et, params, zb, g, p: int, q: int,
-                  want_gy: bool = False, t_limit=None):
+                  want_gy: bool = False, t_limit=None, lags=None):
     """Plain PyTorch version of :func:`css_bwd` (the kernel's order: t
     descending, lags nearest first)."""
     T, B = yt.shape
     t_limit = T if t_limit is None else int(t_limit)
+    ar, ma = _lag_slots(p, q, lags)
     g_is_sse = g.dim() == 1
     phi = params[:, 1:1 + p]
     th = params[:, 1 + p:1 + p + q]
@@ -328,20 +443,20 @@ def css_bwd_plain(yt, et, params, zb, g, p: int, q: int,
     for t in reversed(range(T)):
         gt = 2.0 * et[t] * g if g_is_sse else g[t]
         av = gt
-        for j in range(q):
+        for j in ma:
             av = av - th[:, j] * al[j]
         live = (zb <= t) & (t < t_limit)
         a = torch.where(live, av, 0.0)
         if want_gy:
             d = a
-            for i in range(p):
+            for i in ar:
                 d = d - phi[:, i] * al[i]
             gys[t] = d
         gc = gc - a
-        for i in range(p):
+        for i in ar:
             if t - 1 - i >= 0:
                 gphi[i] = gphi[i] - yt[t - 1 - i] * a
-        for j in range(q):
+        for j in ma:
             if t - 1 - j >= 0:
                 gth[j] = gth[j] - et[t - 1 - j] * a
         if ac:
@@ -1070,23 +1185,23 @@ class _CssSSE(torch.autograd.Function):
     cotangent is computed only when the data requires a gradient."""
 
     @staticmethod
-    def forward(ctx, params, yt, zb, p, q, t_limit, save):
-        ctx.pq = (p, q, t_limit)
+    def forward(ctx, params, yt, zb, p, q, t_limit, save, lags):
+        ctx.pq = (p, q, t_limit, lags)
         if not save:
-            return css_fwd(yt, params, zb, p, q, "sum", t_limit)
-        e, sse = css_fwd(yt, params, zb, p, q, "both", t_limit)
+            return css_fwd(yt, params, zb, p, q, "sum", t_limit, lags)
+        e, sse = css_fwd(yt, params, zb, p, q, "both", t_limit, lags)
         ctx.save_for_backward(params, yt, zb, e)
         return sse
 
     @staticmethod
     def backward(ctx, gbar):
         params, yt, zb, e = ctx.saved_tensors
-        p, q, t_limit = ctx.pq
+        p, q, t_limit, lags = ctx.pq
         want_gy = ctx.needs_input_grad[1]
         gpar, gy = css_bwd(yt, e, params, zb, gbar.contiguous(), p, q,
-                           want_gy, t_limit)
+                           want_gy, t_limit, lags)
         return (gpar if ctx.needs_input_grad[0] else None, gy,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 class _CssErrors(torch.autograd.Function):
@@ -1141,15 +1256,16 @@ def kernel_params(params, include_intercept: bool):
     return torch.cat([params.new_zeros(params.shape[0], 1), params], dim=1)
 
 
-def css_sse_folded(params, yt, zb, p: int, q: int, t_limit=None):
+def css_sse_folded(params, yt, zb, p: int, q: int, t_limit=None,
+                   lags=None):
     """Per-series CSS sum of squares ``[B]`` of a panel in the kernels'
     layout, for kernel-layout ``params [B, 1+p+q]`` and conditioning start
     ``zb [B]``.  Differentiable in ``params`` (and in ``yt``) through the
     adjoint kernel; the seasonal and grid fits call it with their expanded
-    lag coefficients."""
+    lag coefficients and their structural ``lags`` (:func:`css_fwd`)."""
     t_limit = yt.shape[0] if t_limit is None else int(t_limit)
     return _CssSSE.apply(params, yt, zb, p, q, t_limit,
-                         _needs_grad(params, yt))
+                         _needs_grad(params, yt), _css_lags(p, q, lags))
 
 
 def css_neg_loglik_folded(params, yt, zb, n: int, order,

@@ -208,6 +208,8 @@ CoopLauncher<K> coop_launcher(dim3 g, unsigned threads, size_t smem, K k) {
   ::emu::launcher((grid), ::sts::kThreads, 0, __VA_ARGS__)
 #define STS_LAUNCH_SMEM(grid, smem, stream, ...) \
   ::emu::launcher((grid), ::sts::kThreads, (smem), __VA_ARGS__)
+#define STS_LAUNCH_BLOCK(grid, threads, smem, stream, ...) \
+  ::emu::launcher((grid), (threads), (smem), __VA_ARGS__)
 #define STS_LAUNCH_COOP(grid, threads, smem, stream, ...) \
   ::emu::coop_launcher((grid), (threads), (smem), __VA_ARGS__)
 #define STS_SHARED_FLOATS(name) float* const name = ::emu::shared.data()
@@ -266,6 +268,7 @@ def emulated(tmp_path_factory):
                                      "-DSTS_GARCH_DEPTH=32"])
     builds.update({f"hw-{k}": ("hw", defs) for k, defs in HW_VARIANTS.items()})
     builds["hw-48K"] = ("hw", ["-DEMU_SMEM_LIMIT=49152", "-DSTS_HW_STAGES=3"])
+    builds["css-48K"] = ("css", ["-DEMU_SMEM_LIMIT=49152"])
     builds.update({f"hr-D{k}": ("hr", [f"-DSTS_HR_DEPTH={k}"])
                    for k in HR_DEPTHS})
     builds.update({f"fill-D{k}": ("fill", [f"-DSTS_FILL_DEPTH={k}"])
@@ -674,6 +677,282 @@ def test_sarima_objective_through_the_kernels(kernels, order, seasonal):
         (p_full, 0, q_full), True, nv)
     (g_k,) = torch.autograd.grad(got.sum(), pk)
     assert kernels["css_fwd"] == 1 and kernels["css_bwd"] == 1
+    pe = pr.clone().requires_grad_(True)
+    ref = arima.sarima_neg_loglik(pe, yd, order, seasonal, True, nv)
+    (g_e,) = torch.autograd.grad(ref.sum(), pe)
+    _close(got.detach(), ref.detach())
+    _close(g_k, g_e)
+
+
+# css.cu's lag route: (label, order, seasonal, lags or None, T).  Seasonal
+# cases run the expanded rows with their structural support
+# (``arima._lag_support``) and, with lags None, with every lag; the rest
+# list lags by hand.  L is the ring length, the least power of two above
+# the deepest lag.
+LAG_CASES = {
+    "airline": ((0, 0, 1), (0, 0, 1, 24), 90),
+    "(1,0,1)(1,1,1,24)": ((1, 0, 1), (1, 0, 1, 24), 90),
+    "AR only, s=12": ((1, 0, 0), (1, 0, 0, 12), 60),
+    "(2,0,2)(2,0,2,4)": ((2, 0, 2), (2, 0, 2, 4), 50),
+    "(2,0,2)(2,0,2,7)": ((2, 0, 2), (2, 0, 2, 7), 60),
+    "(1,0,1)(1,0,1,12)": ((1, 0, 1), (1, 0, 1, 12), 70),
+    "(2,0,2)(2,0,2,52)": ((2, 0, 2), (2, 0, 2, 52), 130),
+    "T under the deepest lag": ((0, 0, 1), (0, 0, 1, 24), 20),
+}
+
+
+def _lag_rows(b, order, seasonal, g):
+    """Expanded kernel rows ``[c, phi_full, theta_full]`` of random
+    parameters in (-0.3, 0.3), and the order's structural support."""
+    from spark_timeseries_tpu_torch.models import arima
+
+    k = arima._n_params_seasonal(order, seasonal, True)
+    pr = 0.6 * torch.rand(b, k, generator=g) - 0.3
+    return (arima._sarima_kernel_params(pr, order, seasonal, True),
+            arima._lag_support(order, seasonal))
+
+
+def _lag_inputs(b, t, seed):
+    """Panel, conditioning starts (row 0 never live, row 1 live from 0)."""
+    g = torch.Generator().manual_seed(seed)
+    yt = torch.randn(t, b, generator=g)
+    zb = torch.randint(0, max(t // 2, 1), (b,), generator=g).float()
+    zb[0], zb[1] = t + 1.0, 0.0
+    return yt, zb, g
+
+
+def _hold_lag_route(kernels, yt, params, zb, p, q, lags, route):
+    """Every forward mode and the adjoint (both cotangents, with gy) of the
+    kernels against the plain versions with the same lags; sum == both
+    bitwise; unlisted gradient columns exactly 0; each launch on
+    ``route``."""
+    t, b = yt.shape
+    modes = ("e", "sum", "tail") if t >= q else ("e", "sum")
+    for mode in modes:
+        _close(ck.css_fwd(yt, params, zb, p, q, mode, lags=lags),
+               ck.css_fwd_plain(yt, params, zb, p, q, mode, lags=lags))
+    e_both, s_both = ck.css_fwd(yt, params, zb, p, q, "both", lags=lags)
+    assert torch.equal(s_both, ck.css_fwd(yt, params, zb, p, q, "sum",
+                                          lags=lags))
+    e = ck.css_fwd_plain(yt, params, zb, p, q, "e", lags=lags)
+    _close(e_both, e)
+    g = torch.Generator().manual_seed(t + b)
+    norm = ck._css_lags(p, q, lags)
+    unlisted = list(ck._unlisted(p, q, norm))
+    for cot in (torch.rand(b, generator=g), torch.randn(t, b, generator=g)):
+        for want_gy in (False, True):
+            got = ck.css_bwd(yt, e, params, zb, cot, p, q, want_gy,
+                             lags=lags)
+            ref = ck.css_bwd_plain(yt, e, params, zb, cot, p, q, want_gy,
+                                   lags=lags)
+            assert (got[1] is None) == (not want_gy)
+            for a, r in zip(got, ref):
+                if r is not None:
+                    _close(a, r)
+            assert not got[0][:, unlisted].any()
+    n_fwd = len(modes) + 2
+    assert kernels["css_fwd"] == n_fwd and kernels["css_bwd"] == 4
+    assert ck.ROUTE_LAUNCHES == {
+        "css_fwd": {r: n_fwd * (r == route) for r in ck.CSS_ROUTES},
+        "css_bwd": {r: 4 * (r == route) for r in ck.CSS_ROUTES}}
+
+
+@pytest.mark.parametrize("listed", ["support", "every lag"])
+@pytest.mark.parametrize("case", LAG_CASES)
+def test_css_lag_route_source(kernels, case, listed):
+    # the seasonal expansions on the lag route, with their structural
+    # support and with every lag listed (past 32 lags a side, at s = 52,
+    # every lag takes the local route)
+    from spark_timeseries_tpu_torch.models import arima
+
+    order, seasonal, t = LAG_CASES[case]
+    p, q, _ = arima.seasonal_lag_span(order, seasonal)
+    b = 140  # two blocks of 128, the second partial
+    yt, zb, g = _lag_inputs(b, t, seed=p * 100 + q + t)
+    params, support = _lag_rows(b, order, seasonal, g)
+    lags = support if listed == "support" else None
+    route = "lag" if lags is not None or max(p, q) <= 32 else "local"
+    assert ck.css_route(p, q, lags) == route
+    _hold_lag_route(kernels, yt, params, zb, p, q, lags, route)
+
+
+# lags listed by hand: (p, q, lags, T); deepest lags at L - 1, L and L + 1
+HAND_LAGS = {
+    "deepest L-1": (15, 31, ((2, 15), (1, 31)), 80),
+    "deepest L": (16, 32, ((16,), (1, 2, 32)), 80),
+    "deepest L+1": (17, 9, ((1, 17), (9,)), 80),
+    "dense (10,3)": (10, 3, None, 60),
+    "dense (25,25)": (25, 25, None, 70),
+    "every lag listed": (12, 2, (tuple(range(1, 13)), (1, 2)), 40),
+    "no lag listed": (9, 9, ((), ()), 30),
+}
+
+
+@pytest.mark.parametrize("case", HAND_LAGS)
+def test_css_lag_route_hand_lags_source(kernels, case):
+    p, q, lags, t = HAND_LAGS[case]
+    b = 130
+    yt, zb, g = _lag_inputs(b, t, seed=p + 7 * q)
+    params = (0.1 * torch.randn(b, 1 + p + q, generator=g)).contiguous()
+    assert ck.css_route(p, q, lags) == "lag"
+    _hold_lag_route(kernels, yt, params, zb, p, q, lags, "lag")
+
+
+# past the lag route: rings that do not fit a block's shared memory (both
+# sides at s = 168) and more than 32 lags a side
+@pytest.mark.parametrize("order,seasonal,lagged", [
+    ((1, 0, 1), (1, 0, 1, 168), "support"),
+    ((1, 0, 1), (1, 0, 1, 168), "every lag"),
+    ((40, 0, 0), None, "every lag")])
+def test_css_local_route_source(kernels, order, seasonal, lagged):
+    from spark_timeseries_tpu_torch.models import arima
+
+    p, q, _ = arima.seasonal_lag_span(order, seasonal)
+    b, t = 9, p + 30
+    yt, zb, g = _lag_inputs(b, t, seed=p)
+    if seasonal is None:
+        params = (0.02 * torch.randn(b, 1 + p + q, generator=g)).contiguous()
+        support = None
+    else:
+        params, support = _lag_rows(b, order, seasonal, g)
+    lags = support if lagged == "support" else None
+    assert ck.css_route(p, q, lags) == "local"
+    _hold_lag_route(kernels, yt, params, zb, p, q, lags, "local")
+
+
+def test_css_register_route_stays_for_every_lag_up_to_8(kernels):
+    # every lag of a small order, listed or not, takes the register route
+    yt, zb, g = _lag_inputs(40, 30, seed=3)
+    params = (0.2 * torch.randn(40, 4, generator=g)).contiguous()
+    for lags in (None, ((1, 2), (1,))):
+        assert ck.css_route(2, 1, lags) == "register"
+        ck.reset_launch_counts()
+        _hold_lag_route(kernels, yt, params, zb, 2, 1, lags, "register")
+
+
+def test_css_route_rule_matches_the_plain_version(emulated):
+    # csrc/css.cu's route_of against ck.css_route, around the register
+    # bound, the lag caps and the shared-memory edge
+    from spark_timeseries_tpu_torch.models import arima
+
+    lib = emulated["css"]
+    names = dict(enumerate(ck.CSS_ROUTES))
+    cases = [(p, q, None) for p in (0, 1, 8, 9, 32, 33, 100)
+             for q in (0, 8, 9, 25, 32, 33)]
+    for s in (4, 7, 12, 24, 52, 104, 168):
+        for P in (0, 1, 2):
+            for Q in (0, 1, 2):
+                for pq in ((0, 0), (1, 1), (2, 2), (3, 0)):
+                    order, sea = (pq[0], 0, pq[1]), (P, 0, Q, s)
+                    p, q, _ = arima.seasonal_lag_span(order, sea)
+                    if p <= 512 and q <= 512:
+                        cases.append((p, q, arima._lag_support(order, sea)))
+    cases += [(15, 31, ((2, 15), (1, 31))), (40, 2, (tuple(range(1, 34)),
+                                                     (1,)))]
+    seen = set()
+    for p, q, lags in cases:
+        norm = ck._css_lags(p, q, lags)
+        c_lags, ka, km = ck._c_lags(norm)
+        got = names[lib.sts_css_route(p, q, c_lags, ka, km)]
+        assert got == ck.css_route(p, q, lags), (p, q, lags)
+        seen.add(got)
+    assert seen == set(ck.CSS_ROUTES)
+    # the lag route's reach: s in {4, 7, 12, 24, 52} with P, Q <= 2, and
+    # dense (10, 3)
+    for s in (4, 7, 12, 24, 52):
+        for order in ((0, 0, 1), (1, 0, 1), (2, 0, 2)):
+            sea = (2, 0, 2, s)
+            p, q, _ = arima.seasonal_lag_span(order, sea)
+            assert ck.css_route(p, q, arima._lag_support(order, sea)) == "lag"
+    assert ck.css_route(10, 3) == "lag"
+
+
+def test_css_lag_refused_launch_returns_its_error(emulated):
+    # a card that grants 48 KB a block refuses a lag-route ring above it
+    # ((1,0,1)(1,0,1,52): y and e rings of 64 slots and the panel stream,
+    # 80 KB): the entry point returns the error and writes nothing; the
+    # airline model's (32 KB) runs
+    from spark_timeseries_tpu_torch.models import arima
+
+    lib = emulated["css-48K"]
+    b, t = 9, 120
+    yt, zb, g = _lag_inputs(b, t, seed=5)
+    p = lambda x: x.data_ptr()  # noqa: E731
+    for order, sea, refused in (((1, 0, 1), (1, 0, 1, 52), True),
+                                ((0, 0, 1), (0, 0, 1, 24), False)):
+        params, lags = _lag_rows(b, order, sea, g)
+        pf, qf, _ = arima.seasonal_lag_span(order, sea)
+        norm = ck._css_lags(pf, qf, lags)
+        par_c = ck._css_rows(params, pf, qf, norm, "lag")
+        sse = torch.full((b,), 7.0)
+        rc = lib.sts_css_fwd(p(yt), p(par_c), p(zb), None, p(sse), None, b,
+                             t, pf, qf, *ck._c_lags(norm), t, 1, None)
+        gpar = torch.full((1 + pf + qf, b), 7.0)
+        rc_b = lib.sts_css_bwd(p(yt), p(yt), p(par_c), p(zb), p(sse),
+                               p(gpar), None, b, t, pf, qf,
+                               *ck._c_lags(norm), t, 1, None)
+        if refused:
+            assert rc != 0 and bool((sse == 7.0).all())
+            assert rc_b != 0 and bool((gpar == 7.0).all())
+        else:
+            assert rc == 0 and rc_b == 0
+            _close(sse, ck.css_fwd_plain(yt, params, zb, pf, qf, "sum",
+                                         lags=lags))
+
+
+def test_css_lag_route_launch_error_raises(emulated, monkeypatch):
+    # the wrapper raises on the refusal, as on the card; nothing runs on
+    # the plain version instead
+    def launch(lib_name, counter, device, call):
+        rc = call(emulated["css-48K"], None)
+        if rc != 0:
+            raise RuntimeError(f"{counter} launch failed with CUDA error {rc}")
+        ck.LAUNCHES[counter] += 1
+
+    from spark_timeseries_tpu_torch.models import arima
+
+    monkeypatch.setattr(ck, "_on_cuda", lambda device: True)
+    monkeypatch.setattr(ck, "_launch_call", launch)
+    ck.reset_launch_counts()
+    order, sea = (1, 0, 1), (1, 0, 1, 52)
+    pf, qf, _ = arima.seasonal_lag_span(order, sea)
+    yt, zb, g = _lag_inputs(9, 120, seed=6)
+    params, lags = _lag_rows(9, order, sea, g)
+    with pytest.raises(RuntimeError, match="css_fwd launch failed"):
+        ck.css_fwd(yt, params, zb, pf, qf, "sum", lags=lags)
+    assert ck.LAUNCHES["css_fwd"] == 0
+    assert ck.ROUTE_LAUNCHES["css_fwd"]["lag"] == 0
+    ck.reset_launch_counts()
+
+
+@pytest.mark.parametrize("order,seasonal", [((0, 1, 1), (0, 1, 1, 24)),
+                                            ((1, 0, 1), (1, 1, 1, 12)),
+                                            ((2, 1, 0), (1, 1, 0, 7))])
+def test_sarima_objective_with_support_through_the_kernels(kernels, order,
+                                                           seasonal):
+    # the seasonal fit's cuda objective as _fit_sarima runs it (the
+    # structural support, css_sse_folded, then the concentration) against
+    # the eager objective, value and gradient, 1e-5, on the lag route
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import layout
+
+    b, t = 70, 110
+    g = torch.Generator().manual_seed(sum(order) + seasonal[3])
+    yd = torch.randn(b, t, generator=g)
+    nv = torch.randint(t // 2, t + 1, (b,), generator=g).to(torch.int32)
+    k = arima._n_params_seasonal(order, seasonal, True)
+    pr = 0.6 * torch.rand(b, k, generator=g) - 0.3
+    p_full, q_full, _ = arima.seasonal_lag_span(order, seasonal)
+    yt, zb = layout.css_prefold(yd, (p_full, 0, q_full), nv)
+    pk = pr.clone().requires_grad_(True)
+    css = ck.css_sse_folded(
+        arima._sarima_kernel_params(pk, order, seasonal, True), yt, zb,
+        p_full, q_full, lags=arima._lag_support(order, seasonal))
+    got = arima._concentrated(css, nv.float() - p_full)
+    (g_k,) = torch.autograd.grad(got.sum(), pk)
+    assert ck.ROUTE_LAUNCHES["css_fwd"] == {"register": 0, "lag": 1,
+                                            "local": 0}
+    assert ck.ROUTE_LAUNCHES["css_bwd"]["lag"] == 1
     pe = pr.clone().requires_grad_(True)
     ref = arima.sarima_neg_loglik(pe, yd, order, seasonal, True, nv)
     (g_e,) = torch.autograd.grad(ref.sum(), pe)
