@@ -76,15 +76,33 @@ Phases; each failure makes the script exit non-zero with no result line:
    the volatility panel.  Launch counts of the CSS kernels (by route) are
    read for each fit, and (b) and (c) must have run on the lag route
    alone; warm fits of (a) and (b) are profiled.
+9. drive the resilient fit path (``reliability.resilient_fit``: sanitize
+   -> ``arima.fit`` -> retry ladder) on the 1,000,000 x 1,000 headline
+   panel with the telemetry plane (``obs``) streaming JSONL and a
+   Prometheus textfile into ``chiprun_out/chip_smoke_obs/``: on the clean
+   panel it must equal a plain ``arima.fit`` bit for bit; on a copy with
+   seeded data faults (interior NaN runs on 1 % of rows, inf spikes on
+   0.1 %, constant and all-NaN rows on 0.05 % each) and ``failing_fit``
+   on 3 x 8 rows (failure budgets 1, 2 and 99) the status counts must be
+   exact, the primary and retry rungs must run the CSS kernels on the
+   register route (the primary also ``hr_moments``) and the fallback rung
+   on ``"eager"`` with no kernel, and the OK rows must match a plain fit
+   of the sanitized panel; then ``tools/obs_report.py --check`` on the
+   stream, the port's ``validate_textfile`` on the textfile, the device
+   source of ``obs.peak_memory()``, the span names in a
+   ``torch.profiler`` capture, the warm fit's wall with the plane off and
+   on, and the kernel libraries' program-cache counts.
 
 The line before the last is a JSON object with one entry per kernel, and
-an earlier line a JSON object with the lag route's times, bounds and
-launches; the last line is ``{"ok": true, "device": {...}}``.
+earlier lines JSON objects with the lag route's times, bounds and
+launches and with phase 9's walls, launches and counts; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import math
 import re
@@ -1955,8 +1973,336 @@ def phase_leftovers(chk: Checks, params_main, device, rows: int = 100_000,
     log(f"  walls (s): {walls}")
 
 
-def build() -> None:
-    """Phase 2: every source at once, then load each library."""
+# the resilient fit path's panel faults (shares of ROWS) and failing rows
+FAULT_SHARES = {"nan": 0.01, "inf": 0.001, "constant": 0.0005,
+                "all_nan": 0.0005}
+FAIL_BUDGETS = (1, 2, 99)  # failing_fit n_failures: RETRIED, FALLBACK,
+FAIL_ROWS = 8              # DIVERGED, 8 rows each
+OBS_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_obs"
+
+
+def _host_fit(res) -> dict:
+    return {f: getattr(res, f).cpu().numpy()
+            for f in ("params", "neg_log_likelihood", "converged", "iters")}
+
+
+def _same_fit(a: dict, b) -> bool:
+    """Every field of two fits the same bits (NaNs at the same places)."""
+    import numpy as np
+
+    return all(np.array_equal(a[f], np.asarray(getattr(b, f)),
+                              equal_nan=a[f].dtype.kind == "f")
+               for f in a)
+
+
+def _fault_rows(yf, gen_rows):
+    """Disjoint seeded row sets for each fault, then FAIL_ROWS rows for
+    each failing budget among the untouched rows whose last value is
+    unique in the whole panel (failing_fit finds its rows by that value)."""
+    import numpy as np
+
+    sizes = {k: int(round(v * ROWS)) for k, v in FAULT_SHARES.items()}
+    sets, at = {}, 0
+    for k, n in sizes.items():
+        sets[k] = np.sort(gen_rows[at:at + n])
+        at += n
+    _, inv, counts = np.unique(yf[:, -1].cpu().numpy(), return_inverse=True,
+                               return_counts=True)
+    unique = counts[inv] == 1
+    pool = [r for r in gen_rows[at:at + 1000] if unique[r]]
+    fail = {n: np.array(pool[i * FAIL_ROWS:(i + 1) * FAIL_ROWS])
+            for i, n in enumerate(FAIL_BUDGETS)}
+    return sets, fail
+
+
+def phase_resilient(chk: Checks, device, n_built: int) -> dict:
+    """Phase 9: the resilient fit path (sanitize -> fit -> retry ladder)
+    at full width with the telemetry plane on."""
+    import numpy as np
+
+    from spark_timeseries_tpu_torch import entry, obs
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.obs import promsink
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.reliability import (FitStatus,
+                                                        default_ladder,
+                                                        faultinject as fi,
+                                                        resilient_fit,
+                                                        sanitize)
+    from spark_timeseries_tpu_torch.utils import compile_cache
+
+    log(f"phase 9: resilient fit path, ARIMA(1,1,1) on {ROWS} x {TIME} "
+        "with the telemetry plane on")
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    events, prom = OBS_DIR / "events.jsonl", OBS_DIR / "metrics.prom"
+    for p in (events, prom):
+        p.unlink(missing_ok=True)
+    y = entry.gen_panel(ROWS, TIME, seed=0, device=device)
+    torch.cuda.synchronize()
+    obs.enable(str(events))
+    out = {"walls_s": {}}
+    walls = out["walls_s"]
+
+    # (a) a clean panel: the primary fit is the plain fit, bit for bit;
+    # the two walls in turns (plain, resilient, resilient, plain)
+    # where the resilient fit's extra time goes: the plain fit's host read
+    # of its four result fields timed apart; the resilient fit's sanitize
+    # and primary spans (fit + the same read), and what is left (masks,
+    # status, meta on the host)
+    fits, turns = {}, {"plain": [], "resilient": []}
+    parts = {"plain read": [], "sanitize": [], "primary": [], "rest": []}
+    for kind in ("plain", "resilient", "resilient", "plain"):
+        t0 = time.perf_counter()
+        if kind == "plain":
+            r = arima.fit(y, entry.ORDER, device=device)
+            torch.cuda.synchronize()
+            turns[kind].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            fits.setdefault(kind, _host_fit(r))
+            parts["plain read"].append(time.perf_counter() - t0)
+            continue
+        r = resilient_fit(arima.fit, y, order=entry.ORDER, device=device)
+        turns[kind].append(time.perf_counter() - t0)
+        fits.setdefault(kind, r)
+        hist = obs.snapshot()["histograms"]
+        parts["sanitize"].append(hist["span.sanitize"]["last"])
+        parts["primary"].append(hist["span.fit.primary"]["last"])
+        parts["rest"].append(turns[kind][-1] - parts["sanitize"][-1]
+                             - parts["primary"][-1])
+    walls["plain fit, clean"] = turns["plain"]
+    walls["resilient fit, clean"] = turns["resilient"]
+    walls["clean parts"] = parts
+    plain, rc = fits["plain"], fits["resilient"]
+    log(f"  clean panel, in turns: plain fit {turns['plain']} s (then its "
+        f"host read {parts['plain read']} s), resilient fit "
+        f"{turns['resilient']} s = sanitize {parts['sanitize']} + primary "
+        f"(fit and host read) {parts['primary']} + rest {parts['rest']} s; "
+        f"status {rc.meta['status_counts']}")
+    chk.require(_same_fit(plain, rc) and rc.meta["ladder"] == []
+                and rc.meta["sanitize"]["rows_sanitized"] == 0,
+                "clean panel: resilient_fit == arima.fit bit for bit")
+    del plain, rc, fits, r
+
+    # (b) a panel with seeded data faults and failing rows
+    gen_rows = np.random.default_rng(9).permutation(ROWS)
+    t0 = time.perf_counter()
+    sets, fail = _fault_rows(y, gen_rows)
+    yf = fi.inject_nan_rows(y, sets["nan"], seed=1)
+    del y
+    yf = fi.inject_inf_rows(yf, sets["inf"], seed=2)
+    yf = fi.make_constant_rows(yf, sets["constant"])
+    yf = fi.make_all_nan_rows(yf, sets["all_nan"])
+    tails = yf[:, -1].cpu().numpy()
+    designated = np.concatenate(list(fail.values()))
+    chk.require(designated.size == FAIL_ROWS * len(FAIL_BUDGETS)
+                and all(int((tails == tails[r]).sum()) == 1
+                        for r in designated),
+                f"{designated.size} failing rows, each with a last value "
+                "unique in the whole panel")
+    calls = []
+
+    def allocator():  # cudaMalloc calls and cache-flushing retries so far
+        st = torch.cuda.memory_stats()
+        return st["segment.all.allocated"], st["num_alloc_retries"]
+
+    def counted(yb, **kw):  # launches of each fit call the ladder makes
+        before, mem0, t0 = _launches(ck), allocator(), time.perf_counter()
+        res = arima.fit(yb, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after, mem1 = _launches(ck), allocator()
+        calls.append({"rows": int(yb.shape[0]),
+                      "backend": kw.get("backend", "auto"), "wall_s": wall,
+                      "cuda_mallocs": mem1[0] - mem0[0],
+                      "alloc_retries": mem1[1] - mem0[1],
+                      "launches": {k: after[k] - before[k] for k in after
+                                   if after[k] > before[k]}})
+        return res
+
+    counted = functools.wraps(arima.fit)(counted)
+
+    def failing():
+        fit = counted
+        for n, rows in fail.items():
+            fit = fi.failing_fit(fit, yf, rows, n_failures=n)
+        return fit
+
+    fit = failing()
+    torch.cuda.synchronize()
+    walls["faults injected"] = time.perf_counter() - t0
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = resilient_fit(fit, yf, order=entry.ORDER, device=device)
+    walls["resilient fit, faulted"] = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    hist = obs.snapshot()["histograms"]
+    for name in ("sanitize", "fit.primary", "fit.rung.retry",
+                 "fit.rung.fallback"):
+        walls[f"span {name}"] = (hist.get(f"span.{name}") or {}).get("last")
+    out["calls"], out["ladder"] = list(calls), res.meta["ladder"]
+    out["status_counts"] = counts = res.meta["status_counts"]
+    log(f"  faulted panel: resilient fit {walls['resilient fit, faulted']:.3f}"
+        f" s; spans (s) sanitize {walls['span sanitize']}, primary "
+        f"{walls['span fit.primary']}, retry {walls['span fit.rung.retry']}"
+        f", fallback {walls['span fit.rung.fallback']}; status {counts}")
+    log(f"  sanitize meta {res.meta['sanitize']}")
+    for c, rung in zip(calls, ("primary", "retry", "fallback")):
+        log(f"  {rung}: {c['rows']} rows, backend {c['backend']}, fit "
+            f"{c['wall_s']:.4f} s, {c['cuda_mallocs']} cudaMalloc, "
+            f"{c['alloc_retries']} allocator retries, launches "
+            f"{c['launches']}")
+    n_san = len(sets["nan"]) + len(sets["inf"])
+    n_exc = len(sets["constant"]) + len(sets["all_nan"])
+    want = {"OK": ROWS - n_san - n_exc - 3 * FAIL_ROWS, "SANITIZED": n_san,
+            "RETRIED": FAIL_ROWS, "FALLBACK": FAIL_ROWS,
+            "DIVERGED": FAIL_ROWS, "EXCLUDED": n_exc, "TIMEOUT": 0}
+    chk.require(counts == want, f"status counts exactly {want}")
+    want_rows = np.zeros(ROWS, np.int8)
+    want_rows[np.concatenate([sets["nan"], sets["inf"]])] = (
+        FitStatus.SANITIZED)
+    want_rows[np.concatenate([sets["constant"], sets["all_nan"]])] = (
+        FitStatus.EXCLUDED)
+    for n, status in zip(FAIL_BUDGETS, (FitStatus.RETRIED,
+                                        FitStatus.FALLBACK,
+                                        FitStatus.DIVERGED)):
+        want_rows[fail[n]] = status
+    chk.require(np.array_equal(res.status, want_rows),
+                "every row's status is its fault's")
+    usable = ~np.isin(res.status, [FitStatus.EXCLUDED, FitStatus.DIVERGED])
+    chk.require(bool(np.isfinite(res.params[usable]).all())
+                and bool(np.isnan(res.params[~usable]).all()),
+                "finite params on every row but EXCLUDED / DIVERGED")
+    chk.require(len(calls) == 3 and [c["rows"] for c in calls]
+                == [ROWS, 32, 16], "three fit calls: the panel, then 32 "
+                "and 16 padded rows")
+    for c, rung in zip(calls, ("primary", "retry", "fallback")):
+        la = c["launches"]
+        chk.require(all(la.get(k, 0) > 0
+                        and la.get(f"{k} register", 0) == la[k]
+                        for k in ("css_fwd", "css_bwd")),
+                    f"{rung} rung: CSS kernels on the register route ({la})")
+    chk.require(calls[0]["launches"].get("hr_moments", 0) > 0,
+                "primary rung: hr_moments launched (the init)")
+    chk.require(all(c["launches"].get("hr_moments", 0) == 0
+                    for c in calls[1:]),
+                "retry and fallback rungs start from the perturbed init "
+                "(no HR sweep)")
+    chk.require(calls[2]["backend"] == "auto",
+                "fallback rung on the 'auto' backend (the kernels)")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+
+    # the same faulted fit again, fresh failure budgets: the first call's
+    # primary fit against a warm one, with the allocator's events
+    calls.clear()
+    t0 = time.perf_counter()
+    again = resilient_fit(failing(), yf, order=entry.ORDER, device=device)
+    walls["resilient fit, faulted, again"] = time.perf_counter() - t0
+    out["calls_again"] = list(calls)
+    log(f"  faulted panel again: resilient fit "
+        f"{walls['resilient fit, faulted, again']:.3f} s; fits "
+        + ", ".join(f"{c['rows']} rows {c['wall_s']:.4f} s "
+                    f"({c['cuda_mallocs']} cudaMalloc, {c['alloc_retries']} "
+                    "retries)" for c in calls))
+    chk.require(np.array_equal(again.status, res.status)
+                and _same_fit({f: getattr(res, f) for f in
+                               ("params", "neg_log_likelihood", "converged",
+                                "iters")}, again),
+                "the faulted fit again: the same statuses and bits")
+    del again
+
+    # OK rows against a plain fit of the sanitized panel
+    t0 = time.perf_counter()
+    clean = sanitize(yf).values
+    ref = arima.fit(clean, entry.ORDER, device=device)
+    torch.cuda.synchronize()
+    walls["sanitize + plain fit, faulted"] = time.perf_counter() - t0
+    ok = res.status == FitStatus.OK
+    rp = ref.params.cpu().numpy()
+    diff = np.abs(res.params[ok] - rp[ok])
+    med = float(np.median(diff))
+    dconv = abs(float(res.converged[ok].mean())
+                - float(ref.converged.cpu().numpy()[ok].mean()))
+    bitwise = {f: bool(np.array_equal(
+        getattr(res, f)[ok], getattr(ref, f).cpu().numpy()[ok]))
+        for f in ("params", "neg_log_likelihood", "converged", "iters")}
+    log(f"  OK rows vs a plain fit of the sanitized panel: converged share "
+        f"differs by {dconv:.4f}, median |param diff| {med:.2e}, max "
+        f"{float(diff.max()):.2e}, the same bits {bitwise}")
+    # the primary rung IS a plain fit of the sanitized panel, and the
+    # ladder scatters into the other rows only
+    chk.require(all(bitwise.values()),
+                "OK rows: a plain fit of the sanitized panel, bit for bit")
+    out["ok_rows_bitwise"] = bitwise
+    del clean, ref
+
+    # telemetry: the textfile, the stream, the memory probe
+    pm = obs.peak_memory()
+    summary = obs.summary()
+    obs.PromTextfileSink(str(prom)).write()
+    errs = promsink.validate_textfile(str(prom), obs.snapshot())
+    chk.require(errs == [], f"prom textfile valid ({errs[:3]})")
+    chk.require(pm.source == "device",
+                f"peak_memory source {pm.source!r}, {pm.bytes} bytes")
+    out["peak_memory_gib"] = pm.bytes / 2**30
+    counters = summary["counters"]
+    log(f"  counters {counters}")
+    obs.disable()
+    rep = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve().parent / "tools"
+                             / "obs_report.py"), str(events), "--check"],
+        capture_output=True, text=True, timeout=120)
+    log(f"  obs_report --check: rc {rep.returncode} "
+        f"{rep.stdout.strip()} {rep.stderr.strip()[:300]}")
+    chk.require(rep.returncode == 0, "tools/obs_report.py --check exit 0")
+
+    # the same spans in a torch.profiler capture of one resilient fit
+    from torch.profiler import ProfilerActivity, profile
+
+    obs.enable(profile=True)
+    fit = failing()  # fresh failure budgets; the retry rung alone
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        resilient_fit(fit, yf, order=entry.ORDER, device=device,
+                      ladder=default_ladder(arima.fit)[:1])
+    obs.disable()
+    names = {e.key for e in prof.key_averages()}
+    spans = ("sanitize", "fit.primary", "fit.rung.retry")
+    chk.require(all(s in names for s in spans),
+                f"profiler ranges {[s for s in spans if s in names]}")
+    del yf
+
+    # the warm fit's wall with the plane off and on, in turns
+    y = entry.gen_panel(ROWS, TIME, seed=0, device=device)
+    onoff = {"off": [], "on": []}
+    for state in ("off", "on", "off", "on"):
+        if state == "on":
+            obs.enable(str(OBS_DIR / "events_onoff.jsonl"))
+        t0 = time.perf_counter()
+        resilient_fit(arima.fit, y, order=entry.ORDER, device=device)
+        onoff[state].append(time.perf_counter() - t0)
+        obs.disable()
+    out["obs_off_on_s"] = onoff
+    log(f"  warm resilient fit, plane off {onoff['off']} s, on "
+        f"{onoff['on']} s")
+    del y
+
+    stats = compile_cache.program_cache_stats()
+    out["program_cache"] = stats
+    log(f"  compile_cache.program_cache_stats() {stats} ({n_built} "
+        "libraries built in phase 2)")
+    from spark_timeseries_tpu_torch.ops import _build
+
+    loaded = {_build.library_path(*k) for k in _build._libs}
+    chk.require(stats["misses"] == n_built
+                and stats["hits"] + stats["misses"] == len(_build._counted)
+                and loaded <= _build._counted,
+                "program cache: a miss per library built, a hit per library "
+                f"found built, each counted once ({len(loaded)} loaded)")
+    return out
+
+
+def build() -> int:
+    """Phase 2: every source at once, then load each library; returns how
+    many libraries it built."""
     from spark_timeseries_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -1993,6 +2339,7 @@ def build() -> None:
     hw_hr_report()
     transforms_report()
     css_report()
+    return len(logs)
 
 
 def _ptxas_entries(text: str):
@@ -2301,7 +2648,7 @@ def main() -> int:
     log(f"phase 1: card {card}; torch {torch.__version__} CUDA "
         f"{torch.version.cuda}")
     t_start = time.perf_counter()
-    build()
+    n_built = build()
 
     chk = Checks()
     phase_kernels(chk, device)
@@ -2322,11 +2669,13 @@ def main() -> int:
     lag = phase_timing_seasonal(chk, device)
     search = phase_order_search(chk, device)
     phase_leftovers(chk, main_run.pop("params"), device)
+    resilient = phase_resilient(chk, device, n_built)
     log(json.dumps({"css_lag_route": {
         "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": lag,
         "launches": {"airline fit (8b)": search["airline_launches"],
                      "seasonal grid (8c)": search["grid_seasonal_launches"]},
         "walls_s": {k: v for k, v in search.items() if k.endswith("_s")}}}))
+    log(json.dumps({"resilient_fit": resilient}))
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))
         return 1

@@ -10,13 +10,20 @@ autocorrelation -> GARCH / ARGARCH fit + forecast) and the smoothing models
 (``ops.cuda_kernels``, sources in ``csrc/``), one for each of the
 reference's TPU kernels.
 
-Ported so far: ``models.arima``, ``models.autoregression``,
-``models.regression_arima``, ``models.garch``, ``models.ewma``,
-``models.holtwinters``, ``models.base``, ``stats``, ``utils.optim``,
-``utils.linalg``, ``ops.layout``, ``ops.univariate``, ``ops.lagmat``,
-``ops.cuda_kernels``, ``reliability.status``.
+The resilient fit path (``reliability.resilient_fit``: sanitize -> fit ->
+retry ladder, under the deadline watchdog) wraps any of these fits, and
+the telemetry plane (``obs``) records its spans and counters.
+
+Ported so far: ``index``, ``obs``, ``models.arima``,
+``models.autoregression``, ``models.regression_arima``, ``models.garch``,
+``models.ewma``, ``models.holtwinters``, ``models.base``, ``stats``,
+``utils.optim``, ``utils.linalg``, ``utils.compile_cache``, ``ops.layout``,
+``ops.univariate``, ``ops.lagmat``, ``ops.cuda_kernels``, and of
+``reliability`` ``status``, ``sanitize``, ``runner``, ``watchdog``, the
+data-fault half of ``faultinject`` and the allocation-failure classifier
+of ``plan``.
 """
 
-from . import models, ops, reliability, stats, utils
+from . import index, models, obs, ops, reliability, stats, utils
 
-__all__ = ["models", "ops", "reliability", "stats", "utils"]
+__all__ = ["index", "models", "obs", "ops", "reliability", "stats", "utils"]

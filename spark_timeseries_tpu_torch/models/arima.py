@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..ops import cuda_kernels as ck
 from ..utils import optim
 from ..utils.linalg import ridge_solve as _ridge_solve
@@ -833,6 +834,10 @@ def _fit_grid(yb, infos, include_intercept: bool, backend: str,
                                                      sig["nvd"])
         sigs[key] = sig
     del yd_plain
+    # shared-prep accounting: orders that reused another order's
+    # differencing (the reference's counter, once per call here)
+    if K > len(sigs):
+        obs.counter("auto_fit.diff_cache_hits").add(K - len(sigs))
     inits, oks, n_effs, nvds = [], [], [], []
     for info in infos:
         p, _, q = info["order"]

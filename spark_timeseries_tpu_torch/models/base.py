@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..reliability.status import FitStatus
 
 BACKENDS = ("auto", "eager", "cuda")
@@ -169,7 +170,9 @@ def align_mode_on_host(yb: torch.Tensor) -> str:
     """How much per-row alignment this panel needs: ``"dense"`` (no NaN),
     ``"no-trailing"`` (every row valid at the last position: prefix zeroing
     only) or ``"general"`` (trailing NaNs: the full per-row roll).  One
-    fused reduction and one host read."""
+    fused reduction and one host read, counted as ``align.host_probes``
+    in the obs registry so a driver can verify how many probes it paid."""
+    obs.counter("align.host_probes").inc()
     nan = torch.isnan(yb)
     flags = torch.stack([nan.any(), nan[:, -1].any()]).cpu()
     if not bool(flags[0]):

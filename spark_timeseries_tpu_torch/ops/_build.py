@@ -10,6 +10,12 @@ variant of a source built with extra ``-D`` macros (the ring depths of
 ``autocorr.cu``) is a library of its own, keyed by them too; the wrappers
 load the plain build.
 
+Each library counts once a process in ``utils.compile_cache`` (which can
+also move :data:`BUILD_DIR` to a persistent cache directory): a miss when
+this process runs ``nvcc`` for it, a hit when :func:`load` first finds it
+built on disk by an earlier run.  Later loads of a loaded library are not
+lookups and count nothing.
+
 A failed build raises: nothing here falls back to another path.
 """
 
@@ -22,6 +28,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+from ..utils import compile_cache
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -86,6 +94,8 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict = {}
+# library files already counted in utils.compile_cache by this process
+_counted: set = set()
 
 
 def nvcc() -> str:
@@ -136,6 +146,9 @@ def build_all(names=SOURCES, variants=()) -> dict:
     wanted = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
     jobs = [_start(n, d, t) for n, d in wanted
             if not (t := library_path(n, d)).is_file()]
+    for _, _, out in jobs:
+        _counted.add(out)
+        compile_cache.note_miss()
     try:
         for proc, tmp, out in jobs:
             log, _ = proc.communicate()
@@ -161,7 +174,10 @@ def load(name: str, defines=()) -> ctypes.CDLL:
         if lib is None:
             out = library_path(*key)
             if not out.is_file():
-                build_all((), (key,))
+                build_all((), (key,))  # counts the miss
+            elif out not in _counted:  # built on disk by an earlier run
+                _counted.add(out)
+                compile_cache.note_hit()
             lib = ctypes.CDLL(str(out))
             for fn, argtypes in SIGNATURES[name].items():
                 getattr(lib, fn).argtypes = argtypes

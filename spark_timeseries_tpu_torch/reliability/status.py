@@ -54,8 +54,9 @@ STATUS_DTYPE = np.int8
 
 def status_counts(status) -> dict:
     """``{status_name: row_count}`` for a status array (host-side)."""
-    s = np.asarray(status)
-    return {m.name: int((s == m.value).sum()) for m in FitStatus}
+    n = np.bincount(np.asarray(status, STATUS_DTYPE).ravel().view(np.uint8),
+                    minlength=len(FitStatus))  # codes are 0..6: one pass
+    return {m.name: int(n[m.value]) for m in FitStatus}
 
 
 def merge_status(a, b):

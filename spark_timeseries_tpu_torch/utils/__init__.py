@@ -1,5 +1,6 @@
-"""Batched optimizer and small linear algebra."""
+"""Batched optimizer, small linear algebra and the kernel-library cache
+accounting."""
 
-from . import linalg, optim
+from . import compile_cache, linalg, optim
 
-__all__ = ["linalg", "optim"]
+__all__ = ["compile_cache", "linalg", "optim"]

@@ -29,6 +29,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import obs
+
 # Straggler-compaction sizing shared by every fit driver: below this batch
 # size the compaction stage is not worth its gather.
 COMPACT_MIN_BATCH = 4096
@@ -338,7 +340,9 @@ def minimize_lbfgs_batched(
     if compact and n_live > 0 and k < max_iters:
         # n_live <= cap here: the loop only exits early once the stragglers
         # fit the cap.  Fill slots repeat row bsz-1 and are dropped on the
-        # scatter, as in the reference's size=cap gather.
+        # scatter, as in the reference's size=cap gather.  Counted once per
+        # compaction (the reference counts its compacted programs' traces)
+        obs.counter("optim.stage2_compact_traces").inc()
         live = torch.nonzero(~(state.converged | state.failed)).squeeze(1)
         idx = torch.full((cap,), bsz, dtype=torch.long, device=x0.device)
         idx[:n_live] = live

@@ -30,7 +30,18 @@ MODULES = {
     "ops.lagmat": "ops.lagmat",
     "ops.cuda_kernels": "ops.pallas_kernels",
     "reliability.status": "reliability.status",
+    "reliability.sanitize": "reliability.sanitize",
+    "reliability.watchdog": "reliability.watchdog",
+    "reliability.runner": "reliability.runner",
+    "reliability.faultinject": "reliability.faultinject",
+    "reliability.plan": "reliability.plan",
     "stats.tests": "stats.tests",
+    "index": "index",
+    "obs.core": "obs.core",
+    "obs.memory": "obs.memory",
+    "obs.promsink": "obs.promsink",
+    "obs.tracing": "obs.tracing",
+    "utils.compile_cache": "utils.compile_cache",
 }
 
 _DEVICE = ({"device"}, set())
