@@ -84,18 +84,42 @@ Phases; each failure makes the script exit non-zero with no result line:
    seeded data faults (interior NaN runs on 1 % of rows, inf spikes on
    0.1 %, constant and all-NaN rows on 0.05 % each) and ``failing_fit``
    on 3 x 8 rows (failure budgets 1, 2 and 99) the status counts must be
-   exact, the primary and retry rungs must run the CSS kernels on the
-   register route (the primary also ``hr_moments``) and the fallback rung
-   on ``"eager"`` with no kernel, and the OK rows must match a plain fit
-   of the sanitized panel; then ``tools/obs_report.py --check`` on the
+   exact, the primary rung (the panel), the retry rung (32 padded rows)
+   and the fallback rung (``backend="auto"``, 16 padded rows, no
+   compaction) must each run the CSS kernels on the register route, the
+   primary also ``hr_moments`` and the other two none, and the OK rows
+   must match a plain fit of the sanitized panel bit for bit, the same
+   faulted fit again to the same bits; then ``tools/obs_report.py
+   --check`` on the
    stream, the port's ``validate_textfile`` on the textfile, the device
    source of ``obs.peak_memory()``, the span names in a
    ``torch.profiler`` capture, the warm fit's wall with the plane off and
    on, and the kernel libraries' program-cache counts.
+10. drive the journaled chunk walk (``reliability.fit_chunked(arima.fit,
+   ...)``) over the 1,000,000 x 1,000 headline panel in four chunks of
+   250,000 rows, the journals under ``chiprun_out/chip_smoke_chunked/``
+   (cleared first; the shards deleted at the end, the manifests kept),
+   with the launch counts set to 0 before each walk and read after it:
+   ``hr_moments`` must run twice per chunk fitted in every walk.  (a) In
+   memory, pipelined: four chunks committed in the background, each
+   chunk bit for bit a plain ``resilient_fit`` of its rows under the
+   walk's align mode; (b) serial == (a); (c) crashed by
+   ``faultinject.crash_after_commits(2, mid_commit=True)``, then resumed:
+   == (a), one chunk resumed, three refitted; (f) ``oom_fit`` at 100,000
+   rows: two halvings (250,000 -> 125,000 -> 62,500), then == a plain
+   walk at 62,500; (g) a delta walk of a copy with rows 500,000-502,499
+   revised (``delta_warmstart=False``): three chunks adopted with no
+   launch, one refitted, == the cold walk of the revised panel; (h) a
+   write-back sink whose shards read back == (a); (d) host-resident
+   (``HostChunkSource`` of a numpy copy, the panel freed on the card):
+   == (a), ``h2d_bytes`` == the panel's bytes, peak device memory below
+   (a)'s; (e) ``NpzShardSource`` of the first 250,000 rows == (a)'s rows.
 
 The line before the last is a JSON object with one entry per kernel, and
 earlier lines JSON objects with the lag route's times, bounds and
-launches and with phase 9's walls, launches and counts; the last line is
+launches, with phase 9's walls, launches and counts, and with phase 10's
+(``{"chunked_walk": ...}``: walls and launches of each walk, the peaks
+of device memory, the commit and staging overlap); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2300,6 +2324,239 @@ def phase_resilient(chk: Checks, device, n_built: int) -> dict:
     return out
 
 
+CHUNK_ROWS = 250_000  # phase 10's chunk: four chunks of the headline panel
+NPZ_ROWS = 250_000  # (e)'s npz cut: 1 GB on disk
+OOM_ROWS = 100_000  # (f): oom_fit's row limit, so 250k -> 125k -> 62,500
+REVISED = (500_000, 502_500)  # (g): revised rows, in the third chunk
+CHUNKED_DIR = (Path(__file__).resolve().parent / "chiprun_out"
+               / "chip_smoke_chunked")
+_FIT_FIELDS = ("params", "neg_log_likelihood", "converged", "iters",
+               "status")
+
+
+def _same_walk(a, b, rows=None) -> bool:
+    """Every field of two walk results the same bits (``rows`` of ``a``
+    when given), NaNs at the same places."""
+    import numpy as np
+
+    sl = slice(None) if rows is None else slice(*rows)
+    return all(np.array_equal(np.asarray(getattr(a, f))[sl],
+                              np.asarray(getattr(b, f)),
+                              equal_nan=np.asarray(getattr(b, f)).dtype.kind
+                              == "f")
+               for f in _FIT_FIELDS)
+
+
+def _committed(d: Path) -> list:
+    m = json.loads((d / "manifest.json").read_text())
+    return [(c["lo"], c["hi"]) for c in m["chunks"]
+            if c["status"] == "committed"]
+
+
+def phase_chunked(chk: Checks, device) -> dict:
+    """Phase 10: the journaled chunk walk (``reliability.fit_chunked``)
+    over the headline panel, in memory, host-resident and from npz
+    shards, with crash and resume, OOM backoff, a delta walk and a sink."""
+    import shutil
+
+    import numpy as np
+
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.reliability import (HostChunkSource,
+                                                        NpzShardSource,
+                                                        faultinject as fi,
+                                                        fit_chunked,
+                                                        resilient_fit,
+                                                        write_npz_shards)
+
+    n_chunks = ROWS // CHUNK_ROWS
+    log(f"phase 10: journaled chunk walk, ARIMA(1,1,1) on {ROWS} x {TIME} "
+        f"in chunks of {CHUNK_ROWS}, journals under {CHUNKED_DIR}")
+    shutil.rmtree(CHUNKED_DIR, ignore_errors=True)
+    CHUNKED_DIR.mkdir(parents=True)
+    out = {"walls_s": {}, "launches": {}, "peak_gib": {}}
+    t_phase = time.perf_counter()
+
+    def walk(name, fit, panel, fitted, **kw):
+        """One fit_chunked walk with the launch counts set to 0 just before
+        it and read just after, and the allocator's peak reset before it;
+        ``fitted`` is how many chunk fits it must run (None: not known)."""
+        kw.setdefault("chunk_rows", CHUNK_ROWS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            return fit_chunked(fit, panel, order=entry.ORDER, device=device,
+                               **kw)
+        finally:
+            torch.cuda.synchronize()
+            out["walls_s"][name] = time.perf_counter() - t0
+            la = {k: ck.LAUNCHES[k] for k in ("css_fwd", "css_bwd",
+                                              "hr_moments")}
+            out["launches"][name] = la
+            out["peak_gib"][name] = (torch.cuda.max_memory_allocated(device)
+                                     / 2**30)
+            log(f"  {name}: {out['walls_s'][name]:.3f} s, launches {la}, "
+                f"peak {out['peak_gib'][name]:.2f} GiB")
+            if fitted is not None:
+                chk.require(la["hr_moments"] == 2 * fitted
+                            and la["css_fwd"] > 0 and la["css_bwd"] > 0,
+                            f"{name}: hr_moments launched 2 x {fitted} "
+                            "chunk fits, the CSS kernels ran")
+
+    y = entry.gen_panel(ROWS, TIME, seed=0, device=device)
+    torch.cuda.synchronize()
+
+    # (a) the in-memory walk, pipelined, journaled
+    dir_a = CHUNKED_DIR / "a"
+    a = walk("a in memory", arima.fit, y, n_chunks, checkpoint_dir=str(dir_a),
+             pipeline=True)
+    pipe_a = a.meta["pipeline"]
+    mode = a.meta["align_mode"]
+    chk.require(_committed(dir_a) == [(lo, lo + CHUNK_ROWS) for lo in
+                                      range(0, ROWS, CHUNK_ROWS)],
+                f"(a) the manifest holds the {n_chunks} chunks committed")
+    chk.require(pipe_a["commits_background"] == n_chunks,
+                f"(a) {pipe_a['commits_background']} commits in the "
+                "background")
+    t0 = time.perf_counter()
+    per_chunk = [resilient_fit(arima.fit, y[lo:lo + CHUNK_ROWS],
+                               order=entry.ORDER, device=device,
+                               align_mode=mode)
+                 for lo in range(0, ROWS, CHUNK_ROWS)]
+    out["walls_s"]["(a)'s chunks as plain resilient fits"] = (
+        time.perf_counter() - t0)
+    chk.require(all(_same_walk(a, r, (lo, lo + CHUNK_ROWS)) for lo, r in
+                    zip(range(0, ROWS, CHUNK_ROWS), per_chunk)),
+                f"(a) each chunk == resilient_fit of its rows under "
+                f"align_mode {mode!r}, bit for bit")
+    del per_chunk
+
+    # (b) the same walk, serial
+    b = walk("b serial", arima.fit, y, n_chunks,
+             checkpoint_dir=str(CHUNKED_DIR / "b"), pipeline=False)
+    chk.require(_same_walk(a, b), "(b) serial == (a) bit for bit")
+    del b
+
+    # (c) crash mid-commit after the second shard, then resume
+    dir_c = CHUNKED_DIR / "c"
+    crashed = False
+    try:
+        walk("c crashed", arima.fit, y, None, checkpoint_dir=str(dir_c),
+             _journal_commit_hook=fi.crash_after_commits(2, mid_commit=True))
+    except fi.SimulatedCrash:
+        crashed = True
+    done = _committed(dir_c)
+    chk.require(crashed and done == [(0, CHUNK_ROWS)],
+                f"(c) SimulatedCrash with {done} committed")
+    c = walk("c resumed", arima.fit, y, n_chunks - len(done),
+             checkpoint_dir=str(dir_c))
+    chk.require(_same_walk(a, c), "(c) resumed == (a) bit for bit")
+    chk.require(c.meta["journal"]["chunks_resumed"] == len(done),
+                f"(c) chunks_resumed {c.meta['journal']['chunks_resumed']}")
+    del c
+
+    # (f) OOM backoff: 250,000 -> 125,000 -> 62,500, then the walk stays
+    f = walk("f OOM backoff", fi.oom_fit(arima.fit, OOM_ROWS), y, 16)
+    events = [e["chunk_rows"] for e in f.meta["oom_events"]]
+    chk.require(f.meta["degraded"] and events == [CHUNK_ROWS, CHUNK_ROWS // 2]
+                and f.meta["chunk_rows_final"] == CHUNK_ROWS // 4
+                and f.meta["chunks_run"] == 16,
+                f"(f) two halvings {events}, chunk_rows_final "
+                f"{f.meta['chunk_rows_final']}, {f.meta['chunks_run']} chunks")
+    f_plain = walk(f"f plain at {CHUNK_ROWS // 4:,}", arima.fit, y, 16,
+                   chunk_rows=CHUNK_ROWS // 4)
+    chk.require(_same_walk(f, f_plain), "(f) == a plain walk at chunk_rows="
+                f"{CHUNK_ROWS // 4:,} bit for bit")
+    del f, f_plain
+
+    # (g) a delta walk: rows 500,000-502,499 revised in every column
+    y2 = y.clone()
+    y2[REVISED[0]:REVISED[1]] = entry.gen_panel(REVISED[1] - REVISED[0],
+                                                TIME, seed=7, device=device)
+    g = walk("g delta", arima.fit, y2, 1,
+             checkpoint_dir=str(CHUNKED_DIR / "g"), delta_from=str(dir_a),
+             delta_warmstart=False)
+    counts = g.meta["delta"]["counts"]
+    chk.require(counts == {"adopted": n_chunks - 1, "warm": 0, "dirty": 1,
+                           "new": 0}, f"(g) delta classes {counts}")
+    g_cold = walk("g cold", arima.fit, y2, n_chunks)
+    chk.require(_same_walk(g, g_cold),
+                "(g) delta == the cold walk of the revised panel bit for bit")
+    del y2, g, g_cold
+
+    # (h) a write-back sink
+    sink_dir = CHUNKED_DIR / "h_sink"
+    h = walk("h sink", arima.fit, y, n_chunks,
+             checkpoint_dir=str(CHUNKED_DIR / "h"), sink=str(sink_dir))
+    parts = sorted(sink_dir.glob("out_*.npz"))
+    back = {}
+    for key, field in (("params", "params"), ("nll", "neg_log_likelihood"),
+                       ("converged", "converged"), ("iters", "iters"),
+                       ("status", "status")):
+        back[field] = np.concatenate([np.load(p)[key] for p in parts])
+    chk.require(h.params is None and len(parts) == n_chunks
+                and all(np.array_equal(back[k], getattr(a, k),
+                                       equal_nan=back[k].dtype.kind == "f")
+                        for k in _FIT_FIELDS),
+                f"(h) {len(parts)} sink shards read back == (a) bit for bit")
+    del h, back
+
+    # (d) the host-resident walk: the panel leaves the card first
+    t0 = time.perf_counter()
+    yh = y.cpu().numpy()
+    del y
+    out["walls_s"]["panel to the host"] = time.perf_counter() - t0
+    d = walk("d host-resident", arima.fit, HostChunkSource(yh), n_chunks,
+             checkpoint_dir=str(CHUNKED_DIR / "d"))
+    staging = d.meta["source"]["staging_pool"]
+    pipe_d = d.meta["pipeline"]
+    chk.require(_same_walk(a, d), "(d) host-resident == (a) bit for bit")
+    chk.require(staging["h2d_bytes"] == yh.nbytes,
+                f"(d) h2d_bytes {staging['h2d_bytes']} == the panel's "
+                f"{yh.nbytes}")
+    peak_a, peak_d = out["peak_gib"]["a in memory"], \
+        out["peak_gib"]["d host-resident"]
+    chk.require(peak_d < peak_a, f"(d) peak device memory {peak_d:.2f} GiB "
+                f"below (a)'s {peak_a:.2f} GiB")
+    log(f"  (d) staging pool {staging}; hidden staging "
+        f"{pipe_d['hidden_staging_s']} of {pipe_d['staging_wall_s']} s, "
+        f"hidden commit {pipe_d['hidden_commit_s']} of "
+        f"{pipe_d['commit_wall_s']} s; (a) hidden commit "
+        f"{pipe_a['hidden_commit_s']} of {pipe_a['commit_wall_s']} s")
+
+    # (e) npz shards of the first 250,000 rows
+    t0 = time.perf_counter()
+    npz_dir = CHUNKED_DIR / "e_npz"
+    write_npz_shards(str(npz_dir), yh[:NPZ_ROWS], rows_per_shard=NPZ_ROWS)
+    out["walls_s"]["npz shards written"] = time.perf_counter() - t0
+    e = walk("e npz shards", arima.fit, NpzShardSource(str(npz_dir)), 1)
+    chk.require(e.meta["align_mode"] == mode and
+                _same_walk(a, e, (0, NPZ_ROWS)),
+                "(e) npz walk == (a)'s rows bit for bit")
+    del e, yh
+
+    out["overlap"] = {
+        "a in memory": {k: pipe_a[k] for k in (
+            "commit_wall_s", "hidden_commit_s", "driver_blocked_s",
+            "overlap_efficiency", "staging_wall_s", "hidden_staging_s")},
+        "d host-resident": {k: pipe_d[k] for k in (
+            "commit_wall_s", "hidden_commit_s", "driver_blocked_s",
+            "overlap_efficiency", "staging_wall_s", "hidden_staging_s",
+            "input_overlap_efficiency")},
+        "d staging pool": staging}
+    out["phase_s"] = time.perf_counter() - t_phase
+    # the journals' manifests stay for inspection; the shards (~1.2 GB)
+    # go, so chiprun_out/ stays small
+    for p in CHUNKED_DIR.rglob("*.npz"):
+        p.unlink()
+    log(f"  phase 10 in {out['phase_s']:.1f} s")
+    return out
+
+
 def build() -> int:
     """Phase 2: every source at once, then load each library; returns how
     many libraries it built."""
@@ -2670,12 +2927,14 @@ def main() -> int:
     search = phase_order_search(chk, device)
     phase_leftovers(chk, main_run.pop("params"), device)
     resilient = phase_resilient(chk, device, n_built)
+    chunked = phase_chunked(chk, device)
     log(json.dumps({"css_lag_route": {
         "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": lag,
         "launches": {"airline fit (8b)": search["airline_launches"],
                      "seasonal grid (8c)": search["grid_seasonal_launches"]},
         "walls_s": {k: v for k, v in search.items() if k.endswith("_s")}}}))
     log(json.dumps({"resilient_fit": resilient}))
+    log(json.dumps({"chunked_walk": chunked}))
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))
         return 1

@@ -49,7 +49,7 @@ from .core import (NULL_SPAN, Span, counter, disable, dump_failure,
                    dump_on_failure, emit_metrics, enable, enable_from_env,
                    enabled, event, first_dispatch, gauge, histogram,
                    last_crash_dump, snapshot, span, stream_path, summary)
-from .memory import PeakMemory, peak_memory
+from .memory import PeakMemory, peak_memory, register_staging_pool
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .promsink import PromTextfileSink
 from .recorder import SCHEMA_VERSION, FlightRecorder
@@ -89,6 +89,7 @@ __all__ = [
     "peak_memory",
     "promsink",
     "recorder",
+    "register_staging_pool",
     "snapshot",
     "span",
     "stream_path",

@@ -9,17 +9,46 @@ degrades to the process's peak resident set via ``resource.getrusage``,
 a labelled diagnostic: the ``source`` field says which probe produced the
 number, so a dashboard cannot mistake host RSS for device memory.
 
-The reference also keeps a registry of host staging pools
-(``register_staging_pool``) for its host-resident chunk walk; it comes
-with that walk, so ``staging_pool_bytes`` stays None here.
+Host-resident chunk walks stage their copies to the card through reusable
+pinned staging buffers (``reliability.source.StagingPool``); those pools
+:func:`register_staging_pool` themselves here, and the probe reports their
+combined peak host footprint as ``staging_pool_bytes`` next to the device
+or RSS reading — a host-resident run's manifest then carries both the
+device peak AND the staging RAM that made it possible.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
+import weakref
 from typing import NamedTuple, Optional
 
-__all__ = ["PeakMemory", "peak_memory"]
+__all__ = ["PeakMemory", "peak_memory", "register_staging_pool"]
+
+# staging pools currently alive in this process (weak: a pool's lifetime
+# belongs to its ChunkSource, never to the probe).  The lock covers both
+# registration and iteration: the probe runs on committer worker threads
+# while another thread may be constructing a source.
+_staging_pools: "weakref.WeakSet" = weakref.WeakSet()
+_staging_pools_mu = threading.Lock()
+
+
+def register_staging_pool(pool) -> None:
+    """Track a staging pool so :func:`peak_memory` reports its bytes.
+
+    ``pool`` must expose ``peak_host_bytes`` (an int attribute); the
+    registry holds it weakly.
+    """
+    with _staging_pools_mu:
+        _staging_pools.add(pool)
+
+
+def _staging_pool_peak() -> Optional[int]:
+    with _staging_pools_mu:
+        pools = list(_staging_pools)
+    total = sum(int(p.peak_host_bytes) for p in pools)
+    return total or None
 
 
 class PeakMemory(NamedTuple):
@@ -27,8 +56,9 @@ class PeakMemory(NamedTuple):
 
     bytes: Optional[int]  # None only when every probe failed
     source: str  # "device" | "host_rss" | "unavailable"
-    # peak host bytes of the host-resident walk's staging pools: None
-    # until that walk is ported (the reference's field, kept for its shape)
+    # combined peak host bytes of registered staging pools (None when no
+    # host-resident walk ran) — reported alongside, never folded into
+    # ``bytes``: staging RAM is host memory regardless of ``source``
     staging_pool_bytes: Optional[int] = None
 
 
@@ -69,10 +99,11 @@ def peak_memory() -> PeakMemory:
     the CPU it degrades to host peak RSS rather than ``None`` — the source
     field says which, and consumers must label accordingly.
     """
+    sp = _staging_pool_peak()
     b = _device_peak()
     if b is not None:
-        return PeakMemory(b, "device")
+        return PeakMemory(b, "device", sp)
     b = _host_peak_rss()
     if b is not None:
-        return PeakMemory(b, "host_rss")
-    return PeakMemory(None, "unavailable")
+        return PeakMemory(b, "host_rss", sp)
+    return PeakMemory(None, "unavailable", sp)

@@ -10,48 +10,122 @@ guarantees at row granularity:
 - :mod:`.sanitize` — input repair/rejection (NaN/Inf/constant/all-NaN)
   with an impute / exclude / raise policy.
 - :mod:`.runner` — :func:`resilient_fit`: sanitize, fit, then a retry ->
-  fallback ladder over the failed subset (perturbed inits, the plain
-  PyTorch backend) before any row is marked ``DIVERGED``.
+  fallback ladder over the failed subset (perturbed inits, the
+  conservative settings) before any row is marked ``DIVERGED``.
+- :mod:`.chunked` — :func:`fit_chunked`: the journaled chunk walk, with
+  bounded out-of-memory backoff and degradation recorded in metadata.
+- :mod:`.plan` — :class:`ExecutionPlan` / :class:`LaneRunner`: the walk's
+  configuration as data and the lane scheduler that owns one prefetch →
+  compute → commit pipeline, plus the allocation-failure classifier
+  :func:`is_resource_exhausted`.
+- :mod:`.committer` — :class:`ChunkCommitter`: the bounded background
+  commit thread (journal commits and host I/O overlap the next chunk's
+  kernels, in order, one writer).
+- :mod:`.prefetcher` — :class:`ChunkPrefetcher`: the input half of the
+  pipeline, staging chunk N+1 on its own CUDA stream while chunk N
+  computes.
+- :mod:`.source` — :class:`ChunkSource`: where the panel's rows live
+  (a tensor, host ``np.ndarray``, npz or parquet shard directories), so
+  a panel that never fully resides on the card walks through pinned
+  staging buffers at O(chunk) device footprint.
+- :mod:`.sink` — :class:`~.sink.WritableChunkSource`: committed results
+  stream out as durable output shards.
+- :mod:`.journal` — :class:`ChunkJournal`: write-ahead per-chunk npz
+  shards + an atomic JSON manifest, so a journaled walk survives process
+  death and resumes bitwise-identical; and the fleet lease protocol.
+- :mod:`.delta` — delta walks: refit only the chunks whose rows changed.
 - :mod:`.watchdog` — :func:`call_with_deadline` / :class:`Deadline`:
   wall-clock budgets for a fit call and for a whole job.
-- :mod:`.plan` — the allocation-failure classifier
-  :func:`is_resource_exhausted` (the rest of the execution plan comes
-  with the journaled chunk walk).
-- :mod:`.faultinject` — deterministic data faults and fit wrappers that
-  drive every rung of the ladder in tests.
+- :mod:`.faultinject` — deterministic data, behavioral, commit and disk
+  faults that drive every recovery path in tests.
 
-The journaled, pipelined chunk walk of the reference (``journal``,
-``sink``, ``source``, ``committer``, ``prefetcher``, ``chunked``,
-``delta``, ``chaos``) is not ported yet.
+The multi-lane walk of the reference (sharded and elastic lanes, the
+job-manifest merge) and its chaos scenarios are not ported yet.
 """
 
-from . import faultinject, plan, runner, sanitize, status, watchdog
-from .plan import OOMBackoffExceeded, is_resource_exhausted
+from . import (chunked, committer, delta, faultinject, journal, plan,
+               prefetcher, runner, sanitize, sink, source, status, watchdog)
+from .chunked import OOMBackoffExceeded, fit_chunked, is_resource_exhausted
+from .committer import ChunkCommitter, CommitterStats
+from .delta import (DeltaError, DeltaPlan, StalePriorError, WarmstartFit,
+                    plan_delta)
+from .journal import (ChunkJournal, FencedError, JournalError, Lease,
+                      LeaseError, StaleJournalError, TornManifestError,
+                      acquire_lease, config_hash, panel_fingerprint,
+                      read_lease)
+from .plan import ExecutionPlan, LaneRunner, LaneSpec, shard_spans
+from .prefetcher import ChunkPrefetcher, PrefetchStats
 from .runner import (ResilientFitResult, RetryRung, default_ladder,
                      resilient_fit)
 from .sanitize import SanitizeReport, sanitize
+from .sink import SinkError, WritableChunkSource
+from .source import (ChunkSource, DeviceChunkSource, HostChunkSource,
+                     NpzShardSource, SourceError, StagingPool, as_source,
+                     write_npz_shards)
 from .status import STATUS_DTYPE, FitStatus, merge_status, status_counts
 from .watchdog import Deadline, DeadlineExceeded, call_with_deadline
 
 __all__ = [
+    "ChunkCommitter",
+    "ChunkJournal",
+    "ChunkPrefetcher",
+    "ChunkSource",
+    "CommitterStats",
     "Deadline",
     "DeadlineExceeded",
+    "DeltaError",
+    "DeltaPlan",
+    "DeviceChunkSource",
+    "ExecutionPlan",
+    "FencedError",
     "FitStatus",
+    "HostChunkSource",
+    "JournalError",
+    "LaneRunner",
+    "LaneSpec",
+    "Lease",
+    "LeaseError",
+    "NpzShardSource",
     "OOMBackoffExceeded",
+    "PrefetchStats",
     "ResilientFitResult",
     "RetryRung",
     "STATUS_DTYPE",
     "SanitizeReport",
+    "SinkError",
+    "SourceError",
+    "StagingPool",
+    "StaleJournalError",
+    "StalePriorError",
+    "TornManifestError",
+    "WarmstartFit",
+    "WritableChunkSource",
+    "acquire_lease",
+    "as_source",
     "call_with_deadline",
+    "chunked",
+    "committer",
+    "config_hash",
     "default_ladder",
+    "delta",
     "faultinject",
+    "fit_chunked",
     "is_resource_exhausted",
+    "journal",
     "merge_status",
+    "panel_fingerprint",
     "plan",
+    "plan_delta",
+    "prefetcher",
+    "read_lease",
     "resilient_fit",
     "runner",
     "sanitize",
+    "shard_spans",
+    "sink",
+    "source",
     "status",
     "status_counts",
     "watchdog",
+    "write_npz_shards",
 ]

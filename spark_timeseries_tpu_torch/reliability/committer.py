@@ -1,0 +1,267 @@
+"""Background chunk committer: overlap journal I/O with device compute
+(port of ``reliability/committer.py``).
+
+The serial chunk walk pays for durability twice per chunk: the driver
+thread blocks on the device->host fetch of the finished chunk, then on
+the npz shard write + fsync + manifest rewrite — and the card idles for
+all of it before the next chunk can even launch.  Spark never billed that
+tax: per-partition compute pipelined with shuffle/persist I/O under lazy
+RDD execution (PAPER.md §3).  This module is the single-process rebuild of
+that overlap: ONE daemon worker thread that drains a bounded FIFO of
+finished chunks, performing for each — strictly in submit order —
+
+1. the host fetch of the chunk's result arrays (``fetch(piece)``),
+2. the durable shard write + atomic manifest update
+   (:meth:`~.journal.ChunkJournal.commit_chunk`),
+
+while the driver thread is already slicing and dispatching the next chunk.
+
+**The journal's commit protocol is preserved exactly**: a single writer
+(this worker is the only thread that touches the journal between
+``submit`` and ``drain``), shard-before-manifest ordering per chunk, and
+manifest updates in chunk order (FIFO queue, one worker — commit N+1 can
+never land before commit N).  A crash with commits in flight therefore
+leaves the same journal states a serial crash can: committed chunks are
+durable, everything after the first in-flight commit is simply
+recomputed on resume — no torn state beyond what the journal already
+tolerates.
+
+**Backpressure**: at most ``depth`` submitted-but-uncommitted chunks
+(``pipeline_depth``); ``submit`` blocks when the window is full, bounding
+both host memory (fetched-but-unwritten arrays) and the work a crash can
+lose.  Time the driver spends blocked here (and in ``drain``) is the
+commit cost the pipeline FAILED to hide; :meth:`stats` reports it next to
+the total commit wall so the driver can publish overlap efficiency
+(``hidden_commit_s / commit_wall_s``).
+
+**Errors** never vanish into the worker: the first failure (I/O error,
+fault-injection crash, a CUDA out-of-memory error surfacing at fetch
+time for a chunk whose kernels were still queued) is captured with its chunk range,
+subsequent queued commits are discarded uncommitted, and the error is
+re-raised in the driver thread at the next ``submit``/``drain``/``check``
+— or handed over via ``take_error`` so the chunk driver can roll the walk
+back and re-enter OOM backoff.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Callable, NamedTuple, Optional
+
+from .. import obs
+
+__all__ = ["ChunkCommitter", "CommitterStats"]
+
+_STOP = object()
+
+
+class CommitterStats(NamedTuple):
+    """Driver-facing accounting of one committer's lifetime."""
+
+    commits: int  # chunks committed by the worker
+    commit_wall_s: float  # total fetch+write wall inside the worker
+    blocked_s: float  # driver wall spent waiting (backpressure + drain)
+    max_queue_depth: int  # high-water mark of in-flight commits
+
+    @property
+    def hidden_s(self) -> float:
+        """Commit wall the driver never waited for — hidden under compute."""
+        return max(0.0, self.commit_wall_s - self.blocked_s)
+
+
+class _Item(NamedTuple):
+    lo: int
+    hi: int
+    piece: object
+    wall_s: float
+    info: dict  # extra manifest-entry fields captured at submit time
+
+
+class ChunkCommitter:
+    """Bounded in-order background committer for one journaled chunk walk.
+
+    ``fetch(piece) -> dict`` converts a finished chunk into the journal's
+    host-side shard schema (``chunked._commit_arrays``) — it runs on the
+    worker thread, so for non-resilient fits the device->host copy itself
+    overlaps the next chunk's compute (the worker thread's reads are
+    ordered after the fit's kernels on the device's default stream).  ``probe()`` (optional) samples
+    peak memory per commit, matching the serial driver's per-chunk
+    ``peak_hbm_*`` manifest fields.
+    """
+
+    # lock-discipline contract (tools/lint lock-map): attributes shared
+    # between the driver thread and the committer worker, each mutated
+    # only under its declared lock.  Driver-only state (_blocked_s,
+    # _closed, the queue handle) is deliberately not declared.
+    _protected_by_ = {
+        "_error": "_lock",  # worker sets, driver clears via take_error
+        "_commits": "_lock",
+        "_commit_wall_s": "_lock",
+        "_max_depth": "_lock",
+    }
+
+    def __init__(self, journal, fetch: Callable[[object], dict], *,
+                 depth: int = 2, probe: Optional[Callable] = None,
+                 status_counts: Optional[Callable] = None,
+                 on_commit: Optional[Callable] = None):
+        self._journal = journal
+        self._fetch = fetch
+        self._probe = probe
+        self._status_counts = status_counts
+        # write-back sink hook: called AFTER the journal commit
+        # is durable, with the fetched host arrays — the sink's own write
+        # failure surfaces through the same worker-error machinery
+        self._on_commit = on_commit
+        self.depth = max(1, int(depth))
+        self._q: queue.Queue = queue.Queue(maxsize=self.depth)
+        self._lock = threading.Lock()
+        self._error: Optional[tuple] = None  # (exc, lo, hi)
+        self._commits = 0
+        self._commit_wall_s = 0.0
+        self._blocked_s = 0.0
+        self._max_depth = 0
+        self._closed = False
+        self._worker = threading.Thread(
+            target=self._run, daemon=True, name="chunk-committer")
+        self._worker.start()
+
+    # -- worker side --------------------------------------------------------
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is _STOP:
+                self._q.task_done()
+                return
+            try:
+                if self._error is None:
+                    self._commit_one(item)
+            except BaseException as e:  # noqa: BLE001 - re-raised in driver
+                with self._lock:
+                    if self._error is None:
+                        self._error = (e, item.lo, item.hi)
+            finally:
+                self._q.task_done()
+
+    def _commit_one(self, item: _Item):
+        t0 = time.perf_counter()
+        with obs.span("commit.overlap", lo=item.lo, hi=item.hi):
+            arrays = self._fetch(item.piece)
+            info = dict(item.info)
+            if self._probe is not None:
+                pm = self._probe()
+                info.setdefault("peak_hbm_bytes", pm.bytes)
+                info.setdefault("peak_hbm_source", pm.source)
+                sp = getattr(pm, "staging_pool_bytes", None)
+                if sp is not None:  # host-resident walk staged through a pool
+                    info.setdefault("peak_staging_pool_bytes", sp)
+            if self._status_counts is not None:
+                info.setdefault("status_counts",
+                                self._status_counts(arrays["status"]))
+            self._journal.commit_chunk(item.lo, item.hi, arrays,
+                                       wall_s=item.wall_s, **info)
+            if self._on_commit is not None:
+                self._on_commit(item.lo, item.hi, arrays)
+        with self._lock:
+            self._commits += 1
+            self._commit_wall_s += time.perf_counter() - t0
+
+    # -- driver side --------------------------------------------------------
+
+    def check(self) -> None:
+        """Re-raise the worker's pending error (if any) in the driver."""
+        with self._lock:
+            err = self._error
+        if err is not None:
+            raise err[0]
+
+    def take_error(self) -> Optional[tuple]:
+        """Pop the pending ``(exception, lo, hi)`` so the driver can handle
+        it (OOM rollback) instead of dying.
+
+        Everything still queued BEHIND the failed commit is discarded
+        first (the worker drops items while the error is set; the join
+        here waits for that): those chunks sit at/after the failure in
+        walk order, the driver is about to roll the walk back across
+        them, and committing them would splice soon-to-be-recomputed
+        boundaries into the manifest.  Only then is the error cleared so
+        commits submitted by the rolled-back walk proceed normally."""
+        with self._lock:
+            err = self._error
+        if err is None:
+            return None
+        self._q.join()
+        with self._lock:
+            self._error = None
+        return err
+
+    def submit(self, lo: int, hi: int, piece, *, wall_s: float,
+               **info) -> None:
+        """Queue one finished chunk for background commit.
+
+        Blocks while ``depth`` commits are already in flight (backpressure
+        — the blocked time is accounted as commit cost the pipeline could
+        not hide).  Raises the worker's pending error, if any, BEFORE
+        enqueueing: the driver must not sail past a failed commit.
+        """
+        self.check()
+        if self._closed:
+            raise RuntimeError("submit() on a closed ChunkCommitter")
+        item = _Item(int(lo), int(hi), piece, float(wall_s), info)
+        t0 = time.perf_counter()
+        while True:
+            try:
+                self._q.put(item, timeout=0.05)
+                break
+            except queue.Full:
+                self.check()  # a failed worker will never free the slot
+        self._blocked_s += time.perf_counter() - t0
+        with self._lock:
+            d = self._q.qsize()
+            if d > self._max_depth:
+                self._max_depth = d
+        obs.gauge("committer.queue_depth").set(self._q.qsize())
+
+    def drain(self, *, raise_pending: bool = True) -> Optional[tuple]:
+        """Block until every queued commit is durable, then surface any
+        worker error.  This is the determinism point the OOM-backoff and
+        watchdog-timeout paths synchronize on: after ``drain`` the journal
+        reflects exactly the chunks submitted so far, in order, and the
+        driver is again the only journal writer.
+
+        ``raise_pending=False`` returns the pending ``(exc, lo, hi)``
+        tuple (cleared) instead of raising, so the chunk driver can roll
+        the walk back on a fetch-time OOM."""
+        t0 = time.perf_counter()
+        self._q.join()
+        self._blocked_s += time.perf_counter() - t0
+        obs.gauge("committer.queue_depth").set(0)
+        if raise_pending:
+            self.check()
+            return None
+        return self.take_error()
+
+    def close(self, *, raise_pending: bool = True) -> CommitterStats:
+        """Drain, stop the worker, and return lifetime stats.
+
+        ``raise_pending=False`` is for exception unwinding: the walk is
+        already failing, so a second (pending) commit error must not mask
+        the original — it stays readable via ``take_error``.
+        """
+        if not self._closed:
+            self._closed = True
+            t0 = time.perf_counter()
+            self._q.join()
+            self._blocked_s += time.perf_counter() - t0
+            self._q.put(_STOP)
+            self._worker.join(timeout=30.0)
+        if raise_pending:
+            self.check()
+        return self.stats()
+
+    def stats(self) -> CommitterStats:
+        with self._lock:
+            return CommitterStats(self._commits, self._commit_wall_s,
+                                  self._blocked_s, self._max_depth)

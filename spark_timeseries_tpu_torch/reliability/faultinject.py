@@ -23,16 +23,33 @@ failing as the ladder gathers it into retry sub-batches —
 batch exceeds a row threshold, and :func:`hanging_fit` stalls designated
 fit calls past any watchdog budget.
 
-The commit, lane, request, transport and disk faults of the reference
-module drive the journaled chunk walk and the serving layer, which are not
-ported yet; they arrive with them.
+**Commit faults** (the chunk journal): :func:`kill_after_commits` and
+:func:`crash_after_commits` are journal commit hooks that SIGKILL the
+process / raise :class:`SimulatedCrash` after N durable chunk commits
+(between or mid commit, selectable), simulating preemption exactly where
+it hurts; :func:`tear_file` truncates a manifest or shard to a prefix,
+simulating a torn write on a non-atomic filesystem.
+
+**Disk faults**: :func:`disk_fault_schedule` maps a seed to a
+deterministic per-write fault sequence (EIO / ENOSPC / torn-at-fsync /
+pass) and :class:`disk_faults` installs it as the journal's process-wide
+disk-fault hook (:func:`~.journal.set_disk_fault_hook`), so the REAL
+durable write paths fail on cue: refusals surface as ``OSError``, torn
+files are rejected loudly by readers and recomputed by recovery.
+
+The lane faults of the reference module drive the multi-lane walk, and
+its request, server, tenant and wire faults the serving layer; neither
+is ported yet, and the faults arrive with them.
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import signal
+import threading
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -51,6 +68,11 @@ __all__ = [
     "failing_fit",
     "oom_fit",
     "hanging_fit",
+    "kill_after_commits",
+    "crash_after_commits",
+    "tear_file",
+    "disk_fault_schedule",
+    "disk_faults",
 ]
 
 
@@ -268,7 +290,7 @@ def oom_fit(fit_fn: Callable, max_rows: int) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# process faults (deadline watchdog)
+# process faults (deadline watchdog, chunk journal)
 # ---------------------------------------------------------------------------
 
 
@@ -297,3 +319,149 @@ def hanging_fit(fit_fn: Callable, hang_calls, sleep_s: float = 30.0) -> Callable
         return fit_fn(yb, **kwargs)
 
     return wrapped
+
+
+def kill_after_commits(n: int, *, mid_commit: bool = False) -> Callable:
+    """Journal commit hook that SIGKILLs THIS process after ``n`` chunks
+    have been made durable — no atexit, no cleanup, exactly like a
+    preemption.  ``mid_commit=True`` kills after the nth shard is written
+    but BEFORE the manifest names it (the orphan-shard window the
+    write-ahead ordering must make recoverable); otherwise the kill lands
+    after the manifest update (between chunks).  Pass as
+    ``fit_chunked(..., _journal_commit_hook=...)`` in a subprocess.
+    """
+    event = "shard_written" if mid_commit else "committed"
+    seen = {"n": 0}
+
+    def hook(ev: str, lo: int) -> None:
+        if ev != event:
+            return
+        seen["n"] += 1
+        if seen["n"] >= n:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    return hook
+
+
+def crash_after_commits(n: int, *, mid_commit: bool = False) -> Callable:
+    """Like :func:`kill_after_commits` but raises :class:`SimulatedCrash`
+    instead of dying — the in-process variant for tests that want to crash
+    and resume inside one interpreter (same journal state on disk, no
+    subprocess round trip)."""
+    event = "shard_written" if mid_commit else "committed"
+    seen = {"n": 0}
+
+    def hook(ev: str, lo: int) -> None:
+        if ev != event:
+            return
+        seen["n"] += 1
+        if seen["n"] >= n:
+            raise SimulatedCrash(
+                f"simulated process death after {n} {event} events")
+
+    return hook
+
+
+def tear_file(path: str, keep_frac: float = 0.5) -> None:
+    """Truncate ``path`` to a prefix, simulating a torn write (a crash on a
+    filesystem without atomic replace, or a partially flushed page).  Torn
+    manifests must be REJECTED on resume (``TornManifestError``), torn
+    shards silently downgraded to a recompute."""
+    size = os.path.getsize(path)
+    keep = max(1, int(size * keep_frac))
+    with open(path, "r+b") as f:
+        f.truncate(keep)
+
+
+# ---------------------------------------------------------------------------
+# disk faults (the durable write paths themselves fail)
+# ---------------------------------------------------------------------------
+
+
+def disk_fault_schedule(seed: int, n: int, *, eio_frac: float = 0.05,
+                        enospc_frac: float = 0.05,
+                        torn_frac: float = 0.05) -> list:
+    """A deterministic per-write disk-fault plan: ``n`` entries drawn
+    from ``{"pass", "eio", "enospc", "torn"}`` with the given rates, from
+    the reference's numpy generator (the same seed gives the same plan in
+    both packages).  ``eio`` and ``enospc`` refuse the write before any
+    bytes land; ``torn`` lets the replace land then truncates the file (a
+    lying fsync — readers must reject the bytes loudly, recovery must
+    recompute)."""
+    if eio_frac + enospc_frac + torn_frac > 1.0:
+        raise ValueError("fault fractions must sum to at most 1.0")
+    rng = np.random.default_rng(int(seed))
+    u = rng.random(int(n))
+    out = []
+    for x in u:
+        if x < eio_frac:
+            out.append("eio")
+        elif x < eio_frac + enospc_frac:
+            out.append("enospc")
+        elif x < eio_frac + enospc_frac + torn_frac:
+            out.append("torn")
+        else:
+            out.append("pass")
+    return out
+
+
+class disk_faults:
+    """Context manager installing a :func:`disk_fault_schedule` as the
+    process-wide journal disk-fault hook
+    (:func:`~.journal.set_disk_fault_hook`).
+
+    Each GUARDED durable write — journal shards and manifests, input and
+    output shards (``kind="durable"``), and the serving layer's
+    ``write_ahead`` / ``result`` kinds once it is ported — consumes the
+    next schedule entry; past the end every write passes (faults are a
+    finite storm, not a dead disk).  ``kinds`` restricts the fault to a
+    write class and ``path_substr`` to matching paths; filtered-out writes
+    pass WITHOUT consuming schedule entries, so a schedule's shape is
+    independent of unrelated background writes.  ``log`` records ``(kind,
+    path, verdict)`` per faulted consult.
+
+    Concurrent durable writers (the driver, the committer thread, a sink
+    writer) all consult the one installed hook; the schedule cursor and
+    the fault log advance under a lock so each entry is consumed exactly
+    once.
+    """
+
+    _protected_by_ = {
+        "_i": "_lock",
+        "log": "_lock",
+    }
+
+    def __init__(self, schedule, *, kinds: Optional[tuple] = None,
+                 path_substr: Optional[str] = None):
+        self._schedule = list(schedule)
+        self._kinds = None if kinds is None else tuple(kinds)
+        self._path_substr = path_substr
+        self._i = 0
+        self._lock = threading.Lock()
+        self._prev = None
+        self.log: list = []
+
+    def _hook(self, path: str, kind: str) -> str:
+        if self._kinds is not None and kind not in self._kinds:
+            return "pass"
+        if self._path_substr is not None and self._path_substr not in path:
+            return "pass"
+        with self._lock:
+            i = self._i
+            self._i += 1
+            verdict = (self._schedule[i] if i < len(self._schedule)
+                       else "pass")
+            if verdict != "pass":
+                self.log.append((kind, path, verdict))
+        return verdict
+
+    def __enter__(self) -> "disk_faults":
+        from . import journal
+
+        self._prev = journal.set_disk_fault_hook(self._hook)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from . import journal
+
+        journal.set_disk_fault_hook(self._prev)

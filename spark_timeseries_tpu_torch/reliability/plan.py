@@ -1,20 +1,56 @@
-"""Execution plan of the chunk walk: the resource-exhaustion classifier
-(port of the head of ``reliability/plan.py``).
+"""Execution plan + lane scheduler: the chunk walk as data, then as code
+(port of ``reliability/plan.py``, its single-lane half).
 
-Only the part of the reference module that the resilient fit path needs is
-here: :class:`OOMBackoffExceeded`, the allocation-failure markers and
-:func:`is_resource_exhausted`, which ``runner.resilient_fit`` uses to skip
-crash dumps for errors a chunk driver above it recovers from.  The rest of
-the reference module — ``ExecutionPlan``, ``LaneSpec``, ``LaneRunner``,
-``LaneSupervisor``, ``WorkQueue``, ``RestagedPanel`` and ``shard_spans`` —
-belongs to the journaled chunk walk and is not ported yet.
+The walk's configuration is an explicit :class:`ExecutionPlan` (spans,
+lanes, budgets as *data*), and the walk itself is :class:`LaneRunner` —
+the per-lane scheduler that owns exactly one prefetch → compute → commit
+pipeline over one contiguous row span.  ``fit_chunked`` builds one plan
+with one lane; the serial walk and the pipelined walk are the same plan
+with different knob values.
+
+Plan knobs (lanes, pipeline depths) are deliberately EXCLUDED from the
+journal's config hash: they move work between threads without changing a
+byte of any chunk, so a serial journal resumes under a pipelined walk and
+the other way round.
+
+Allocation failures are classified by :func:`is_resource_exhausted`:
+``torch.cuda.OutOfMemoryError``, ``MemoryError`` and RuntimeErrors whose
+message carries an out-of-memory marker (the simulated
+``RESOURCE_EXHAUSTED`` of ``faultinject.oom_fit`` among them).  Such a
+failure halves the lane's chunk size (bounded backoff); any other error
+propagates unchanged.
+
+The multi-lane half of the reference module — ``RestagedPanel``,
+``WorkQueue`` and ``LaneSupervisor``, the sharded and elastic walks — is
+not ported yet.  ``LaneRunner`` keeps the span-stealing surface
+(``try_steal``, ``close_steals``, ``progress``) those walks drive.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
 import torch
 
-__all__ = ["OOMBackoffExceeded", "is_resource_exhausted"]
+from .. import obs
+from . import committer as committer_mod
+from . import prefetcher as prefetcher_mod
+from . import source as source_mod
+from . import watchdog as watchdog_mod
+from .runner import _host, resilient_fit
+from .status import STATUS_DTYPE, FitStatus, status_counts
+
+__all__ = [
+    "ExecutionPlan",
+    "LaneRunner",
+    "LaneSpec",
+    "OOMBackoffExceeded",
+    "is_resource_exhausted",
+    "shard_spans",
+]
 
 # substrings of allocation-failure messages: the reference runtime's
 # RESOURCE_EXHAUSTED, and the CUDA caching allocator's "CUDA out of
@@ -40,3 +76,794 @@ def is_resource_exhausted(e: BaseException) -> bool:
         return False
     msg = str(e)
     return any(m in msg for m in _OOM_MARKERS)
+
+
+def _block_until_ready(out) -> None:
+    """Wait for the kernels behind every CUDA tensor field of a fit result
+    (the watchdog's barrier: it runs inside the deadline window)."""
+    for d in {f.device for f in out
+              if isinstance(f, torch.Tensor) and f.device.type == "cuda"}:
+        torch.cuda.current_stream(d).synchronize()
+
+
+class LaneSpec(NamedTuple):
+    """One lane of the walk: a contiguous row span and (optionally) the
+    device that owns it.  ``device=None`` means "wherever the caller's
+    panel lives" — the single-device walk."""
+
+    shard_id: int
+    lo: int  # global row offset (inclusive)
+    hi: int  # global row offset (exclusive)
+    device: Optional[object] = None  # torch.device of a sharded lane
+
+
+class ExecutionPlan(NamedTuple):
+    """The whole walk as data: spans, lanes, budgets, pipeline knobs.
+
+    Built once per ``fit_chunked`` call (and rebuilt identically on a
+    journaled resume — everything that decides a chunk's BYTES is covered
+    by the journal config hash; everything here that is not hashed only
+    decides WHERE/WHEN work happens).
+    """
+
+    n_rows: int
+    chunk_rows: int  # initial chunk size (chunk0)
+    min_chunk_rows: int
+    max_backoffs: int  # per-lane OOM backoff budget
+    resilient: bool
+    policy: str
+    ladder: Optional[tuple]
+    checkpoint_dir: Optional[str]
+    resume: str
+    chunk_budget_s: Optional[float]
+    job_budget_s: Optional[float]
+    pipeline: bool
+    pipeline_depth: int
+    prefetch_depth: int
+    align_mode: Optional[str]  # resolved static plan mode (None: no hint)
+    lanes: Tuple[LaneSpec, ...]  # the lanes THIS process runs
+    process_index: int
+    # GLOBAL shard count: under a multi-process job a process may run a single
+    # lane (or none) of a genuinely sharded walk, and its telemetry/events
+    # must still carry shard tags so the merged timeline stays per-lane
+    n_shards: int = 1
+    # GRID coordinate: an auto-fit order search runs one ordinary
+    # walk per candidate order; ``(grid_index, grid_total)`` places this
+    # walk's plan on that grid so its chunk spans/events/telemetry carry a
+    # ``grid`` tag (tools/obs_report.py renders one timeline lane per
+    # order).  Like the shard/pipeline knobs it is deliberately EXCLUDED
+    # from the journal config hash — the order itself rides in fit_kwargs,
+    # which IS hashed; the coordinate only labels where work happened.
+    grid: Optional[Tuple[int, int]] = None
+    # ELASTIC knobs — like every other plan knob they move work
+    # between lanes without changing a byte, so none are config-hashed.
+    # ``elastic`` is resolved by the driver: True for single-process
+    # multi-lane walks (in a multi-process job a process cannot re-stage
+    # another process's rows, so those keep the fail-fast static layout).
+    elastic: bool = False
+    lane_retries: int = 1  # failed-lane retries before quarantine
+    lane_retry_backoff_s: float = 0.1  # first retry's backoff (doubles)
+    rebalance_threshold: float = 4.0  # steal when a lane's projected
+    # remaining wall exceeds this many mean chunk walls
+
+    @property
+    def sharded(self) -> bool:
+        return self.n_shards > 1
+
+
+def shard_spans(n_rows: int, chunk_rows: int,
+                n_shards: int) -> Sequence[Tuple[int, int]]:
+    """Partition the chunk grid into at most ``n_shards`` contiguous spans.
+
+    The unit of distribution is the CHUNK, not the row: every span is a
+    whole number of ``chunk_rows`` chunks (the last span absorbs the
+    ragged tail), so a sharded walk visits exactly the chunk boundaries
+    the single-device walk would — the invariant the bitwise-identity
+    contract rests on.  Shards are balanced to within one chunk; when
+    there are fewer chunks than shards, the extra shards get no lane.
+    """
+    n_rows = int(n_rows)
+    chunk_rows = max(1, int(chunk_rows))
+    n_chunks = -(-n_rows // chunk_rows)
+    n_lanes = max(1, min(int(n_shards), n_chunks))
+    q, r = divmod(n_chunks, n_lanes)
+    spans, start = [], 0
+    for i in range(n_lanes):
+        take = q + (1 if i < r else 0)
+        lo = start * chunk_rows
+        start += take
+        hi = min(start * chunk_rows, n_rows)
+        spans.append((lo, hi))
+    return spans
+
+
+def _span_times(sp) -> dict:
+    """Wall/process times of a closed chunk span, or ``{}`` when the plane
+    was disabled mid-run (the span degraded to the shared no-op whose
+    times are None — telemetry may lose a row's timings but must never
+    crash the fit it observes)."""
+    if sp.wall_s is None:
+        return {}
+    out = {"wall_s": round(sp.wall_s, 6)}
+    if sp.process_s is not None:
+        out["process_s"] = round(sp.process_s, 6)
+    return out
+
+
+class _TimeoutChunk:
+    """Placeholder for a chunk whose fit never finished; materialized into
+    NaN-param / ``TIMEOUT``-status rows once the parameter width is known
+    (from any finished chunk) at assembly time."""
+
+    __slots__ = ("lo", "hi")
+
+    def __init__(self, lo: int, hi: int):
+        self.lo, self.hi = lo, hi
+
+
+class _SunkChunk:
+    """Placeholder for a chunk whose result already streamed out through
+    the write-back sink: the walk keeps only its boundaries,
+    so a sink-mode walk's host footprint stays O(chunk) instead of
+    accumulating every chunk's arrays for the final concatenate."""
+
+    __slots__ = ("lo", "hi")
+
+    def __init__(self, lo: int, hi: int):
+        self.lo, self.hi = lo, hi
+
+
+def _piece_status(p) -> np.ndarray:
+    """Status of one chunk result; synthesized when the fit has none."""
+    status = getattr(p, "status", None)
+    conv = _host(p.converged)
+    if status is None:
+        finite = np.isfinite(_host(p.params)).all(axis=-1)
+        return np.where(conv & finite, FitStatus.OK,
+                        FitStatus.DIVERGED).astype(STATUS_DTYPE)
+    return _host(status).astype(STATUS_DTYPE)
+
+
+def _commit_arrays(piece) -> dict:
+    """Host-side arrays of one finished chunk, in the journal shard schema.
+
+    Under the pipelined driver this runs on the committer thread, so for
+    non-resilient fits the device->host fetch itself overlaps the next
+    chunk's device compute."""
+    return {
+        "params": _host(piece.params),
+        "nll": _host(piece.neg_log_likelihood),
+        "converged": _host(piece.converged),
+        "iters": _host(piece.iters),
+        "status": _piece_status(piece),
+    }
+
+
+class _LaneView:
+    """Offset view over a lane's device-local panel: translates the walk's
+    GLOBAL row spans into the lane array's local rows, so the prefetcher
+    and the inline slice path share one expression (and the staged bytes
+    are exactly the bytes the inline slice would produce)."""
+
+    __slots__ = ("arr", "base")
+
+    def __init__(self, arr, base: int):
+        self.arr = arr
+        self.base = int(base)
+
+    def __getitem__(self, s: slice):
+        return self.arr[s.start - self.base:s.stop - self.base]
+
+
+class LaneResult(NamedTuple):
+    """Everything one lane hands back to the driver for merging."""
+
+    spec: LaneSpec
+    pieces: list  # (lo, hi, piece) in walk order; piece may be _TimeoutChunk
+    oom_events: list
+    timeout_events: list
+    tele_chunks: Optional[list]
+    pipe_stats: Optional[committer_mod.CommitterStats]
+    pf_stats: Optional[prefetcher_mod.PrefetchStats]
+    chunk_final: int
+    committer_depth: Optional[int]
+    prefetch_depth: Optional[int]
+
+
+class LaneRunner:
+    """One prefetch → compute → commit lane over one contiguous row span.
+
+    The walk of the reference's ``LaneRunner``, in behavior: the same
+    chunk boundaries, journal protocol and backoff/timeout/rollback
+    semantics.  A sharded plan (not ported yet) runs several of these
+    concurrently, each against its own journal namespace and its own
+    committer/prefetcher pair; the shared pieces of state are the job
+    :class:`~.watchdog.Deadline` (wall clock is global) and the obs
+    metrics registry (counters are merged accounting by design).
+
+    ``values`` is the lane's panel — a tensor, or a
+    :class:`~.source.SourceLane` that stages chunks — whose row 0 is
+    global row ``spec.lo``; the walk itself runs in GLOBAL row coordinates so journal
+    entries, telemetry rows, and result assembly agree across lanes.
+    """
+
+    # lock-discipline contract (tools/lint lock-map): the elastic span
+    # state is mutated by this lane's thread AND by thieves calling
+    # try_steal from supervisor threads — every site holds the span
+    # lock.  _t0 is written once by the lane thread at run() entry
+    # (single writer; readers take the lock) and stays undeclared.
+    _protected_by_ = {
+        "_hi": "_mu",
+        "_busy_hi": "_mu",
+        "_steal_closed": "_mu",
+        "_rows_done": "_mu",
+    }
+
+    def __init__(self, plan: ExecutionPlan, spec: LaneSpec, fit_fn: Callable,
+                 fit_kwargs: dict, values, *, journal=None, deadline=None,
+                 tele: bool = False, fit_key=None, sink=None):
+        self.plan = plan
+        self.spec = spec
+        self.fit_fn = fit_fn
+        self.fit_kwargs = fit_kwargs
+        self.values = values
+        self.journal = journal
+        # write-back sink: every committed chunk's host arrays
+        # stream out through it, and the pieces list keeps boundary-only
+        # placeholders — the walk never accumulates result arrays
+        self.sink = sink
+        self.deadline = deadline or watchdog_mod.Deadline(plan.job_budget_s)
+        self.tele = tele
+        self.fit_key = fit_key
+        # obs attrs tagged with the shard id ONLY for sharded plans: the
+        # single-lane walk's spans/events/meta stay byte-identical to the
+        # pre-plan driver.  A grid-placed plan (auto-fit order search)
+        # additionally tags every span/event with its order's grid index
+        self.tag = {"shard": spec.shard_id} if plan.sharded else {}
+        if plan.grid is not None:
+            self.tag = {**self.tag, "grid": int(plan.grid[0])}
+        # sharded journal entries — commits AND timeout marks — record the
+        # lane that produced them: under elastic reassignment
+        # either kind can land in a namespace whose nominal span does not
+        # contain it, and the merge/validators reconcile by this tag.
+        # Single-device manifests stay byte-identical (no tag).
+        self._owner = {"owner": spec.shard_id} if plan.sharded else {}
+        # source-backed lanes: `values` is a SourceLane over a
+        # host-resident ChunkSource — every chunk, including a whole-span
+        # one, must be STAGED (there is no resident device tensor to hand
+        # through), and the staged buffer is donated back to the allocator
+        # the moment the chunk's fit drops it
+        self._from_source = isinstance(values, source_mod.SourceLane)
+        # elastic-steal state: the span's END is mutable — an
+        # idle lane may steal the grid-aligned tail of the remaining span
+        # (try_steal, called from ANOTHER thread) — so every read of the
+        # span end and every dispatch-boundary decision happens under one
+        # lock, and nothing at/before _busy_hi can ever be stolen
+        self._mu = threading.Lock()
+        self._hi = spec.hi
+        self._busy_hi = spec.lo
+        self._steal_closed = False
+        self._rows_done = 0  # rows COMPUTED by this runner (not resumed)
+        self._t0: Optional[float] = None
+
+        span_rows = spec.hi - spec.lo
+        self.chunk = max(1, min(plan.chunk_rows, span_rows))
+        self.committer = None
+        if journal is not None and plan.pipeline:
+            self.committer = committer_mod.ChunkCommitter(
+                journal, _commit_arrays, depth=plan.pipeline_depth,
+                probe=obs.peak_memory, status_counts=status_counts,
+                on_commit=(sink.write if sink is not None else None))
+        # input-side pipeline: stage chunk N+1's slice while chunk N
+        # computes.  Only sliced walks stage (a whole-span chunk has no
+        # next slice), and pipeline=False stays the fully serial escape
+        # hatch for BOTH halves
+        self.prefetcher = None
+        if plan.pipeline and plan.prefetch_depth and self.chunk < span_rows:
+            panel = values if spec.lo == 0 else _LaneView(values, spec.lo)
+            # the lane's device (a tensor's, or a source lane's target):
+            # on the card the prefetcher stages on a stream of its own
+            self.prefetcher = prefetcher_mod.ChunkPrefetcher(
+                panel, depth=plan.prefetch_depth,
+                device=getattr(values, "device", None))
+
+        self.pieces: list = []
+        self.oom_events: list = []
+        self.timeout_events: list = []
+        self.tele_chunks: Optional[list] = [] if tele else None
+        # boundaries of committed-but-unloadable (torn-shard) chunks: the
+        # recompute must cover the EXACT recorded [lo, hi) — deriving hi
+        # from the current chunk size could overlap a later committed chunk
+        # and break the bitwise-identical-boundaries contract
+        self.lost_boundaries: dict = {}
+
+    # -- slicing -------------------------------------------------------------
+
+    def _slice(self, lo: int, hi: int):
+        base = self.spec.lo
+        return self.values[lo - base:hi - base]
+
+    # -- elastic span --------------------------------------------------------
+
+    @property
+    def hi(self) -> int:
+        """The span's CURRENT end — shrinks when an idle lane steals the
+        tail (``try_steal``)."""
+        with self._mu:
+            return self._hi
+
+    def progress(self) -> dict:
+        """Live walk telemetry for the supervisor's rebalance decision."""
+        with self._mu:
+            return {
+                "rows_done": self._rows_done,
+                "rows_remaining": max(0, self._hi - self._busy_hi),
+                "elapsed_s": (time.perf_counter() - self._t0
+                              if self._t0 is not None else 0.0),
+            }
+
+    def try_steal(self) -> Optional[Tuple[int, int]]:
+        """Give up the grid-aligned tail of this lane's remaining span to
+        an idle lane; returns the stolen ``(lo, hi)`` or None.
+
+        The split lands on the single-device chunk grid (multiples of the
+        plan's ``chunk_rows`` — the invariant the bitwise contract rests
+        on), strictly beyond everything this lane has dispatched or
+        resumed (``_busy_hi``), keeps the victim at least half the
+        remaining whole chunks, and never lands strictly inside a chunk
+        some namespace already committed (a previous run's OOM backoff
+        can leave off-grid committed boundaries; splitting one would make
+        thief and victim double-compute its rows).  Staged slices are
+        invalidated — every prediction past the split is now wrong.
+        """
+        chunk0 = max(1, int(self.plan.chunk_rows))
+        with self._mu:
+            if self._steal_closed:
+                return None
+            hi = self._hi
+            base = max(self._busy_hi, self.spec.lo)
+            g0 = -(-base // chunk0) * chunk0
+            if g0 >= hi:
+                return None
+            n_rem = -(-(hi - g0) // chunk0)  # whole grid chunks left
+            if n_rem < 2:
+                return None
+            split = g0 + ((n_rem + 1) // 2) * chunk0  # victim keeps ceil
+            if self.journal is not None:
+                for _ in range(n_rem):
+                    x = self.journal.committed_crossing(split)
+                    if x is None:
+                        break
+                    split = int(x)
+            if split <= base or split >= hi:
+                return None
+            self._hi = split
+        if self.prefetcher is not None:
+            # staged predictions past the split belong to the thief now;
+            # dropping ALL staged slices is conservative but safe (a kept
+            # span degrades to an inline slice — a miss, never a wrong one)
+            self.prefetcher.invalidate()
+        return split, hi
+
+    def close_steals(self) -> int:
+        """Atomically close the span to further steals and return its
+        FINAL end.  The supervisor calls this the moment a runner's walk
+        fails: the retry/quarantine hand-off re-walks ``[lo, hi)``, and a
+        steal landing between the failure and that hand-off would make
+        the stolen tail both the thief's work and the retry's — duplicate
+        rows in the assembled result.  Steals that completed before the
+        close already shrank ``_hi``, so the returned end excludes them.
+        """
+        with self._mu:
+            self._steal_closed = True
+            return self._hi
+
+    def _note_busy(self, row: int) -> None:
+        with self._mu:
+            if row > self._busy_hi:
+                self._busy_hi = row
+
+    # -- backoff / rollback --------------------------------------------------
+
+    def _record_oom(self, at_row: int, rows: int, e: BaseException) -> int:
+        """Shared backoff bookkeeping for fit-time, staging-time, and
+        commit-time OOMs; returns the halved chunk size (or raises when
+        the budget/floor is spent).  Every staged slice is invalidated
+        first: the halved boundary makes every prefetch prediction wrong,
+        and a freed staged buffer is exactly the memory the retry needs."""
+        plan = self.plan
+        if self.prefetcher is not None:
+            self.prefetcher.invalidate()
+        self.oom_events.append({
+            "at_row": at_row, "chunk_rows": rows,
+            "error": f"{type(e).__name__}: {e}"[:200],
+        })
+        obs.counter("chunked.oom_backoffs").inc()
+        obs.event("chunk.oom_backoff", at_row=at_row, chunk_rows=rows,
+                  **self.tag)
+        if rows <= plan.min_chunk_rows or len(self.oom_events) > plan.max_backoffs:
+            raise OOMBackoffExceeded(
+                f"chunk of {rows} rows still RESOURCE_EXHAUSTED after "
+                f"{len(self.oom_events)} backoffs (floor {plan.min_chunk_rows})"
+            ) from e
+        # the halved retry must not run while the failed fit's frames —
+        # and the device tensors they hold — stay alive through the
+        # traceback (the error itself is kept above as text)
+        e.__traceback__ = None
+        return max(plan.min_chunk_rows, rows // 2)
+
+    def _rollback(self, err):
+        """Handle a committer-detected failure (the fetch/commit of an
+        async-dispatched chunk raised on the worker thread).
+
+        Non-OOM errors re-raise unchanged.  An OOM rolls the walk back to
+        the failed chunk: everything at/after it is uncommitted (in-order
+        queue), so its pieces are dropped, the chunk size halves, and the
+        walk re-enters at the failed row — the pipelined twin of the
+        fit-time backoff.  Returns the (lo, chunk) to continue from."""
+        e, flo, fhi = err
+        if not is_resource_exhausted(e):
+            raise e
+        new_chunk = self._record_oom(flo, fhi - flo, e)
+        err = e = None
+        self.pieces[:] = [p for p in self.pieces if p[0] < flo]
+        if self.sink is not None:
+            # defensive: in-order commits mean spans >= flo never reached
+            # the sink, but the rolled-back grid must not leave any behind
+            self.sink.discard_from(flo)
+        if self.tele:
+            self.tele_chunks[:] = [r for r in self.tele_chunks
+                                   if r["lo"] < flo]
+        return flo, new_chunk
+
+    def _next_span(self, nlo: int, cur_chunk: int):
+        """The span the walk will visit after the current chunk — the
+        prefetcher's prediction.  Mirrors the walk's own boundary logic
+        exactly: torn-shard forced boundaries, then the committed-grid
+        clamp (a staged slice must never sail past a committed chunk's
+        ``lo``).  Returns None at the lane end or when the next span is
+        already committed (the resume path loads it from its shard — no
+        device slice needed)."""
+        span_hi = self.hi
+        if nlo >= span_hi:
+            return None
+        journal = self.journal
+        if journal is not None and journal.committed(nlo) is not None:
+            return None
+        forced = self.lost_boundaries.get(nlo)
+        if forced:
+            return nlo, forced[0]
+        nhi = min(nlo + cur_chunk, span_hi)
+        if journal is not None:
+            nxt = journal.next_committed_lo(nlo)
+            if nxt is not None and nxt < nhi:
+                nhi = nxt
+        return nlo, nhi
+
+    def _drain_for_journal_write(self):
+        """Synchronize with the committer before the driver itself writes
+        the journal (TIMEOUT marks, forced torn-shard recommits): after
+        this, every earlier commit is durable and the driver is the only
+        writer.  Returns a pending error tuple instead of raising so the
+        caller can roll back."""
+        if self.committer is None:
+            return None
+        return self.committer.drain(raise_pending=False)
+
+    # -- the walk ------------------------------------------------------------
+
+    def run(self) -> LaneResult:
+        self._t0 = time.perf_counter()
+        try:
+            # sharded lanes tag their thread (and, via the watchdog, their
+            # budgeted workers) with the shard id: lane-targeted fault
+            # injection and per-lane accounting key on it.  Single-lane
+            # walks stay untagged — byte-identical to the pre-plan driver.
+            with watchdog_mod.lane_context(
+                    self.spec.shard_id if self.plan.sharded else None):
+                self._walk()
+        except BaseException:
+            if self.committer is not None:
+                # the walk is failing: stop the worker without letting a
+                # second (pending) commit error mask the original exception
+                self.committer.close(raise_pending=False)
+            if self.prefetcher is not None:
+                self.prefetcher.close()
+            raise
+        pipe_stats = (self.committer.close()
+                      if self.committer is not None else None)
+        pf_stats = (self.prefetcher.close()
+                    if self.prefetcher is not None else None)
+        return LaneResult(
+            self.spec, self.pieces, self.oom_events, self.timeout_events,
+            self.tele_chunks, pipe_stats, pf_stats, self.chunk,
+            self.committer.depth if self.committer is not None else None,
+            self.prefetcher.depth if self.prefetcher is not None else None)
+
+    def _walk(self) -> None:
+        plan, spec = self.plan, self.spec
+        journal, deadline = self.journal, self.deadline
+        tele = self.tele
+        fit_fn, fit_kwargs = self.fit_fn, self.fit_kwargs
+        lo = spec.lo
+        while True:
+            if self.committer is not None:
+                err = self.committer.take_error()
+                if err is not None:
+                    lo, self.chunk = self._rollback(err)
+                    err = None
+                    continue
+            if lo >= self.hi:
+                # final drain: a commit of one of the last chunks may still
+                # fail (or OOM at fetch) — that must surface (or roll the
+                # walk back) BEFORE assembly reads the pieces
+                err = self._drain_for_journal_write()
+                if err is not None:
+                    lo, self.chunk = self._rollback(err)
+                    continue
+                break
+            if journal is not None:
+                entry = journal.committed(lo)
+                if entry is not None:
+                    piece = journal.load_chunk(entry)
+                    if piece is not None:
+                        self._note_busy(int(entry["hi"]))  # not stealable
+                        if self.sink is not None:
+                            # resume re-emits the chunk through the sink:
+                            # the durable re-write replaces any torn or
+                            # missing output shard with the same bytes,
+                            # which is what makes a killed-and-resumed
+                            # sink directory finalize bitwise-identical
+                            self.sink.write(lo, int(entry["hi"]),
+                                            _commit_arrays(piece))
+                            piece = _SunkChunk(lo, int(entry["hi"]))
+                        self.pieces.append((lo, int(entry["hi"]), piece))
+                        if tele:
+                            self.tele_chunks.append(
+                                {"lo": lo, "hi": int(entry["hi"]),
+                                 "phase": "resumed", **self.tag})
+                        lo = entry["hi"]
+                        # replay the backoff state in effect when the chunk
+                        # committed, so the resumed walk visits the SAME
+                        # boundaries the uninterrupted run would have
+                        self.chunk = int(entry.get("chunk_rows_after",
+                                                   self.chunk))
+                        continue
+                    self.lost_boundaries[lo] = (
+                        int(entry["hi"]),
+                        int(entry.get("chunk_rows_after", self.chunk)))
+            forced = self.lost_boundaries.get(lo)
+            # the chunk boundary is decided and PUBLISHED (as _busy_hi)
+            # under the span lock, so a concurrent try_steal can never
+            # split inside a chunk this iteration is about to dispatch
+            with self._mu:
+                hi = forced[0] if forced else min(lo + self.chunk, self._hi)
+                if journal is not None and not forced:
+                    # keep the walk on the committed grid: after an OOM
+                    # backoff whose halving does not divide the original
+                    # chunk size, a free-running hi would sail past the next
+                    # committed chunk's lo, orphaning it (never matched
+                    # again) and double-counting its rows in the manifest —
+                    # clamp to the boundary instead
+                    nxt = journal.next_committed_lo(lo)
+                    if nxt is not None and nxt < hi:
+                        hi = nxt
+                if hi > self._busy_hi:
+                    self._busy_hi = hi
+            if deadline.exceeded():
+                err = self._drain_for_journal_write()
+                if err is not None:
+                    lo, self.chunk = self._rollback(err)
+                    continue
+                if forced:
+                    self.chunk = forced[1]
+                    self.lost_boundaries.pop(lo, None)
+                self.timeout_events.append({
+                    "at_row": lo, "chunk_rows": hi - lo, "dispatched": False,
+                    "budget_s": deadline.budget_s, "scope": "job"})
+                obs.counter("chunked.timeouts.job").inc()
+                obs.event("chunk.timeout", lo=lo, hi=hi, scope="job",
+                          dispatched=False, **self.tag)
+                if tele:
+                    self.tele_chunks.append({"lo": lo, "hi": hi,
+                                             "phase": "timeout",
+                                             "scope": "job", **self.tag})
+                self.pieces.append((lo, hi, _TimeoutChunk(lo, hi)))
+                if journal is not None:
+                    journal.mark_timeout(lo, hi, scope="job",
+                                         budget_s=deadline.budget_s,
+                                         chunk_rows_after=self.chunk,
+                                         **self._owner)
+                lo = hi
+                continue
+
+            def run_chunk(lo=lo, hi=hi, chunk=self.chunk):
+                # lo/hi/chunk are DEFAULT-ARG SNAPSHOTS, not closure reads:
+                # a watchdog-abandoned thread keeps running after the driver
+                # has mutated the loop variables, and it must keep operating
+                # on ITS chunk's span — never take() the live chunk's staged
+                # slice or slice a torn lo/hi pair mid-update.
+                # acquire this chunk's values INSIDE the watchdog window:
+                # the whole-span chunk hands the lane's tensor through
+                # untouched; sliced chunks come from the prefetcher when
+                # the staged prediction matched (a row view of a tensor
+                # panel, a staged copy of a source's rows).  A staged chunk
+                # can be queued behind an ABANDONED (timed-out)
+                # computation, so the wait on it must be bounded by the
+                # same budget as the compute it feeds — and a staging-time
+                # out-of-memory error surfaces here, through the watchdog,
+                # into the same backoff ladder as a fit-time one.  A
+                # source-backed lane never hands `values` through: a
+                # whole-span chunk still stages to the card (the panel
+                # lives in host RAM/disk, not on the device).
+                if lo == spec.lo and hi == spec.hi and not self._from_source:
+                    vals = self.values
+                elif self.prefetcher is not None:
+                    vals = self.prefetcher.take(lo, hi)
+                else:
+                    vals = self._slice(lo, hi)
+                if self.prefetcher is not None:
+                    # stage the next spans now (up to depth ahead — take()
+                    # just freed this chunk's slot), so they materialize
+                    # while this chunk computes (and, for resilient fits,
+                    # while the ladder blocks on host work)
+                    nlo = hi
+                    for _ in range(self.prefetcher.depth):
+                        nxt = self._next_span(nlo, chunk)
+                        if nxt is None:
+                            break
+                        self.prefetcher.schedule(*nxt)
+                        nlo = nxt[1]
+                if plan.resilient:
+                    return resilient_fit(
+                        fit_fn, vals, policy=plan.policy, ladder=plan.ladder,
+                        **fit_kwargs)
+                out = fit_fn(vals, **fit_kwargs)
+                if plan.chunk_budget_s is not None:
+                    # with a deadline armed the budget must cover the device
+                    # computation, not just its async dispatch — block here,
+                    # INSIDE the watchdog window
+                    # the watchdog must bound the kernels themselves, not
+                    # just their launch
+                    _block_until_ready(out)
+                return out
+
+            phase = None
+            if tele:
+                # the first dispatch of this (fit config, chunk rows) pays
+                # the one-time costs (kernel libraries loaded, allocator
+                # segments for the new shape); later dispatches of the
+                # same shape only execute — the tag keeps the reference's
+                # "compile+execute" / "execute" vocabulary.  Keyed per
+                # shard: every lane's first chunk pays its own
+                phase = ("compile+execute"
+                         if obs.first_dispatch(
+                             (self.fit_key, self.spec.shard_id, hi - lo))
+                         else "execute")
+            sp = obs.span("chunk", lo=lo, hi=hi, phase=phase, **self.tag)
+            t0 = time.perf_counter()
+            try:
+                with sp:
+                    piece = watchdog_mod.call_with_deadline(
+                        run_chunk, plan.chunk_budget_s,
+                        label=f"chunk rows [{lo}, {hi})")
+            except watchdog_mod.DeadlineExceeded:
+                err = self._drain_for_journal_write()
+                if err is not None:
+                    lo, self.chunk = self._rollback(err)
+                    continue
+                if forced:
+                    self.chunk = forced[1]
+                    self.lost_boundaries.pop(lo, None)
+                self.timeout_events.append({
+                    "at_row": lo, "chunk_rows": hi - lo, "dispatched": True,
+                    "budget_s": plan.chunk_budget_s, "scope": "chunk"})
+                obs.counter("chunked.timeouts.chunk").inc()
+                obs.event("chunk.timeout", lo=lo, hi=hi, scope="chunk",
+                          dispatched=True, budget_s=plan.chunk_budget_s,
+                          **self.tag)
+                if tele:
+                    self.tele_chunks.append(
+                        {"lo": lo, "hi": hi, "phase": "timeout",
+                         "scope": "chunk", **self.tag, **_span_times(sp)})
+                self.pieces.append((lo, hi, _TimeoutChunk(lo, hi)))
+                if journal is not None:
+                    journal.mark_timeout(lo, hi, scope="chunk",
+                                         budget_s=plan.chunk_budget_s,
+                                         chunk_rows_after=self.chunk,
+                                         **self._owner)
+                lo = hi
+                continue
+            except Exception as e:  # noqa: BLE001 - filtered just below
+                if not is_resource_exhausted(e):
+                    raise
+                # drain before re-entering backoff: the journal state is
+                # then deterministic at every backoff decision, and a
+                # failed commit of an EARLIER chunk takes precedence over
+                # this chunk's fit-time OOM (it is earlier in the walk)
+                err = self._drain_for_journal_write()
+                if err is not None:
+                    lo, self.chunk = self._rollback(err)
+                    continue
+                if forced:
+                    # a torn-shard recompute is pinned to the committed
+                    # [lo, hi): halving `chunk` would not shrink the
+                    # dispatch (hi stays forced), so retrying is futile —
+                    # fail with the actionable cause instead of burning the
+                    # backoff budget
+                    raise OOMBackoffExceeded(
+                        f"recompute of torn-shard chunk [{lo}, {hi}) hit "
+                        "RESOURCE_EXHAUSTED; its boundaries are fixed by the "
+                        "journal, so backoff cannot help. Free device "
+                        "memory, or restart the job under a fresh "
+                        "checkpoint_dir (or remove this journal explicitly) "
+                        "to let the walk re-chunk."
+                    ) from e
+                self.chunk = self._record_oom(lo, self.chunk, e)
+                continue
+            if forced:  # torn-shard recompute done: restore the recorded walk
+                self.chunk = forced[1]
+                self.lost_boundaries.pop(lo, None)
+            if tele:
+                self.tele_chunks.append({"lo": lo, "hi": hi, "phase": phase,
+                                         **self.tag, **_span_times(sp)})
+            if journal is not None:
+                wall_s = round(time.perf_counter() - t0, 4)
+                owner = self._owner
+                if self.committer is not None and not forced:
+                    # background commit: the fetch + shard + manifest update
+                    # overlap the next chunk's dispatch/compute.  chunk_rows
+                    # _after is captured NOW (not at commit time) so the
+                    # recorded backoff state matches the serial walk exactly
+                    try:
+                        self.committer.submit(lo, hi, piece, wall_s=wall_s,
+                                              chunk_rows_after=self.chunk,
+                                              **owner)
+                    except BaseException as se:
+                        err = self.committer.take_error()
+                        # only the worker's OWN re-raised error enters the
+                        # rollback path: an unrelated exception (e.g. a
+                        # Ctrl-C landing while submit blocked) must abort,
+                        # not be converted into an OOM retry
+                        if err is None or err[0] is not se:
+                            raise
+                        lo, self.chunk = self._rollback(err)
+                        continue
+                else:
+                    # forced torn-shard recommits stay synchronous: they are
+                    # rare, their boundaries are pinned by the journal, and
+                    # the serial path keeps their edge semantics exact
+                    err = self._drain_for_journal_write()
+                    if err is not None:
+                        lo, self.chunk = self._rollback(err)
+                        continue
+                    arrays = _commit_arrays(piece)
+                    pm = obs.peak_memory()
+                    journal.commit_chunk(
+                        lo, hi, arrays,
+                        wall_s=wall_s,
+                        peak_hbm_bytes=pm.bytes,
+                        peak_hbm_source=pm.source,
+                        chunk_rows_after=self.chunk,
+                        status_counts=status_counts(arrays["status"]),
+                        # host-resident walks: the staging RAM behind the
+                        # device peak, so oversubscribed post-mortems see
+                        # the job's whole footprint (obs.memory)
+                        **({"peak_staging_pool_bytes": pm.staging_pool_bytes}
+                           if pm.staging_pool_bytes is not None else {}),
+                        **owner,
+                    )
+                    if self.sink is not None:
+                        self.sink.write(lo, hi, arrays)
+            if self.sink is not None:
+                # the committer (or the serial path above) owns the real
+                # piece until its arrays are durable in the sink; the walk
+                # keeps only the boundaries
+                self.pieces.append((lo, hi, _SunkChunk(lo, hi)))
+            else:
+                self.pieces.append((lo, hi, piece))
+            with self._mu:
+                self._rows_done += hi - lo
+            lo = hi
+
+

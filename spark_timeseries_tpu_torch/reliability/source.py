@@ -1,0 +1,1215 @@
+"""Chunk sources: where a chunk walk's rows live — device memory, host RAM,
+or disk (port of ``reliability/source.py``).
+
+A chunk walk over a tensor assumes the WHOLE panel is resident on its
+device before the walk starts, capping a one-card job at whatever fits in
+device memory next to the fit's workspace.  The reference system never had
+that cap: a TimeSeriesRDD lived in executor memory (or spilled to disk) and
+streamed through tasks partition by partition.  Here **the panel becomes a**
+:class:`ChunkSource`, an object the driver asks for one chunk's rows at a
+time:
+
+- :class:`DeviceChunkSource` — the panel is already a tensor; the driver
+  unwraps it and walks the tensor itself.
+- :class:`HostChunkSource` — the panel is a host ``np.ndarray``; each chunk
+  is copied to the card through the staging pool when the walk reaches
+  (or prefetches) it.
+- :class:`NpzShardSource` / :class:`ParquetShardSource` — the panel is a
+  directory of row-partitioned shards on disk; chunks are decompressed
+  into the staging pool and copied, so the panel never fully materializes
+  even in host RAM.
+
+**The staging pool** (:class:`StagingPool`): copies to the card go through
+a small set of REUSABLE page-locked (pinned) host buffers instead of a
+fresh allocation per chunk, so the copy runs as a DMA from a stable
+buffer (``non_blocking=True`` on the caller's current stream — the
+prefetcher's own stream when it stages).  A lease is released only after
+its copy's CUDA event has completed: the buffer is rewritten by the next
+chunk the moment it is back in the pool.  Without a card the buffers are
+ordinary host memory, and a staged chunk is a real copy (``clone``):
+``torch.from_numpy`` would alias the pool buffer, and the next chunk
+would overwrite this one under its fit.  The pool records hits (buffer
+reused), misses (fresh allocation) and its peak host footprint, and
+registers itself with ``obs.memory`` so the peak-memory probe reports
+staging bytes beside the device peak.
+
+**Donated device buffers**: a staged chunk is returned to the driver with
+NO reference retained anywhere in this module or the prefetcher, so the
+moment the chunk's fit has consumed it and the driver's reference dies,
+the caching allocator can recycle its memory for the chunk after next —
+steady-state device footprint is O(prefetch_depth + 1 chunks), not
+O(panel).  The source tracks that contract: every staged tensor carries a
+finalizer, and ``stats()['peak_live_device_bytes']`` is the high-water
+mark of staged bytes whose tensors were still alive.
+
+**Identity contract**: ``source.stage(lo, hi)`` must return exactly the
+bytes ``panel[lo:hi]`` would hold on the device.  Everything downstream —
+journal fingerprints, bitwise identity with the in-memory walk, resume —
+is built on that; a source whose shards disagree on dtype or time length
+is rejected at construction (:class:`SourceError`), BEFORE any compute,
+and a shard that tears after construction fails the read loudly (input
+data is not recomputable — unlike a torn JOURNAL shard, which downgrades
+to a recompute through this same source).  The shard file formats are the
+reference's: either package reads the other's shards.
+
+Sources plug into the walk as ``fit_chunked(fit_fn, source)`` — one
+argument, everything else (journal, watchdog, pipeline) composes
+unchanged.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+import weakref
+import zipfile
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import obs
+from .journal import durable_replace as _durable_replace
+
+__all__ = [
+    "ChunkSource",
+    "DeviceChunkSource",
+    "HostChunkSource",
+    "NpzShardSource",
+    "ParquetShardSource",
+    "SourceError",
+    "SourceLane",
+    "StagingPool",
+    "as_source",
+    "write_npz_shards",
+    "write_parquet_shards",
+]
+
+
+class SourceError(RuntimeError):
+    """A chunk source is malformed (mixed dtype/shape across shards, torn
+    or missing input shard, non-2-D data).  Raised BEFORE compute where
+    detectable at construction; at read time for damage that appears
+    later.  Input data is not recomputable, so this never downgrades
+    silently."""
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _target_device(device) -> torch.device:
+    """The device a staged chunk goes to: ``None`` means the card, as every
+    entry point; ``"cuda"`` without a card raises (no quiet CPU walk)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a chunk source stages to 'cuda' but no CUDA device is "
+            "available; pass device='cpu' in the fit kwargs to walk the "
+            "plain PyTorch path on the host")
+    return device
+
+
+class StagingPool:
+    """Reusable host staging buffers for chunk-sized copies to the card.
+
+    ``acquire(rows)`` leases a ``[rows, t]`` view of a pooled buffer
+    (reusing any free buffer with enough capacity — a *hit* — else
+    allocating one, a *miss*); ``lease.release()`` returns it.  The pool
+    never copies or zeroes: the caller overwrites the leased view before
+    the transfer.  Buffers are pinned (page-locked) when a card is present,
+    so the copy is an asynchronous DMA.  Peak leased bytes and peak total
+    footprint are tracked, and the pool registers with ``obs.memory`` so
+    host-resident runs report their staging RAM instead of undercounting
+    host peaks.
+    """
+
+    # lock-discipline contract: the pool is shared across prefetcher
+    # workers and lane threads — free list and accounting mutate only
+    # under _lock.
+    _protected_by_ = {
+        "_free": "_lock",
+        "_n_buffers": "_lock",
+        "hits": "_lock",
+        "misses": "_lock",
+        "in_use_bytes": "_lock",
+        "peak_in_use_bytes": "_lock",
+        "total_bytes": "_lock",
+        "peak_host_bytes": "_lock",
+    }
+
+    def __init__(self, n_cols: int, dtype):
+        self.n_cols = int(n_cols)
+        self.dtype = np.dtype(dtype)
+        self.pinned = torch.cuda.is_available()
+        self._free: list = []  # host tensors, any capacity
+        self._lock = threading.Lock()
+        self._n_buffers = 0
+        self.hits = 0
+        self.misses = 0
+        self.in_use_bytes = 0
+        self.peak_in_use_bytes = 0
+        self.total_bytes = 0
+        self.peak_host_bytes = 0
+        obs.register_staging_pool(self)
+
+    class _Lease:
+        __slots__ = ("pool", "buf", "tensor", "view", "_released")
+
+        def __init__(self, pool, buf, rows):
+            self.pool = pool
+            self.buf = buf
+            self.tensor = buf[:rows]  # the copy's source
+            self.view = self.tensor.numpy()  # read_rows fills this
+            self._released = False
+
+        def release(self):
+            if not self._released:
+                self._released = True
+                self.pool._release(self.buf)
+
+    def acquire(self, rows: int) -> "StagingPool._Lease":
+        rows = int(rows)
+        with self._lock:
+            # smallest free buffer that fits: keeps big buffers available
+            # for big requests after OOM backoff has mixed chunk sizes
+            fits = [b for b in self._free if b.shape[0] >= rows]
+            if fits:
+                buf = min(fits, key=lambda b: b.shape[0])
+                self._free.remove(buf)
+                self.hits += 1
+            else:
+                buf = torch.empty((rows, self.n_cols),
+                                  dtype=_torch_dtype(self.dtype),
+                                  pin_memory=self.pinned)
+                self.misses += 1
+                self._n_buffers += 1
+                self.total_bytes += buf.nbytes
+                self.peak_host_bytes = max(self.peak_host_bytes,
+                                           self.total_bytes)
+            self.in_use_bytes += buf.nbytes
+            self.peak_in_use_bytes = max(self.peak_in_use_bytes,
+                                         self.in_use_bytes)
+        return StagingPool._Lease(self, buf, rows)
+
+    def _release(self, buf) -> None:
+        with self._lock:
+            self.in_use_bytes -= buf.nbytes
+            self._free.append(buf)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "pool_hits": self.hits,
+                "pool_misses": self.misses,
+                "pool_buffers": self._n_buffers,
+                "pool_bytes": self.total_bytes,
+                "peak_host_bytes": self.peak_host_bytes,
+            }
+
+
+class ChunkSource:
+    """Base class: a ``[n_rows, n_cols]`` panel the driver reads in row
+    chunks.  Subclasses implement :meth:`read_rows` (fill a host buffer)
+    and :meth:`_nan_probe` (streamed align probe); staging, pooling, and
+    the donated-buffer accounting live here.
+    """
+
+    kind = "abstract"
+
+    # lock-discipline contract: staging runs on prefetcher workers while
+    # the driver probes align mode / fingerprint and weakref finalizers
+    # retire buffers from arbitrary threads — every mutation holds _mu.
+    _protected_by_ = {
+        "_align_mode": "_mu",
+        "_fingerprint": "_mu",
+        "_live_device_bytes": "_mu",
+        "_peak_live_device_bytes": "_mu",
+        "h2d_copies": "_mu",
+        "h2d_bytes": "_mu",
+        "h2d_wall_s": "_mu",
+    }
+
+    def __init__(self, shape: Tuple[int, int], dtype,
+                 pool: Optional[StagingPool] = None):
+        b, t = int(shape[0]), int(shape[1])
+        if b <= 0 or t <= 0:
+            raise SourceError(f"chunk source must be non-empty 2-D, "
+                              f"got shape {shape}")
+        self.shape = (b, t)
+        self.ndim = 2
+        self.dtype = np.dtype(dtype)
+        self.nbytes = b * t * self.dtype.itemsize
+        self.default_chunk_rows: Optional[int] = None
+        if pool is not None:
+            # a caller-owned pool shared across sources keeps buffer reuse
+            # across panels, not just chunks — geometry must match or the
+            # leased views would be wrong-shaped
+            if pool.n_cols != t or pool.dtype != self.dtype:
+                raise SourceError(
+                    f"shared staging pool is [*, {pool.n_cols}] "
+                    f"{pool.dtype}, panel needs [*, {t}] {self.dtype}")
+            self._pool = pool
+        else:
+            self._pool = StagingPool(t, self.dtype)
+        self._mu = threading.Lock()
+        self._align_mode: Optional[str] = None
+        self._fingerprint: Optional[str] = None
+        # donated-buffer accounting: bytes of staged device chunks whose
+        # tensors are still alive.  The walk's reference hygiene
+        # (prefetcher slots cleared at take, chunk locals dying with the
+        # fit) is what bounds steady-state device memory at O(chunk); this
+        # counter PROVES it per run instead of asserting it in a docstring.
+        self._live_device_bytes = 0
+        self._peak_live_device_bytes = 0
+        self.h2d_copies = 0
+        self.h2d_bytes = 0
+        self.h2d_wall_s = 0.0
+
+    # -- subclass surface ----------------------------------------------------
+
+    def read_rows(self, lo: int, hi: int, out: np.ndarray) -> None:
+        raise NotImplementedError
+
+    def _nan_probe(self) -> Tuple[bool, bool]:
+        """(any NaN anywhere, any NaN in the last column) — streamed."""
+        raise NotImplementedError
+
+    def fingerprint(self) -> str:
+        raise NotImplementedError
+
+    # -- staging -------------------------------------------------------------
+
+    def stage(self, lo: int, hi: int, device=None):
+        """The device chunk ``panel[lo:hi]`` — host read into a pooled
+        staging buffer, one copy, buffer back to the pool.  ``device``
+        defaults to the card.  On the card the copy runs on the calling
+        thread's current stream from a pinned buffer and the lease is
+        released once the copy's event has completed; on the CPU the chunk
+        is a clone of the buffer.  The returned tensor is DONATED: no
+        reference survives here, and a finalizer keeps the live-bytes
+        accounting honest."""
+        lo, hi = int(lo), int(hi)
+        if not (0 <= lo < hi <= self.shape[0]):
+            raise IndexError(f"stage span [{lo}, {hi}) outside "
+                             f"[0, {self.shape[0]})")
+        device = _target_device(device)
+        n = hi - lo
+        nbytes = n * self.shape[1] * self.dtype.itemsize
+        lease = self._pool.acquire(n)
+        t0 = time.perf_counter()
+        try:
+            with obs.span("stage.h2d", lo=lo, hi=hi, bytes=nbytes):
+                self.read_rows(lo, hi, lease.view)
+                if device.type == "cuda":
+                    arr = lease.tensor.to(device, non_blocking=True)
+                    copied = torch.cuda.Event()
+                    copied.record(torch.cuda.current_stream(device))
+                    # the pool buffer is rewritten by the NEXT chunk the
+                    # moment the lease releases: the copy must be done
+                    copied.synchronize()
+                else:
+                    # torch.from_numpy aliases: the chunk must own its bytes
+                    arr = lease.tensor.clone()
+        finally:
+            lease.release()
+        wall = time.perf_counter() - t0
+        with self._mu:
+            self.h2d_copies += 1
+            self.h2d_bytes += nbytes
+            self.h2d_wall_s += wall
+            self._live_device_bytes += nbytes
+            self._peak_live_device_bytes = max(
+                self._peak_live_device_bytes, self._live_device_bytes)
+        weakref.finalize(arr, self._retire, nbytes)
+        obs.counter("source.h2d_copies").inc()
+        return arr
+
+    def _retire(self, nbytes: int) -> None:
+        with self._mu:
+            self._live_device_bytes -= nbytes
+
+    def __getitem__(self, s: slice):
+        if not isinstance(s, slice) or s.step not in (None, 1):
+            raise TypeError("chunk sources support contiguous row slices")
+        return self.stage(0 if s.start is None else s.start,
+                          self.shape[0] if s.stop is None else s.stop)
+
+    # -- walk support --------------------------------------------------------
+
+    def align_mode(self) -> str:
+        """Static align-mode plan for the whole panel, probed on the HOST
+        (streamed through the source — the panel never touches the device
+        for the probe) and cached: same vocabulary and same answer as
+        ``models.base.align_mode_on_host`` on the materialized panel."""
+        with self._mu:
+            if self._align_mode is not None:
+                return self._align_mode
+        nan_any, nan_last = self._nan_probe()
+        mode = ("dense" if not nan_any
+                else ("no-trailing" if not nan_last else "general"))
+        with self._mu:
+            self._align_mode = mode
+        return mode
+
+    def stats(self) -> dict:
+        """Staging accounting: pool reuse, copy wall/bytes, and the
+        donated-buffer high-water mark (see class docstring)."""
+        with self._mu:
+            out = {
+                "h2d_copies": self.h2d_copies,
+                "h2d_bytes": self.h2d_bytes,
+                "h2d_wall_s": round(self.h2d_wall_s, 6),
+                "peak_live_device_bytes": self._peak_live_device_bytes,
+            }
+        out.update(self._pool.stats())
+        return out
+
+    def reset_peak_live(self) -> None:
+        """Rebase the donated-buffer high-water mark to what is live NOW.
+
+        The chunk driver calls this at walk start so
+        ``peak_live_device_bytes`` in a walk's meta/manifest is THAT
+        walk's footprint, not an earlier (bigger-chunked) walk's.
+        Accounting only: concurrent walks sharing one source see a merged
+        peak.
+        """
+        with self._mu:
+            self._peak_live_device_bytes = self._live_device_bytes
+
+    def stats_delta(self, before: Optional[dict]) -> dict:
+        """``stats()`` with the monotonic counters rebased to ``before``
+        (one source can feed several walks; each walk's meta must report
+        its own staging activity, like the obs counter deltas).  The
+        peak fields are NOT subtracted — peaks have no meaningful delta;
+        ``peak_live_device_bytes`` is instead rebased per walk via
+        :meth:`reset_peak_live`, while the pool's ``peak_host_bytes`` /
+        ``pool_bytes`` are deliberately lifetime values (buffer REUSE
+        across walks is the pool's point)."""
+        now = self.stats()
+        if not before:
+            return now
+        for k in ("h2d_copies", "h2d_bytes", "pool_hits", "pool_misses"):
+            now[k] = now[k] - before.get(k, 0)
+        now["h2d_wall_s"] = round(now["h2d_wall_s"]
+                                  - before.get("h2d_wall_s", 0.0), 6)
+        return now
+
+
+class SourceLane:
+    """One lane's view of a source: LOCAL row coordinates (row 0 is global
+    row ``base``) staged to the lane's device — the source-backed twin of
+    a tensor lane, so :class:`~.plan.LaneRunner` and the prefetcher slice
+    it with the same expressions either way."""
+
+    __slots__ = ("source", "base", "device")
+
+    def __init__(self, source: ChunkSource, base: int = 0, device=None):
+        self.source = source
+        self.base = int(base)
+        self.device = _target_device(device)
+
+    def __getitem__(self, s: slice):
+        return self.source.stage(s.start + self.base, s.stop + self.base,
+                                 device=self.device)
+
+
+class DeviceChunkSource(ChunkSource):
+    """A panel already held as a tensor (a numpy panel is moved to
+    ``device``, the card by default).  The driver unwraps it (``.array``)
+    and walks the tensor itself; this class exists so every input kind has
+    a source spelling."""
+
+    kind = "device"
+
+    def __init__(self, array, device="cuda"):
+        from ..models.base import to_device  # it imports this package
+
+        self.array = (array if isinstance(array, torch.Tensor)
+                      else to_device(array, device))
+        if self.array.ndim != 2:
+            raise SourceError(
+                f"expected [batch, time], got {tuple(self.array.shape)}")
+        super().__init__(tuple(self.array.shape),
+                         str(self.array.dtype).replace("torch.", ""))
+
+    def read_rows(self, lo, hi, out):
+        np.copyto(out, self.array[lo:hi].cpu().numpy())
+
+    def stage(self, lo, hi, device=None):
+        # already on its device: a row slice IS the staged chunk (a view
+        # that nothing downstream writes into)
+        return self.array[int(lo):int(hi)]
+
+    def _nan_probe(self):
+        from ..models import base as model_base
+
+        mode = model_base.align_mode_on_host(self.array)
+        return mode != "dense", mode == "general"
+
+    def fingerprint(self) -> str:
+        from . import journal as journal_mod
+
+        return journal_mod.panel_fingerprint(self.array)
+
+
+# default cap on one staged chunk when the caller gives no chunk_rows: a
+# whole-panel "chunk" would stage the oversubscribed panel in one copy
+# (and allocate a panel-sized pool buffer) — exactly the failure this
+# module exists to remove
+_DEFAULT_SLICE_BYTES = 256 << 20
+
+
+class HostChunkSource(ChunkSource):
+    """A panel in host RAM (``np.ndarray``) — the larger-than-device-memory
+    workhorse.  Chunks are copied to the card through the staging pool as
+    the walk (or its prefetcher) reaches them; nothing else ever moves to
+    the device, so a panel larger than the card walks at O(chunk) device
+    footprint.
+
+    Without an explicit ``chunk_rows`` the walk defaults to chunks of at
+    most ``_DEFAULT_SLICE_BYTES`` (256 MiB) — small panels stay one
+    chunk, big panels never stage whole."""
+
+    kind = "host"
+
+    def __init__(self, values, pool: Optional[StagingPool] = None):
+        arr = np.asarray(values)
+        if arr.ndim != 2:
+            raise SourceError(f"expected [batch, time], got {arr.shape}")
+        self._arr = arr
+        super().__init__(arr.shape, arr.dtype, pool=pool)
+        row_bytes = max(1, self.shape[1] * self.dtype.itemsize)
+        self.default_chunk_rows = max(
+            1, min(self.shape[0], _DEFAULT_SLICE_BYTES // row_bytes))
+
+    def read_rows(self, lo, hi, out):
+        np.copyto(out, self._arr[lo:hi])
+
+    def _nan_probe(self):
+        # streamed in row blocks: a whole-panel isnan mask would allocate
+        # panel_bytes/4 of host RAM
+        nan_any = False
+        block = max(1, (1 << 24) // max(1, self.shape[1]))
+        for lo in range(0, self.shape[0], block):
+            if np.isnan(self._arr[lo:lo + block]).any():
+                nan_any = True
+                break
+        nan_last = bool(np.isnan(self._arr[:, -1]).any())
+        return nan_any, nan_last
+
+    def fingerprint(self) -> str:
+        # the SAME strided-sample fingerprint the in-memory walk computes
+        # on the tensor: a journal written by either residency resumes
+        # under the other (the bytes are the panel's, not the placement's)
+        with self._mu:
+            if self._fingerprint is None:
+                from . import journal as journal_mod
+
+                self._fingerprint = journal_mod.panel_fingerprint(self._arr)
+            return self._fingerprint
+
+
+def _npz_member_header(zf: zipfile.ZipFile, name: str):
+    """(shape, dtype) of one ``.npy`` member without decompressing it."""
+    with zf.open(name) as f:
+        version = np.lib.format.read_magic(f)
+        if version == (1, 0):
+            shape, _forder, dtype = np.lib.format.read_array_header_1_0(f)
+        elif version == (2, 0):
+            shape, _forder, dtype = np.lib.format.read_array_header_2_0(f)
+        else:
+            raise SourceError(f"unsupported npy format {version} in {name}")
+        return shape, dtype
+
+
+class NpzShardSource(ChunkSource):
+    """A panel stored as a directory of row-partitioned ``.npz`` shards.
+
+    Files matching ``*.npz`` are taken in sorted name order; each holds
+    one 2-D array under ``key`` (default: the file's only array).  Shard
+    HEADERS are read at construction — shape/dtype metadata only, no
+    decompression — and a shard whose dtype or time length disagrees with
+    the first is rejected there, before any compute.  Zero-row shards
+    (an empty trailing shard from a generator that rounded up) are
+    tolerated and skipped.  A shard that is unreadable/torn raises
+    :class:`SourceError` naming the file — at construction when the zip
+    structure is damaged, at read time when the payload is.
+
+    Reads keep a 2-shard decompression cache (sequential walks re-read
+    each shard at most once per pass; the prefetch worker and an inline
+    miss may straddle the same shard).  ``default_chunk_rows`` is the
+    first shard's row count, so an un-hinted walk lands its chunk
+    boundaries on shard boundaries.
+    """
+
+    kind = "npz_dir"
+
+    def __init__(self, directory, key: Optional[str] = None,
+                 cache_shards: int = 2):
+        self.directory = os.path.abspath(os.fspath(directory))
+        self.key = key
+        # hidden files excluded: a crashed append can leave a
+        # fully-valid ".tmp-*.npz" orphan behind, and ".tmp-" sorts
+        # before "part_" — counting it as shard 0 would silently shift
+        # every row offset in the panel
+        names = sorted(n for n in os.listdir(self.directory)
+                       if n.endswith(".npz") and not n.startswith("."))
+        if not names:
+            raise SourceError(f"no .npz shards in {self.directory}")
+        self._shards: list = []  # (path, member, row_lo, row_hi, crc)
+        n_cols = dtype = None
+        row = 0
+        for fname in names:
+            path = os.path.join(self.directory, fname)
+            try:
+                with zipfile.ZipFile(path) as zf:
+                    members = [n for n in zf.namelist()
+                               if n.endswith(".npy")]
+                    if key is not None:
+                        member = f"{key}.npy"
+                        if member not in members:
+                            raise SourceError(
+                                f"shard {path} has no array {key!r} "
+                                f"(members: {members})")
+                    elif len(members) == 1:
+                        member = members[0]
+                    else:
+                        raise SourceError(
+                            f"shard {path} holds {len(members)} arrays "
+                            f"({members}); pass key= to pick one")
+                    shape, dt = _npz_member_header(zf, member)
+                    crc = zf.getinfo(member).CRC
+            except SourceError:
+                raise
+            except (OSError, ValueError, KeyError,
+                    zipfile.BadZipFile) as e:
+                raise SourceError(
+                    f"input shard {path} is unreadable/torn ({e}); input "
+                    "data cannot be recomputed — restore the shard or "
+                    "rebuild the source directory") from e
+            if len(shape) != 2:
+                raise SourceError(
+                    f"shard {path} array is {len(shape)}-D "
+                    f"(shape {shape}); expected [rows, time]")
+            if shape[0] == 0:
+                continue  # empty trailing shard: legal, no rows to serve
+            if n_cols is None:
+                n_cols, dtype = shape[1], np.dtype(dt)
+            elif shape[1] != n_cols or np.dtype(dt) != dtype:
+                raise SourceError(
+                    f"shard {path} is [{shape[0]}, {shape[1]}] {dt}, but "
+                    f"the panel is [*, {n_cols}] {dtype}; mixed shard "
+                    "layouts are rejected before compute")
+            self._shards.append((path, member, row, row + shape[0], crc))
+            row += shape[0]
+        if n_cols is None:
+            raise SourceError(
+                f"{self.directory} holds only zero-row shards")
+        super().__init__((row, n_cols), dtype)
+        self.default_chunk_rows = self._shards[0][3] - self._shards[0][2]
+        self._cache_n = max(1, int(cache_shards))
+        self._cache: dict = {}  # path -> (tick, array)
+        self._tick = 0
+
+    def _load(self, path: str, member: str, rows: int) -> np.ndarray:
+        with self._mu:
+            hit = self._cache.get(path)
+            if hit is not None:
+                self._tick += 1
+                self._cache[path] = (self._tick, hit[1])
+                return hit[1]
+        k = member[:-len(".npy")]
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                arr = z[k]
+        except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+            raise SourceError(
+                f"input shard {path} is unreadable/torn ({e}); input data "
+                "cannot be recomputed — restore the shard or rebuild the "
+                "source directory") from e
+        if arr.ndim != 2 or arr.shape != (rows, self.shape[1]) or \
+                arr.dtype != self.dtype:
+            raise SourceError(
+                f"input shard {path} payload is {arr.shape} {arr.dtype}, "
+                f"but its header promised ({rows}, {self.shape[1]}) "
+                f"{self.dtype} — the shard changed after the source "
+                "was opened")
+        with self._mu:
+            self._tick += 1
+            self._cache[path] = (self._tick, arr)
+            while len(self._cache) > self._cache_n:
+                oldest = min(self._cache, key=lambda p: self._cache[p][0])
+                del self._cache[oldest]
+        return arr
+
+    def read_rows(self, lo, hi, out):
+        for path, member, slo, shi, _crc in self._shards:
+            if shi <= lo or slo >= hi:
+                continue
+            a, b = max(lo, slo), min(hi, shi)
+            arr = self._load(path, member, shi - slo)
+            np.copyto(out[a - lo:b - lo], arr[a - slo:b - slo])
+
+    def _nan_probe(self):
+        nan_any = nan_last = False
+        for path, member, slo, shi, _crc in self._shards:
+            arr = self._load(path, member, shi - slo)
+            nan = np.isnan(arr)
+            nan_any = nan_any or bool(nan.any())
+            nan_last = nan_last or bool(nan[:, -1].any())
+            if nan_last:
+                break
+        return nan_any, nan_last
+
+    def append_rows(self, values, rows_per_shard: Optional[int] = None
+                    ) -> "NpzShardSource":
+        """Append NEW series to the shard directory (new ``part_*``
+        files; existing shards untouched) and return a fresh source over
+        the extended directory — this instance's cached headers describe
+        the OLD layout and stay valid for it."""
+        write_npz_shards(self.directory, values,
+                         rows_per_shard=rows_per_shard,
+                         key=self.key or self._member_key(),
+                         append_rows=True)
+        return NpzShardSource(self.directory, key=self.key,
+                              cache_shards=self._cache_n)
+
+    def append_time(self, values) -> "NpzShardSource":
+        """Append new time steps (``values [B, dt]``) to EVERY row —
+        each shard atomically rewritten with its slice of the new
+        columns — and return a fresh source over the grown panel."""
+        write_npz_shards(self.directory, values,
+                         key=self.key or self._member_key(),
+                         append_time=True)
+        return NpzShardSource(self.directory, key=self.key,
+                              cache_shards=self._cache_n)
+
+    def _member_key(self) -> str:
+        member = self._shards[0][1]
+        return member[:-len(".npy")]
+
+    def fingerprint(self) -> str:
+        """Content-derived without decompression: shape/dtype plus every
+        shard's (name, rows, zip CRC-32) — the CRC is computed from the
+        payload bytes by whatever wrote the shard, so edits to any shard
+        change the fingerprint like a content hash would, at zero read
+        cost.  Shard-dir jobs therefore fingerprint differently from the
+        same panel as an in-memory array (those sample values); a
+        journal follows its source spelling."""
+        with self._mu:
+            if self._fingerprint is None:
+                import hashlib
+
+                h = hashlib.sha256(
+                    f"npzdir:{self.shape}:{self.dtype}".encode())
+                for path, _m, slo, shi, crc in self._shards:
+                    h.update(f"{os.path.basename(path)}:"
+                             f"{shi - slo}:{crc:08x}".encode())
+                self._fingerprint = h.hexdigest()[:16]
+            return self._fingerprint
+
+
+def _pyarrow():
+    """Import pyarrow lazily; parquet support is optional and the error
+    must say so instead of an ImportError from the middle of a walk."""
+    try:
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+    except Exception as e:  # pragma: no cover - environment-dependent
+        raise SourceError(
+            "parquet shard support requires pyarrow, which is not "
+            f"available here ({e}); write npz shards instead or install "
+            "pyarrow") from e
+    return pa, pq
+
+
+_PARQUET_DIGEST_KEY = b"spark_ts_sha256"
+
+
+def _parquet_shard_header(path: str):
+    """(rows, n_cols, dtype, digest) of one parquet shard from its footer
+    METADATA only — no row groups are decoded.  ``digest`` is the content
+    sha256 our writer stamps into the file's key-value metadata; ``None``
+    for foreign files (fingerprinting then hashes the file bytes)."""
+    _pa, pq = _pyarrow()
+    pf = pq.ParquetFile(path)
+    meta = pf.metadata
+    schema = pf.schema_arrow
+    if len(schema) != 1:
+        raise SourceError(
+            f"parquet shard {path} has {len(schema)} columns "
+            f"({schema.names}); expected one fixed_size_list column")
+    field = schema.field(0)
+    import pyarrow as pa
+    if not pa.types.is_fixed_size_list(field.type):
+        raise SourceError(
+            f"parquet shard {path} column {field.name!r} is {field.type}; "
+            "expected fixed_size_list<value_type>[n_time]")
+    n_cols = int(field.type.list_size)
+    dtype = np.dtype(field.type.value_type.to_pandas_dtype())
+    digest = None
+    kv = meta.metadata or {}
+    raw = kv.get(_PARQUET_DIGEST_KEY)
+    if raw is not None:
+        digest = raw.decode("ascii", errors="replace")
+    return int(meta.num_rows), n_cols, dtype, digest, field.name
+
+
+class ParquetShardSource(ChunkSource):
+    """A panel stored as a directory of row-partitioned ``.parquet``
+    shards — the arrow sibling of :class:`NpzShardSource`.
+
+    Each shard holds one ``fixed_size_list<dtype>[n_time]`` column (one
+    list per series row).  Files matching ``*.parquet`` are taken in
+    sorted name order; footer METADATA is read at construction — row
+    counts, list width, value dtype, no row-group decode — and a shard
+    whose layout disagrees with the first is rejected there, before any
+    compute.  Zero-row shards are tolerated and skipped; hidden
+    ``.tmp-*`` orphans from a crashed append are excluded, so a torn
+    writer can never shift row offsets.  A shard whose footer is
+    damaged/torn raises :class:`SourceError` naming the file.
+
+    Reads go through the same staging-pool machinery as every other
+    residency, with a 2-shard decompression cache; the float bytes a
+    walk stages are identical to the npz spelling of the same panel, so
+    journals, delta plans, and forecasts are bitwise-interchangeable
+    across the two on-disk layouts.
+    """
+
+    kind = "parquet_dir"
+
+    def __init__(self, directory, key: Optional[str] = None,
+                 cache_shards: int = 2):
+        self.directory = os.path.abspath(os.fspath(directory))
+        self.key = key
+        names = sorted(n for n in os.listdir(self.directory)
+                       if n.endswith(".parquet") and not n.startswith("."))
+        if not names:
+            raise SourceError(f"no .parquet shards in {self.directory}")
+        self._shards: list = []  # (path, column, row_lo, row_hi, digest)
+        n_cols = dtype = column = None
+        row = 0
+        for fname in names:
+            path = os.path.join(self.directory, fname)
+            try:
+                rows, cols, dt, digest, col = _parquet_shard_header(path)
+            except SourceError:
+                raise
+            except Exception as e:
+                raise SourceError(
+                    f"input shard {path} is unreadable/torn ({e}); input "
+                    "data cannot be recomputed — restore the shard or "
+                    "rebuild the source directory") from e
+            if key is not None and col != key:
+                raise SourceError(
+                    f"shard {path} holds column {col!r}, not {key!r}")
+            if rows == 0:
+                continue  # empty trailing shard: legal, no rows to serve
+            if n_cols is None:
+                n_cols, dtype, column = cols, dt, col
+            elif cols != n_cols or dt != dtype or col != column:
+                raise SourceError(
+                    f"shard {path} is [{rows}, {cols}] {dt} column "
+                    f"{col!r}, but the panel is [*, {n_cols}] {dtype} "
+                    f"column {column!r}; mixed shard layouts are rejected "
+                    "before compute")
+            self._shards.append((path, col, row, row + rows, digest))
+            row += rows
+        if n_cols is None:
+            raise SourceError(
+                f"{self.directory} holds only zero-row shards")
+        super().__init__((row, n_cols), dtype)
+        self.default_chunk_rows = self._shards[0][3] - self._shards[0][2]
+        self._cache_n = max(1, int(cache_shards))
+        self._cache: dict = {}  # path -> (tick, array)
+        self._tick = 0
+
+    def _load(self, path: str, column: str, rows: int) -> np.ndarray:
+        with self._mu:
+            hit = self._cache.get(path)
+            if hit is not None:
+                self._tick += 1
+                self._cache[path] = (self._tick, hit[1])
+                return hit[1]
+        _pa, pq = _pyarrow()
+        try:
+            table = pq.read_table(path, columns=[column])
+            col = table.column(column).combine_chunks()
+            arr = np.asarray(col.values).reshape(len(col), self.shape[1])
+        except Exception as e:
+            raise SourceError(
+                f"input shard {path} is unreadable/torn ({e}); input data "
+                "cannot be recomputed — restore the shard or rebuild the "
+                "source directory") from e
+        if arr.shape != (rows, self.shape[1]) or arr.dtype != self.dtype:
+            raise SourceError(
+                f"input shard {path} payload is {arr.shape} {arr.dtype}, "
+                f"but its footer promised ({rows}, {self.shape[1]}) "
+                f"{self.dtype} — the shard changed after the source "
+                "was opened")
+        with self._mu:
+            self._tick += 1
+            self._cache[path] = (self._tick, arr)
+            while len(self._cache) > self._cache_n:
+                oldest = min(self._cache, key=lambda p: self._cache[p][0])
+                del self._cache[oldest]
+        return arr
+
+    def read_rows(self, lo, hi, out):
+        for path, column, slo, shi, _d in self._shards:
+            if shi <= lo or slo >= hi:
+                continue
+            a, b = max(lo, slo), min(hi, shi)
+            arr = self._load(path, column, shi - slo)
+            np.copyto(out[a - lo:b - lo], arr[a - slo:b - slo])
+
+    def _nan_probe(self):
+        nan_any = nan_last = False
+        for path, column, slo, shi, _d in self._shards:
+            arr = self._load(path, column, shi - slo)
+            nan = np.isnan(arr)
+            nan_any = nan_any or bool(nan.any())
+            nan_last = nan_last or bool(nan[:, -1].any())
+            if nan_last:
+                break
+        return nan_any, nan_last
+
+    def append_rows(self, values, rows_per_shard: Optional[int] = None
+                    ) -> "ParquetShardSource":
+        """Append NEW series as additional ``part_*.parquet`` files
+        (existing shards untouched) and return a fresh source."""
+        write_parquet_shards(self.directory, values,
+                             rows_per_shard=rows_per_shard,
+                             key=self.key or self._shards[0][1],
+                             append_rows=True)
+        return ParquetShardSource(self.directory, key=self.key,
+                                  cache_shards=self._cache_n)
+
+    def append_time(self, values) -> "ParquetShardSource":
+        """Append new time steps to EVERY row — each shard atomically
+        rewritten — and return a fresh source over the grown panel."""
+        write_parquet_shards(self.directory, values,
+                             key=self.key or self._shards[0][1],
+                             append_time=True)
+        return ParquetShardSource(self.directory, key=self.key,
+                                  cache_shards=self._cache_n)
+
+    def _shard_digest(self, path: str, digest: Optional[str]) -> str:
+        if digest is not None:
+            return digest
+        # foreign file without our stamped content digest: hash the file
+        # bytes once — same identity guarantee, paid at fingerprint time
+        import hashlib
+
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            for block in iter(lambda: f.read(1 << 20), b""):
+                h.update(block)
+        return h.hexdigest()
+
+    def fingerprint(self) -> str:
+        """Content-derived without decoding row groups: shape/dtype plus
+        every shard's (name, rows, payload sha256).  The digest is
+        stamped into the parquet key-value metadata by
+        :func:`write_parquet_shards`; foreign files fall back to hashing
+        the file bytes.  Like the npz spelling, a shard-dir fingerprint
+        differs from the same panel's in-RAM fingerprint — a journal
+        follows its source spelling."""
+        with self._mu:
+            if self._fingerprint is None:
+                import hashlib
+
+                h = hashlib.sha256(
+                    f"parquetdir:{self.shape}:{self.dtype}".encode())
+                for path, _c, slo, shi, digest in self._shards:
+                    h.update(f"{os.path.basename(path)}:{shi - slo}:"
+                             f"{self._shard_digest(path, digest)}".encode())
+                self._fingerprint = h.hexdigest()[:16]
+            return self._fingerprint
+
+
+def _write_parquet_file(f, values: np.ndarray, column: str) -> None:
+    """Write ``values [rows, T]`` to an open file object as one
+    fixed_size_list column, content digest stamped in the metadata."""
+    import hashlib
+
+    pa, pq = _pyarrow()
+    rows, n_cols = values.shape
+    flat = pa.array(np.ascontiguousarray(values).reshape(-1))
+    col = pa.FixedSizeListArray.from_arrays(flat, n_cols)
+    digest = hashlib.sha256(np.ascontiguousarray(values).tobytes())
+    table = pa.table({column: col})
+    table = table.replace_schema_metadata(
+        {_PARQUET_DIGEST_KEY: digest.hexdigest().encode()})
+    pq.write_table(table, f)
+
+
+def write_parquet_shards(directory, values,
+                         rows_per_shard: Optional[int] = None,
+                         key: str = "values", *, append_rows: bool = False,
+                         append_time: bool = False,
+                         expect_time: Optional[int] = None) -> Sequence[str]:
+    """Write ``values [B, T]`` as a row-partitioned ``.parquet`` shard
+    directory that :class:`ParquetShardSource` reads back — same naming,
+    same durability, and same append semantics as
+    :func:`write_npz_shards` (``expect_time`` included), with the
+    content digest stamped into each shard's key-value metadata."""
+    values = np.asarray(values)
+    if values.ndim != 2:
+        raise SourceError(f"expected [batch, time], got {values.shape}")
+    if append_rows and append_time:
+        raise SourceError("append_rows and append_time are exclusive: "
+                          "appended series and appended time steps are "
+                          "different shard edits")
+    if append_rows or append_time:
+        existing = sorted(n for n in os.listdir(directory)
+                          if n.endswith(".parquet")
+                          and not n.startswith("."))
+        if not existing:
+            raise SourceError(f"nothing to append to: no .parquet shards "
+                              f"in {directory}")
+    if append_time:
+        # validated UP FRONT from footers, and per-shard width-gated so a
+        # killed append re-runs to completion (see write_npz_shards)
+        dt = values.shape[1]
+        headers = []
+        total_rows = 0
+        widths = set()
+        for fname in existing:
+            path = os.path.join(directory, fname)
+            rows, cols, _dt, _dig, col = _parquet_shard_header(path)
+            headers.append((path, rows, cols, col))
+            total_rows += rows
+            widths.add(cols)
+        if total_rows != values.shape[0]:
+            raise SourceError(
+                f"append_time values have {values.shape[0]} rows but the "
+                f"directory holds {total_rows}")
+        if expect_time is not None:
+            allowed = {int(expect_time), int(expect_time) + dt}
+            if not widths <= allowed:
+                raise SourceError(
+                    f"append_time(expect_time={expect_time}) found shard "
+                    f"widths {sorted(widths)}; expected only "
+                    f"{sorted(allowed)}")
+        elif len(widths) > 1:
+            raise SourceError(
+                f"append_time found mixed shard widths {sorted(widths)}; "
+                "pass expect_time= to resume a torn append")
+        paths = []
+        row = 0
+        for path, rows, cols, col in headers:
+            lo, hi = row, row + rows
+            row = hi
+            if expect_time is not None and cols == int(expect_time) + dt:
+                paths.append(path)  # already appended: idempotent skip
+                continue
+            _pa, pq = _pyarrow()
+            table = pq.read_table(path, columns=[col])
+            carr = table.column(col).combine_chunks()
+            old = np.asarray(carr.values).reshape(rows, cols)
+            merged = np.concatenate(
+                [old, values[lo:hi].astype(old.dtype)], axis=1)
+            _durable_replace(path, lambda f, c=col, m=merged:
+                             _write_parquet_file(f, m, c),
+                             suffix=".parquet")
+            paths.append(path)
+        return paths
+    start = 0
+    if append_rows:
+        start = len(existing)
+        rows0, cols0, dt0, _dig, _col = _parquet_shard_header(
+            os.path.join(directory, existing[0]))
+        if values.shape[1] != cols0 or values.dtype != dt0:
+            raise SourceError(
+                f"append_rows values are [*, {values.shape[1]}] "
+                f"{values.dtype}, but the directory holds [*, {cols0}] "
+                f"{dt0} shards")
+        if rows_per_shard is None:
+            rows_per_shard = max(1, rows0)
+    if rows_per_shard is None:
+        raise SourceError("rows_per_shard is required when writing a "
+                          "fresh shard directory")
+    rows_per_shard = max(1, int(rows_per_shard))
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    n = -(-values.shape[0] // rows_per_shard)
+    for i in range(n):
+        lo = i * rows_per_shard
+        hi = min(lo + rows_per_shard, values.shape[0])
+        path = os.path.join(directory, f"part_{start + i:05d}.parquet")
+        _durable_replace(path, lambda f, lo=lo, hi=hi:
+                         _write_parquet_file(f, values[lo:hi], key),
+                         suffix=".parquet")
+        paths.append(path)
+    return paths
+
+
+def as_source(obj, **kwargs) -> ChunkSource:
+    """Coerce a panel spelling into a :class:`ChunkSource`.
+
+    - a ``ChunkSource`` passes through;
+    - a directory path (str / ``os.PathLike``) opens an
+      :class:`NpzShardSource`, or a :class:`ParquetShardSource` when the
+      directory holds ``.parquet`` shards and no ``.npz`` ones
+      (``key=`` rides along either way);
+    - a host ``np.ndarray`` becomes a :class:`HostChunkSource`
+      (host-resident walk — the opt-in this function exists for);
+    - anything else (a tensor, on any device) becomes a
+      :class:`DeviceChunkSource`.
+    """
+    if isinstance(obj, ChunkSource):
+        return obj
+    if isinstance(obj, (str, os.PathLike)):
+        path = os.fspath(obj)
+        if os.path.isdir(path):
+            names = [n for n in os.listdir(path) if not n.startswith(".")]
+            if any(n.endswith(".parquet") for n in names) and \
+                    not any(n.endswith(".npz") for n in names):
+                return ParquetShardSource(path, **kwargs)
+        return NpzShardSource(obj, **kwargs)
+    if isinstance(obj, np.ndarray):
+        return HostChunkSource(obj)
+    return DeviceChunkSource(obj)
+
+
+def write_npz_shards(directory, values, rows_per_shard: Optional[int] = None,
+                     key: str = "values", *, append_rows: bool = False,
+                     append_time: bool = False,
+                     expect_time: Optional[int] = None) -> Sequence[str]:
+    """Write ``values [B, T]`` as a row-partitioned shard directory that
+    :class:`NpzShardSource` reads back — the test/bench/docs helper for
+    producing larger-than-device inputs (real pipelines write shards from
+    their own ingest).
+
+    **Appending** (the tick-feed scenario):
+
+    - ``append_rows=True``: ``values`` are NEW series appended to an
+      existing shard directory as additional ``part_*.npz`` files after
+      the existing ones — clean shards are never rewritten, so a delta
+      walk over the extended directory adopts every old chunk
+      byte-for-byte.  ``rows_per_shard`` defaults to the directory's
+      existing shard size.
+    - ``append_time=True``: ``values [B_existing, dt]`` are new time
+      steps for EVERY existing row; each shard is rewritten atomically
+      (tmp → ``os.replace``) with its row-slice of the new columns —
+      rewriting is unavoidable (every row grows), but a reader never
+      sees a torn shard.  A kill BETWEEN shard rewrites still leaves the
+      directory mixed-width; pass ``expect_time=`` (the pre-append
+      width) to make the call idempotent — shards already at
+      ``expect_time + dt`` are skipped, shards still at ``expect_time``
+      are appended, any other width is rejected.  Re-running the same
+      append with the same values therefore always converges to the
+      fully-appended directory, which is what the tick loop's
+      kill-anywhere resume leans on.
+
+    Both flags assume the ``part_%05d`` naming this function writes.
+    Returns the paths written.
+    """
+    values = np.asarray(values)
+    if values.ndim != 2:
+        raise SourceError(f"expected [batch, time], got {values.shape}")
+    if append_rows and append_time:
+        raise SourceError("append_rows and append_time are exclusive: "
+                          "appended series and appended time steps are "
+                          "different shard edits")
+    if append_rows or append_time:
+        # hidden files excluded (crashed-append .tmp-* orphans, see
+        # NpzShardSource) — they are neither shards to extend nor a
+        # numbering anchor
+        existing = sorted(n for n in os.listdir(directory)
+                          if n.endswith(".npz") and not n.startswith("."))
+        if not existing:
+            raise SourceError(f"nothing to append to: no .npz shards in "
+                              f"{directory}")
+    if append_time:
+        # row-count validated UP FRONT from the zip headers: failing
+        # mid-loop would leave the directory torn across shards (some
+        # rewritten at T+dt, the rest still at T).  With expect_time=
+        # the loop is additionally width-gated per shard, so re-running
+        # the same append finishes a torn one instead of failing.
+        dt_cols = values.shape[1]
+        headers = []
+        total_rows = 0
+        widths = set()
+        for fname in existing:
+            with zipfile.ZipFile(os.path.join(directory, fname)) as zf:
+                member = next(n for n in zf.namelist()
+                              if n.endswith(".npy"))
+                shape, _dt = _npz_member_header(zf, member)
+            headers.append((fname, int(shape[0]), int(shape[1])))
+            total_rows += int(shape[0])
+            widths.add(int(shape[1]))
+        if total_rows != values.shape[0]:
+            raise SourceError(
+                f"append_time values have {values.shape[0]} rows but the "
+                f"directory holds {total_rows}")
+        if expect_time is not None:
+            allowed = {int(expect_time), int(expect_time) + dt_cols}
+            if not widths <= allowed:
+                raise SourceError(
+                    f"append_time(expect_time={expect_time}) found shard "
+                    f"widths {sorted(widths)}; expected only "
+                    f"{sorted(allowed)}")
+        elif len(widths) > 1:
+            raise SourceError(
+                f"append_time found mixed shard widths {sorted(widths)}; "
+                "pass expect_time= to resume a torn append")
+        paths = []
+        row = 0
+        for fname, rows, cols in headers:
+            path = os.path.join(directory, fname)
+            lo, hi = row, row + rows
+            row = hi
+            if expect_time is not None and \
+                    cols == int(expect_time) + dt_cols:
+                paths.append(path)  # already appended: idempotent skip
+                continue
+            with np.load(path, allow_pickle=False) as z:
+                names = list(z.files)
+                k = key if key in names else names[0]
+                old = z[k]
+            merged = np.concatenate(
+                [old, values[lo:hi].astype(old.dtype)], axis=1)
+            _durable_replace(path, lambda f, k=k, m=merged:
+                             np.savez(f, **{k: m}), suffix=".npz")
+            paths.append(path)
+        return paths
+    start = 0
+    if append_rows:
+        # the new series must match the LIVE directory's layout BEFORE
+        # anything is written: a mismatched width/dtype shard under its
+        # final part_* name would make every future source open fail
+        start = len(existing)
+        with zipfile.ZipFile(os.path.join(directory, existing[0])) as zf:
+            member = next(n for n in zf.namelist() if n.endswith(".npy"))
+            shape, dt = _npz_member_header(zf, member)
+        if values.shape[1] != int(shape[1]) or \
+                values.dtype != np.dtype(dt):
+            raise SourceError(
+                f"append_rows values are [*, {values.shape[1]}] "
+                f"{values.dtype}, but the directory holds [*, {shape[1]}] "
+                f"{np.dtype(dt)} shards")
+        if rows_per_shard is None:
+            rows_per_shard = max(1, int(shape[0]))
+    if rows_per_shard is None:
+        raise SourceError("rows_per_shard is required when writing a "
+                          "fresh shard directory")
+    rows_per_shard = max(1, int(rows_per_shard))
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    n = -(-values.shape[0] // rows_per_shard)
+    for i in range(n):
+        lo = i * rows_per_shard
+        hi = min(lo + rows_per_shard, values.shape[0])
+        path = os.path.join(directory, f"part_{start + i:05d}.npz")
+        # durable like every journal write: a crash mid-append must never
+        # leave a torn shard under its final name in a LIVE directory
+        # (fresh directories get the same treatment for free)
+        _durable_replace(path, lambda f, lo=lo, hi=hi:
+                         np.savez(f, **{key: values[lo:hi]}),
+                         suffix=".npz")
+        paths.append(path)
+    return paths

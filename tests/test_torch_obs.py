@@ -397,15 +397,11 @@ def test_compile_cache_env_opt_in(tmp_path, monkeypatch):
 def test_module_exports_match_the_reference(name):
     port = importlib.import_module(f"spark_timeseries_tpu_torch.obs.{name}")
     ref = importlib.import_module(f"spark_timeseries_tpu.obs.{name}")
-    assert sorted(port.__all__) == sorted(set(ref.__all__) - _WAITING)
-
-
-# the staging-pool registry comes with the host-resident chunk walk
-_WAITING = {"register_staging_pool"}
+    assert sorted(port.__all__) == sorted(ref.__all__)
 
 
 def test_package_exports_match_the_reference():
-    assert sorted(obs.__all__) == sorted(set(ref_obs.__all__) - _WAITING)
+    assert sorted(obs.__all__) == sorted(ref_obs.__all__)
     assert sorted(compile_cache.__all__) == sorted(
         importlib.import_module(
             "spark_timeseries_tpu.utils.compile_cache").__all__

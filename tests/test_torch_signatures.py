@@ -35,6 +35,14 @@ MODULES = {
     "reliability.runner": "reliability.runner",
     "reliability.faultinject": "reliability.faultinject",
     "reliability.plan": "reliability.plan",
+    "reliability.journal": "reliability.journal",
+    "reliability.committer": "reliability.committer",
+    "reliability.source": "reliability.source",
+    "reliability.prefetcher": "reliability.prefetcher",
+    "reliability.sink": "reliability.sink",
+    "reliability.delta": "reliability.delta",
+    "reliability.chunked": "reliability.chunked",
+    "forecasting.augment": "forecasting.augment",
     "stats.tests": "stats.tests",
     "index": "index",
     "obs.core": "obs.core",
