@@ -115,11 +115,39 @@ Phases; each failure makes the script exit non-zero with no result line:
    == (a), ``h2d_bytes`` == the panel's bytes, peak device memory below
    (a)'s; (e) ``NpzShardSource`` of the first 250,000 rows == (a)'s rows.
 
+11. drive the order search and the forecast walk over the headline
+   panel, the journals in a temporary directory removed at the end, with
+   the launch counts set to 0 before each step and read after it: (11a)
+   ``models.auto.auto_fit`` of the six default orders (two fused groups
+   through ``arima.fit_grid`` on the CSS kernels) in 250,000-row chunks;
+   (11b) ``fuse=1`` against ``fuse="auto"`` on 100,000 rows: every
+   flipped row's two orders within 1e-3 relative under both runs, the
+   agreeing rows' params within 1e-2; (11c) 11a crashed after five
+   chunk commits, then resumed: 11a bit for bit; (11d)
+   ``stage2="winners"`` on the panel and the stepwise search on 100,000
+   rows; (11e) ``forecasting.ensemble_forecast`` of 11a's search with
+   ``temperature=0`` and 256-path bands over 30 steps in 62,500-row
+   chunks, on the first 250,000 rows (the cut; the search's member fits
+   of those rows): the point forecast bit for bit the per-row winner's
+   ``forecast_chunked`` walk, and one chunk's draws, paths and band sort
+   timed; the fused groups (``fit_grid``) and every member's point walk
+   against ``backend="eager"`` on 10,000 rows (phase 8a's parity bar,
+   1e-5); (11h) the chunk walk of phase 10 (a), ``resilient=False``, on
+   a side CUDA stream, also under ``chunk_budget_s`` (the watchdog
+   worker): the default-stream walk's bits; (11g)
+   ``forecasting.run_backtest`` of ARIMA(1,1,1), four windows, 30 steps,
+   journaled, then crashed after two commits and resumed: the same
+   metrics bit for bit, and one window's parts timed; (11f)
+   ``forecast_chunked`` of GARCH on the volatility panel and of EWMA and
+   additive Holt-Winters on the hourly panel, each equal to the model's
+   own ``forecast``.
+
 The line before the last is a JSON object with one entry per kernel, and
 earlier lines JSON objects with the lag route's times, bounds and
-launches, with phase 9's walls, launches and counts, and with phase 10's
+launches, with phase 9's walls, launches and counts, with phase 10's
 (``{"chunked_walk": ...}``: walls and launches of each walk, the peaks
-of device memory, the commit and staging overlap); the last line is
+of device memory, the commit and staging overlap) and with phase 11's
+(``{"search_forecast": ...}``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2557,6 +2585,469 @@ def phase_chunked(chk: Checks, device) -> dict:
     return out
 
 
+SEARCH_ROWS = 100_000  # 11b's and 11d's stepwise rows
+FORECAST_CHUNK = 62_500  # 11e's chunk: 62,500 x 30 x 256 paths a chunk
+ENSEMBLE_ROWS = 250_000  # 11e's rows: the cut (PERF.md section 4)
+EAGER_ROWS = 10_000  # the eager fused fit and point walk
+HORIZON = 30
+N_SAMPLES = 256
+
+
+def _same_arrays(a, b) -> bool:
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and np.array_equal(
+        a, b, equal_nan=a.dtype.kind == "f")
+
+
+def _finite_rel(got, ref) -> float:
+    """Max |got - ref| / max(1, max |ref|) over the entries finite in
+    both (host arrays); infinite unless both have the same non-finite
+    entries (NaN where NaN, the same infinities), as a non-invertible
+    fit's forecast overflows on either path."""
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    fin = np.isfinite(ref)
+    if got.shape != ref.shape or not np.array_equal(np.isfinite(got), fin) \
+            or not np.array_equal(got[~fin], ref[~fin], equal_nan=True):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    return float(np.abs(got[fin] - ref[fin]).max()
+                 / max(1.0, np.abs(ref[fin]).max()))
+
+
+def _same_search(a, b) -> bool:
+    return all(_same_arrays(getattr(a, f), getattr(b, f)) for f in (
+        "params", "neg_log_likelihood", "converged", "iters", "status",
+        "order_index", "criterion"))
+
+
+def phase_search_forecast(chk: Checks, device) -> dict:
+    """Phase 11: the order search (``models.auto.auto_fit``) and the
+    forecast walk, ensembles and backtests (``forecasting``) over the
+    headline panel, on the CSS, ``hr_moments``, GARCH and EWMA kernels."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch import forecasting as fc
+    from spark_timeseries_tpu_torch.models import (arima, auto, ewma, garch,
+                                                   holtwinters)
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.ops import layout
+    from spark_timeseries_tpu_torch.ops import univariate as uv
+    from spark_timeseries_tpu_torch.reliability import (faultinject as fi,
+                                                        fit_chunked)
+
+    out = {"walls_s": {}, "launches": {}, "peak_gib": {}}
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_search_"))
+    orders = auto.DEFAULT_ORDERS
+
+    def timed(name, fn):
+        """``fn()`` with the launch counts set to 0 just before it and read
+        just after, and the allocator's peak reset before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            out["walls_s"][name] = time.perf_counter() - t0
+            out["launches"][name] = {k: v for k, v in _launches(ck).items()
+                                     if v}
+            out["peak_gib"][name] = (torch.cuda.max_memory_allocated(device)
+                                     / 2**30)
+            log(f"  {name}: {out['walls_s'][name]:.3f} s, peak "
+                f"{out['peak_gib'][name]:.2f} GiB, launches "
+                f"{_route_counts(ck)}")
+
+    try:
+        y = entry.gen_panel(ROWS, TIME, seed=0, device=device)
+        torch.cuda.synchronize()
+
+        # 11a: the exhaustive fused search of the default grid
+        log(f"phase 11a: auto_fit of {len(orders)} orders "
+            f"({len(auto.fusion_groups(orders))} fused groups) over the "
+            f"{ROWS} x {TIME} headline panel in chunks of {CHUNK_ROWS}")
+        root_a = root / "a"
+        res_a = timed("11a fused search", lambda: auto.auto_fit(
+            y, orders, chunk_rows=CHUNK_ROWS, checkpoint_dir=str(root_a),
+            device=device))
+        am = res_a.meta["auto_fit"]
+        la = out["launches"]["11a fused search"]
+        out["selection"] = am["selection_counts"]
+        out["diff_cache_hits"] = am["diff_cache_hits"]
+        log(f"  selection {am['selection_counts']}; diff_cache_hits "
+            f"{am['diff_cache_hits']}")
+        chk.require(len(am["fusion_groups"]) == 2
+                    and am["diff_cache_hits"] == 4,
+                    "11a two fused groups of three orders, four "
+                    "differencings saved")
+        chk.require(la.get("css_fwd", 0) > 0 and la.get("css_bwd", 0) > 0
+                    and la.get("hr_moments", 0) > 0,
+                    "11a the CSS kernels and hr_moments ran")
+        won = am["selection_counts"]
+        chk.require(won["none"] <= ROWS // 1000
+                    and won[str((1, 1, 1))] > ROWS // 2,
+                    "11a every row but 0.1 % selects; (1,1,1), the panel's "
+                    "order, wins most rows")
+        chk.require(bool(np.isfinite(res_a.params[res_a.order_index >= 0, :2])
+                         .all()), "11a the winners' params are finite")
+
+        # 11b: fused against per order on the first 100,000 rows
+        log(f"phase 11b: fuse=1 against fuse='auto' on {SEARCH_ROWS} rows")
+        ys = y[:SEARCH_ROWS].contiguous()
+        r1 = timed("11b per order", lambda: auto.auto_fit(
+            ys, orders, fuse=1, return_criteria=True, device=device))
+        rf = timed("11b fused", lambda: auto.auto_fit(
+            ys, orders, return_criteria=True, device=device))
+        c1, cf = r1.meta["criteria_matrix"], rf.meta["criteria_matrix"]
+        agree = r1.order_index == rf.order_index
+        flips = np.nonzero(~agree)[0]
+        g1, gf = r1.order_index[flips], rf.order_index[flips]
+        ok_flip = ((g1 >= 0) & (gf >= 0)).all()
+        rel = 0.0
+        if flips.size and ok_flip:
+            for c in (c1, cf):
+                a, b = c[g1, flips], c[gf, flips]
+                rel = max(rel, float(np.max(np.abs(a - b)
+                                            / np.abs(a).clip(1e-30))))
+        dpar = np.abs(r1.params[agree] - rf.params[agree])
+        bad_par = ~(dpar <= 1e-2 + 1e-2 * np.abs(rf.params[agree]))
+        bad_par &= ~(np.isnan(r1.params[agree]) & np.isnan(rf.params[agree]))
+        out["11b"] = {"agree_share": float(agree.mean()),
+                      "flips": int(flips.size), "flip_max_rel": rel,
+                      "agree_rows_params_outside_1e-2": int(
+                          bad_par.any(axis=1).sum())}
+        log(f"  11b {out['11b']}")
+        chk.require(ok_flip and rel <= 1e-3,
+                    "11b every flipped row's two orders are within 1e-3 "
+                    "relative under both runs")
+        chk.require(not bad_par.any(), "11b agreeing rows' params within "
+                    "1e-2 (TestFused's bar)")
+        del r1, rf
+
+        # 11c: crash 11a mid-walk, then resume
+        log("phase 11c: 11a crashed after five chunk commits, then resumed")
+        root_c = root / "c"
+        crashed = False
+        try:
+            timed("11c crashed", lambda: auto.auto_fit(
+                y, orders, chunk_rows=CHUNK_ROWS, checkpoint_dir=str(root_c),
+                device=device,
+                _journal_commit_hook=fi.crash_after_commits(5)))
+        except fi.SimulatedCrash:
+            crashed = True
+        res_c = timed("11c resumed", lambda: auto.auto_fit(
+            y, orders, chunk_rows=CHUNK_ROWS, checkpoint_dir=str(root_c),
+            device=device))
+        chk.require(crashed and _same_search(res_a, res_c),
+                    "11c crashed then resumed == 11a bit for bit")
+        del res_c
+
+        # 11d: the winners economy and the stepwise search
+        log("phase 11d: stage2='winners' on the headline panel, stepwise "
+            f"on {SEARCH_ROWS} rows")
+        res_w = timed("11d winners", lambda: auto.auto_fit(
+            y, orders, stage2="winners", chunk_rows=CHUNK_ROWS,
+            device=device))
+        wm = res_w.meta["auto_fit"]
+        out["11d winners"] = {k: wm[k] for k in (
+            "stage1_wall_s", "stage2_wall_s", "stage2_spend_share",
+            "selection_counts")}
+        log(f"  winners {out['11d winners']}")
+        chk.require(sum(o["stage2_rows"] for o in wm["orders"])
+                    == ROWS - wm["selection_counts"]["none"],
+                    "11d every selected row refit at the full budget")
+        del res_w
+        res_s = timed("11d stepwise", lambda: auto.auto_fit(
+            ys, None, stepwise=True, device=device))
+        sm = res_s.meta["auto_fit"]["stepwise"]
+        out["11d stepwise"] = {"orders_tried": sm["orders_tried"],
+                               "passes": len(sm["passes"]),
+                               "converged": sm["converged"],
+                               "selection_counts": res_s.meta["auto_fit"][
+                                   "selection_counts"]}
+        log(f"  stepwise {out['11d stepwise']}")
+        chk.require(sm["orders_tried"] >= 4 and (res_s.order_index >= 0)
+                    .mean() > 0.999, "11d stepwise selects every row")
+        del res_s, ys
+
+        # 11e: the forecast walk with intervals over the search's root
+        ne = ENSEMBLE_ROWS
+        log(f"phase 11e: ensemble_forecast(auto_root=11a, horizon="
+            f"{HORIZON}, temperature=0, intervals, n_samples={N_SAMPLES}) "
+            f"over {ne} rows in chunks of {FORECAST_CHUNK}")
+        specs, ii, members, _ = fc.load_auto_members(str(root_a))
+        if ne < ROWS:  # the cut: the search's member fits of the rows kept
+            members = [m._replace(**{f: getattr(m, f)[:ne] for f in (
+                "params", "neg_log_likelihood", "converged", "iters",
+                "status")}) for m in members]
+            src = dict(orders=[sp.order for sp in specs], members=members)
+        else:
+            src = dict(auto_root=str(root_a))
+        ens = timed("11e ensemble", lambda: fc.ensemble_forecast(
+            y[:ne], HORIZON, temperature=0.0, intervals=True,
+            n_samples=N_SAMPLES, chunk_rows=FORECAST_CHUNK, device=device,
+            **src))
+        # where a chunk's interval time goes: the draws, the path
+        # recursion (one member's sim_fn minus its draws), the band sort
+        from spark_timeseries_tpu_torch.forecasting import _prng, kernels
+        from spark_timeseries_tpu_torch.forecasting import walk as walk_mod
+
+        yc = y[:FORECAST_CHUNK]
+        keys = _prng.fold_in(_prng.PRNGKey(1, device=device),
+                             torch.arange(FORECAST_CHUNK, device=device))
+        pc = torch.tensor([[0.01, 0.6, 0.3]], device=device).expand(
+            FORECAST_CHUNK, 3).contiguous()
+        sim = kernels.sim_fn("arima", {"order": entry.ORDER,
+                                       "include_intercept": True},
+                             HORIZON, N_SAMPLES)
+        with torch.no_grad():
+            paths = sim(pc, yc, keys)
+            out["11e chunk ms"] = {
+                "normals": cuda_ms(lambda: _prng.normal(
+                    keys, (HORIZON, N_SAMPLES)), reps=2),
+                "sim_fn (normals included)": cuda_ms(
+                    lambda: sim(pc, yc, keys), reps=2),
+                "band sort + quantiles": cuda_ms(
+                    lambda: walk_mod._band_quantiles(paths, (0.05, 0.95)),
+                    reps=2)}
+        del paths
+        log(f"  one {FORECAST_CHUNK}-row chunk of (1,1,1) draws "
+            f"[{FORECAST_CHUNK}, {HORIZON}, {N_SAMPLES}]: "
+            f"{out['11e chunk ms']} (ms)")
+        le = out["launches"]["11e ensemble"]
+        chk.require(le.get("css_fwd", 0) > 0,
+                    "11e the CSS forward (tail and sum modes) ran")
+        winner = np.full((ne, HORIZON), np.nan, np.float32)
+        for g, spec in enumerate(specs):
+            w = fc.forecast_chunked(
+                "arima", members[g], y[:ne], HORIZON,
+                model_kwargs={"order": spec.order, "include_intercept": ii},
+                chunk_rows=FORECAST_CHUNK, device=device)
+            sel = ens.order_index == g
+            winner[sel] = w.forecast[sel]
+        chk.require(_same_arrays(ens.forecast, winner),
+                    "11e the ensemble's point forecast == the per-row "
+                    "winner's forecast_chunked point forecast bit for bit")
+        fin = np.isfinite(ens.lo) & np.isfinite(ens.hi)
+        inside = ((ens.lo <= ens.forecast) & (ens.forecast <= ens.hi))[fin]
+        out["11e"] = {"finite_share": float(fin.mean()),
+                      "point_inside_band_share": float(inside.mean())}
+        log(f"  11e {out['11e']}")
+        chk.require(fin.mean() > 0.99 and (ens.lo <= ens.hi)[fin].all()
+                    and inside.mean() > 0.99,
+                    "11e bands finite, lo <= hi, the point inside")
+        del ens, winner
+
+        # the plain versions on the card: the fused fit and the point walk
+        log(f"phase 11 plain: the fused groups and the point walk on "
+            f"{EAGER_ROWS} rows, kernels against backend='eager'")
+        ye = y[:EAGER_ROWS].contiguous()
+        for members_g in auto.fusion_groups(orders):
+            gspecs = tuple((specs[g].order, None) for g in members_g)
+            rc = arima.fit_grid(ye, gspecs, backend="cuda", device=device)
+            t0 = time.perf_counter()
+            re_ = arima.fit_grid(ye, gspecs, backend="eager", device=device)
+            torch.cuda.synchronize()
+            out["walls_s"][f"eager group {members_g[0]}"] = (
+                time.perf_counter() - t0)
+            for (o, _), bc, be in zip(gspecs, _grid_blocks(rc, gspecs),
+                                      _grid_blocks(re_, gspecs)):
+                both = (bc[3] > 0) & (be[3] > 0)
+                dconv = abs(float(bc[3].mean()) - float(be[3].mean()))
+                # phase 8a's bar on params of order 1; the d = 0 orders'
+                # intercept is on the level of an integrated panel, so
+                # each difference is taken relative to max(1, |param|)
+                delig = int((bc[2] != be[2]).sum())
+                if not bool(both.any()):
+                    # the bar's median runs over rows converged on both
+                    # backends; an MA(1) of an integrated panel converges
+                    # on none within the budget, and then on neither
+                    conv_c, conv_e = float(bc[3].mean()), float(be[3].mean())
+                    log(f"  {o} cuda vs eager: no row converges on both "
+                        f"(converged shares {conv_c:.4f} / {conv_e:.4f}), "
+                        f"eligibility differs on {delig} rows")
+                    chk.require(conv_c == conv_e == 0.0
+                                and delig <= EAGER_ROWS // 1000,
+                                f"11 fused {o}: no row converges on either "
+                                "backend, eligibility equal but on 0.1 %")
+                    continue
+                pe = be[0][both]
+                dpar = (bc[0][both] - pe).abs() / pe.abs().clamp(min=1.0)
+                med_dp = float(dpar.median())
+                log(f"  {o} cuda vs eager: converged share differs by "
+                    f"{dconv:.4f}, median |param diff| / max(1, |param|) "
+                    f"{med_dp:.2e} (by column "
+                    f"{[f'{v:.1e}' for v in dpar.median(dim=0).values]}, "
+                    f"median |param| "
+                    f"{[f'{v:.3g}' for v in pe.abs().median(dim=0).values]}"
+                    f"), eligibility differs on {delig} rows")
+                chk.require(delig <= EAGER_ROWS // 1000 and dconv < 0.02
+                            and med_dp < 1e-2,
+                            f"11 fused {o} cuda vs eager within phase 8a's "
+                            "parity bar")
+        for g, spec in enumerate(specs):
+            pg = torch.as_tensor(members[g].params[:EAGER_ROWS],
+                                 device=device)
+            walk_g = fc.forecast_chunked(
+                "arima", pg.cpu().numpy(), ye, HORIZON,
+                model_kwargs={"order": spec.order}, device=device)
+            plain = arima.forecast(pg, ye, spec.order, HORIZON,
+                                   backend="eager", device=device)
+            rel = _finite_rel(walk_g.forecast, plain.cpu().numpy())
+            log(f"  {spec.label} point walk vs eager forecast: rel {rel:.2e}")
+            chk.require(rel <= 1e-5, f"11 point walk {spec.label} against "
+                        "the eager forecast within 1e-5")
+        del ye, members
+
+        # 11h: fault 4, the walk on the caller's stream
+        log("phase 11h: 10a's walk (resilient=False) on a side stream")
+        plain_walk = timed("11h default stream", lambda: fit_chunked(
+            arima.fit, y, chunk_rows=CHUNK_ROWS, resilient=False,
+            order=entry.ORDER, device=device,
+            checkpoint_dir=str(root / "h_default")))
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+
+        def on_side(**kw):
+            with torch.cuda.stream(side):
+                return fit_chunked(arima.fit, y, chunk_rows=CHUNK_ROWS,
+                                   resilient=False, order=entry.ORDER,
+                                   device=device, **kw)
+
+        side_walk = timed("11h side stream", lambda: on_side(
+            checkpoint_dir=str(root / "h_side")))
+        budget_walk = timed("11h side stream, watchdog", lambda: on_side(
+            checkpoint_dir=str(root / "h_budget"), chunk_budget_s=600.0))
+        chk.require(_same_walk(plain_walk, side_walk)
+                    and _same_walk(plain_walk, budget_walk),
+                    "11h the side-stream walks (committer, watchdog worker) "
+                    "== the default-stream walk bit for bit")
+        del plain_walk, side_walk, budget_walk
+
+        # 11g: the backtest campaign, crashed and resumed
+        log(f"phase 11g: run_backtest(arima (1,1,1), horizon {HORIZON}, "
+            f"4 windows) over the headline panel")
+        bt_kw = dict(n_windows=4, model_kwargs={"order": entry.ORDER},
+                     device=device)
+        bt = timed("11g backtest", lambda: fc.run_backtest(
+            y, "arima", HORIZON, checkpoint_dir=str(root / "g"), **bt_kw))
+        crashed = False
+        try:
+            timed("11g crashed", lambda: fc.run_backtest(
+                y, "arima", HORIZON, checkpoint_dir=str(root / "g2"),
+                _journal_commit_hook=fi.crash_after_commits(2), **bt_kw))
+        except fi.SimulatedCrash:
+            crashed = True
+        bt2 = timed("11g resumed", lambda: fc.run_backtest(
+            y, "arima", HORIZON, checkpoint_dir=str(root / "g2"), **bt_kw))
+        # where a window's time goes, one piece at a time
+        from spark_timeseries_tpu_torch.forecasting import backtest as bt_mod
+        from spark_timeseries_tpu_torch.reliability import journal
+
+        parts = {}
+
+        def part(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            parts[name] = time.perf_counter() - t0
+            return r
+
+        part("panel digest (once)", lambda: bt_mod._panel_prefix_digest(
+            y, TIME))
+        part("panel fingerprint (once)",
+             lambda: journal.panel_fingerprint(y))
+        last = bt.meta["origins"][-1]
+        yw = part("window panel copy", lambda: bt_mod._window_panel(y, last))
+        wfit = part("window fit walk, journaled", lambda: fit_chunked(
+            arima.fit, yw, resilient=False, order=entry.ORDER,
+            device=device, checkpoint_dir=str(root / "g_part")))
+        wfc = part("window forecast walk", lambda: fc.forecast_chunked(
+            "arima", wfit, yw, HORIZON, model_kwargs={"order": entry.ORDER},
+            device=device))
+        act = part("actuals to the host", lambda: bt_mod._actuals(
+            y, last - HORIZON, HORIZON))
+        part("metrics on the host", lambda: bt_mod._window_metrics(
+            wfc.forecast, None, None, act, 0.9))
+        out["11g parts_s"] = parts
+        log(f"  11g one window's parts (s): {parts}")
+        del yw, wfit, wfc, act
+        out["11g"] = {"window_walls_s": [w["wall_s"] for w in bt.windows],
+                      "origins": bt.meta["origins"],
+                      "mae_h": bt.metrics["mae_h"][:5],
+                      "warm": [w["warm_start"] for w in bt.windows],
+                      "resumed_classes": bt2.meta["window_classes"]}
+        log(f"  11g {out['11g']}")
+        chk.require(crashed and bt2.metrics == bt.metrics
+                    and [w["digest"] for w in bt2.windows]
+                    == [w["digest"] for w in bt.windows],
+                    "11g crashed then resumed: metrics bit for bit")
+        chk.require(all(w["status"] == "committed" for w in bt.windows)
+                    and bt.meta["warm_start"]
+                    and all(np.isfinite(bt.metrics["mae_h"])),
+                    "11g four windows committed, warm-started, finite MAE")
+        del bt, bt2, y
+
+        # 11f: a forecast walk for each other model family
+        log("phase 11f: GARCH on the volatility panel, EWMA and additive "
+            "Holt-Winters on the hourly panel")
+        prices = entry.gen_garch_prices(VOL_ROWS, VOL_TIME, seed=0,
+                                        device=device)
+        (ret_fp,) = uv.batch_fill_linear_chain(
+            layout.fold_panel(100.0 * prices), outputs=("diff",))
+        del prices
+        returns = layout.unfold_panel(ret_fp)
+        del ret_fp
+        gfit = garch.fit(returns, device=device)
+        gw = timed("11f garch walk", lambda: fc.forecast_chunked(
+            "garch", gfit, returns, HORIZON, device=device))
+        own = garch.forecast(gfit.params, returns, HORIZON, device=device)
+        rel_g = _finite_rel(gw.forecast, own.cpu().numpy())
+        chk.require(out["launches"]["11f garch walk"].get("garch_fwd", 0) > 0
+                    and rel_g <= 1e-6, f"11f the GARCH walk ran garch_fwd "
+                    f"and equals garch.forecast (rel {rel_g:.1e})")
+        del returns, gfit, gw, own
+        yh = entry.gen_hourly_panel(HOURLY_ROWS, HOURLY_TIME, seed=0,
+                                    device=device)
+        efit = ewma.fit(yh, device=device)
+        ew = timed("11f ewma walk", lambda: fc.forecast_chunked(
+            "ewma", efit, yh, 48, chunk_rows=CHUNK_ROWS, device=device))
+        own = ewma.forecast(efit.params, yh, 48, device=device)
+        rel_e = _finite_rel(ew.forecast, own.cpu().numpy())
+        chk.require(out["launches"]["11f ewma walk"].get("ewma_fwd", 0)
+                    >= ROWS // CHUNK_ROWS and rel_e <= 1e-6,
+                    f"11f the EWMA walk ran ewma_fwd a chunk and equals "
+                    f"ewma.forecast (rel {rel_e:.1e})")
+        del efit, ew, own
+        hfit = holtwinters.fit(yh, SEASON, device=device)
+        hw = timed("11f holt-winters walk", lambda: fc.forecast_chunked(
+            "holtwinters", hfit, yh, 48, model_kwargs={"period": SEASON},
+            chunk_rows=CHUNK_ROWS, device=device))
+        own = holtwinters.forecast(hfit.params, yh, SEASON, 48,
+                                   device=device)
+        rel_h = _finite_rel(hw.forecast, own.cpu().numpy())
+        chk.require(rel_h <= 1e-6, f"11f the Holt-Winters walk equals "
+                    f"holtwinters.forecast (rel {rel_h:.1e})")
+        del yh, hfit, hw, own
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11 in {out['phase_s']:.1f} s")
+    return out
+
+
 def build() -> int:
     """Phase 2: every source at once, then load each library; returns how
     many libraries it built."""
@@ -2928,6 +3419,7 @@ def main() -> int:
     phase_leftovers(chk, main_run.pop("params"), device)
     resilient = phase_resilient(chk, device, n_built)
     chunked = phase_chunked(chk, device)
+    search_fc = phase_search_forecast(chk, device)
     log(json.dumps({"css_lag_route": {
         "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": lag,
         "launches": {"airline fit (8b)": search["airline_launches"],
@@ -2935,6 +3427,7 @@ def main() -> int:
         "walls_s": {k: v for k, v in search.items() if k.endswith("_s")}}}))
     log(json.dumps({"resilient_fit": resilient}))
     log(json.dumps({"chunked_walk": chunked}))
+    log(json.dumps({"search_forecast": search_fc}))
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))
         return 1

@@ -11,19 +11,78 @@ autocorrelation -> GARCH / ARGARCH fit + forecast) and the smoothing models
 reference's TPU kernels.
 
 The resilient fit path (``reliability.resilient_fit``: sanitize -> fit ->
-retry ladder, under the deadline watchdog) wraps any of these fits, and
-the telemetry plane (``obs``) records its spans and counters.
+retry ladder, under the deadline watchdog) wraps any of these fits, the
+journaled chunk walk (``reliability.fit_chunked``) runs them over panels
+larger than one fit's working set, and the telemetry plane (``obs``)
+records their spans and counters.  On top of the walk sit the batched
+order search (``models.auto.auto_fit``) and the forecast walk, ensembles
+and backtests (``forecasting``).
 
-Ported so far: ``index``, ``obs``, ``models.arima``,
+Ported so far: ``index``, ``obs``, ``models.arima``, ``models.auto``,
 ``models.autoregression``, ``models.regression_arima``, ``models.garch``,
 ``models.ewma``, ``models.holtwinters``, ``models.base``, ``stats``,
 ``utils.optim``, ``utils.linalg``, ``utils.compile_cache``, ``ops.layout``,
-``ops.univariate``, ``ops.lagmat``, ``ops.cuda_kernels``, and of
-``reliability`` ``status``, ``sanitize``, ``runner``, ``watchdog``, the
-data-fault half of ``faultinject`` and the allocation-failure classifier
-of ``plan``.
+``ops.univariate``, ``ops.lagmat``, ``ops.cuda_kernels``, ``forecasting``
+(``walk``, ``kernels``, ``params``, ``ensemble``, ``backtest``,
+``augment``) and the single-lane ``reliability`` (``status``,
+``sanitize``, ``runner``, ``watchdog``, ``chunked``, ``journal``,
+``committer``, ``prefetcher``, ``source``, ``sink``, ``delta``, ``plan``
+and the data, commit and disk faults of ``faultinject``).  Still to port:
+``panel``, ``compat`` and ``plot``; ``parallel`` with the multi-lane walk;
+``serving`` with ``reliability.chaos``.
 """
 
-from . import index, models, obs, ops, reliability, stats, utils
+from . import forecasting, index, models, obs, ops, reliability, stats, utils
+from .index import (
+    BusinessDayFrequency,
+    DateTimeIndex,
+    DayFrequency,
+    DurationFrequency,
+    Frequency,
+    HourFrequency,
+    HybridDateTimeIndex,
+    IrregularDateTimeIndex,
+    MinuteFrequency,
+    MonthFrequency,
+    SecondFrequency,
+    UniformDateTimeIndex,
+    WeekFrequency,
+    YearFrequency,
+    from_string,
+    hybrid,
+    irregular,
+    uniform,
+    uniform_from_interval,
+)
+from .ops import univariate
 
-__all__ = ["index", "models", "obs", "ops", "reliability", "stats", "utils"]
+__all__ = [
+    "BusinessDayFrequency",
+    "DateTimeIndex",
+    "DayFrequency",
+    "DurationFrequency",
+    "Frequency",
+    "HourFrequency",
+    "HybridDateTimeIndex",
+    "IrregularDateTimeIndex",
+    "MinuteFrequency",
+    "MonthFrequency",
+    "SecondFrequency",
+    "UniformDateTimeIndex",
+    "WeekFrequency",
+    "YearFrequency",
+    "forecasting",
+    "from_string",
+    "hybrid",
+    "index",
+    "irregular",
+    "models",
+    "obs",
+    "ops",
+    "reliability",
+    "stats",
+    "uniform",
+    "uniform_from_interval",
+    "univariate",
+    "utils",
+]

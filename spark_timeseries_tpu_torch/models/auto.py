@@ -1,0 +1,1407 @@
+"""Auto model selection at panel scale (port of ``models/auto.py``).
+
+Users rarely know their ``(p, d, q)``.  :func:`auto_fit` fits a STATIC grid
+of candidate ARIMA (optionally seasonal SARIMA) orders per series, computes
+an information criterion per (row, order) on the panel's device, and
+arg-selects per row: the batched rebuild of "loop statsmodels'
+``auto_arima`` over a million series".
+
+**Execution model.**  Each candidate order (``fuse=1``) is one ordinary
+journaled chunk walk (``reliability.fit_chunked`` with a ``grid=(g, G)``
+coordinate); fused groups of same-``d`` orders (``fuse="auto"``, the
+default) walk once per group through ``models.arima.fit_grid``.  The
+search therefore inherits everything the driver earns: write-ahead
+journaling with crash-resume that replays only uncommitted chunks, OOM
+chunk backoff, wall-clock budgets, pipelined commits and prefetch, and
+``ChunkSource`` streaming for panels larger than the card.  Fused groups
+run the CSS kernels on the card (``fit_grid``'s ``"cuda"`` backend); the
+reference runs them on its portable scan backend only.
+
+**Selection.**  Criteria (AICc default; AIC/BIC) are computed from each
+order's concentrated CSS likelihood and the row's valid-span length in one
+pass of plain PyTorch over the stacked ``[G, B]`` results, on the panel's
+device: per-row argmin, ties broken toward the earlier grid entry
+(``torch.argmin`` returns the first minimal index, as ``jnp.argmin``
+does).  Rows where no candidate produced a finite criterion come back with
+``order_index = -1``, NaN params and the worst status on their grid.  The
+default (``stage2="full"``, ``fuse=1``) selection is bitwise-identical to
+an exhaustive per-order full-fit argmin on the same panel with the same
+chunk layout.
+
+**Stage-2 economy** (``stage2="winners"``): every order runs at a small
+stage-1 iteration budget first, basins are ranked per row by the stage-1
+criterion, and the FULL budget is spent only on each row's winning order
+(gathered into ``optim.retry_cap``-aligned sub-batches, warm-started from
+the stage-1 params).  Selection then follows the stage-1 ranking: an
+approximation in exchange for full-fit iterations on ~1/G of the grid.
+
+**Stepwise search** (``stepwise=True``): the Hyndman-Khandakar expansion
+around the per-row winners of a small seed neighborhood; each pass
+journals under ``checkpoint_dir/stepwise_%02d/``.
+
+Durability artifacts: per-order (or per-group) journals live under
+``checkpoint_dir/grid_00000/...`` (each manifest carrying an
+``extra.auto_fit`` block) and the search writes a root
+``auto_manifest.json`` recording orders tried, per-order stage-2 spend and
+the selection histogram.
+
+The reference compiles its selection and valid-span programs
+(``jit_program``); here they are plain PyTorch functions of the same names
+(:func:`_select_program`, :func:`_nv_program`) run where the panel lives.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import time
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import obs
+from ..utils import compile_cache as _compile_cache
+from ..reliability.runner import _host
+from ..utils import optim
+from . import arima
+from .base import BACKENDS, FitResult, to_device
+
+__all__ = [
+    "AutoFitResult",
+    "DEFAULT_ORDERS",
+    "OrderSpec",
+    "STEPWISE_SEED_ORDERS",
+    "auto_fit",
+    "criterion_matrix",
+    "fusion_groups",
+    "normalize_orders",
+    "select_orders",
+]
+
+CRITERIA = ("aicc", "aic", "bic")
+
+# pragmatic default grid: the low-order workhorses statsmodels' stepwise
+# search visits first — differencing once covers most trending panels, and
+# anything richer is cheap to pass explicitly
+DEFAULT_ORDERS = (
+    (1, 0, 0), (0, 0, 1), (1, 0, 1),
+    (0, 1, 1), (1, 1, 0), (1, 1, 1),
+)
+
+# default seed neighborhood for the stepwise search: the four cheapest
+# workhorses spanning both differencing tiers — two fused pass-0 walks —
+# with everything richer reached by expansion only when a row's winner
+# asks for it
+STEPWISE_SEED_ORDERS = (
+    (1, 0, 0), (0, 0, 1), (1, 1, 0), (0, 1, 1),
+)
+
+# fit kwargs the fused grid program (arima.fit_grid) takes
+_FUSED_KWARGS = {"max_iters", "tol", "backend", "method", "device"}
+
+
+class OrderSpec(NamedTuple):
+    """One candidate on the search grid: an ARIMA order plus an optional
+    multiplicative seasonal ``(P, D, Q, s)`` extension."""
+
+    order: Tuple[int, int, int]
+    seasonal: Optional[Tuple[int, int, int, int]] = None
+
+    @property
+    def label(self) -> str:
+        if self.seasonal is None:
+            return str(tuple(self.order))
+        return f"{tuple(self.order)}x{tuple(self.seasonal)}"
+
+    def n_params(self, include_intercept: bool) -> int:
+        if self.seasonal is None:
+            return arima._n_params(self.order, include_intercept)
+        return arima._n_params_seasonal(self.order, self.seasonal,
+                                        include_intercept)
+
+    def lag_span(self) -> Tuple[int, int, int]:
+        """``(p_full, q_full, d_full)`` of the (expanded) recursion."""
+        return arima.seasonal_lag_span(self.order, self.seasonal)
+
+
+def normalize_orders(orders) -> Tuple[OrderSpec, ...]:
+    """Coerce a grid spec into a validated tuple of :class:`OrderSpec`.
+
+    Accepts ``(p, d, q)`` triples, ``(p, d, q, (P, D, Q, s))`` pairs,
+    ``OrderSpec`` instances, or ``None`` (the default grid).  Duplicates
+    are rejected — a duplicate candidate can never win a strict argmin
+    and only burns a full walk.
+    """
+    if orders is None:
+        orders = DEFAULT_ORDERS
+    specs = []
+    for entry in orders:
+        if isinstance(entry, OrderSpec):
+            order, seasonal = entry.order, entry.seasonal
+        else:
+            entry = tuple(entry)
+            if len(entry) == 4 and isinstance(entry[3], (tuple, list)):
+                order, seasonal = entry[:3], tuple(entry[3])
+            elif len(entry) == 3:
+                order, seasonal = entry, None
+            else:
+                raise ValueError(
+                    f"order spec must be (p, d, q) or (p, d, q, (P, D, Q, "
+                    f"s)), got {entry!r}")
+        p, d, q = (int(v) for v in order)
+        if min(p, d, q) < 0:
+            raise ValueError(f"orders must be >= 0, got {(p, d, q)}")
+        seasonal = arima._validate_seasonal(seasonal)
+        specs.append(OrderSpec((p, d, q), seasonal))
+    if not specs:
+        raise ValueError("orders grid is empty")
+    seen = set()
+    for s in specs:
+        key = (s.order, s.seasonal)
+        if key in seen:
+            raise ValueError(f"duplicate order on the grid: {s.label}")
+        seen.add(key)
+    return tuple(specs)
+
+
+class AutoFitResult(NamedTuple):
+    """Per-row winner of the order search plus the selection record.
+
+    ``params`` is ``[B, k_max]`` with each row's tail beyond its winning
+    order's parameter count NaN-padded; ``order_index`` is the winning
+    grid position (``-1``: no candidate produced a finite criterion);
+    ``criterion`` is the winning criterion value per row, always
+    consistent with the returned ``neg_log_likelihood`` (under
+    ``stage2="winners"`` it is recomputed from the full-budget refit, so
+    it is NOT comparable with stage-1 sweep values).  ``orders`` is the
+    normalized grid and ``meta["auto_fit"]`` the search accounting
+    (per-order spend, selection histogram, stage-2 mode).  Arrays are
+    host numpy.
+    """
+
+    params: np.ndarray  # [B, k_max]
+    neg_log_likelihood: np.ndarray  # [B]
+    converged: np.ndarray  # [B] bool
+    iters: np.ndarray  # [B]
+    status: np.ndarray  # [B] int8 FitStatus
+    order_index: np.ndarray  # [B] int32, -1 = none eligible
+    criterion: np.ndarray  # [B] winning criterion value
+    orders: Tuple[OrderSpec, ...]
+    meta: dict
+
+
+# ---------------------------------------------------------------------------
+# criterion + selection (one pass of plain torch over the stacked grid)
+# ---------------------------------------------------------------------------
+
+
+def _criterion_one(nll, nv, k: int, p_full: int, d_full: int,
+                   criterion: str):
+    """Per-row criterion of one order from its concentrated CSS nll and
+    the row's valid-span length ``nv`` (pre-differencing, in nll's dtype).
+    ``n_eff`` matches the likelihood's own concentration denominator
+    (``nv - d_full - p_full``); degenerate denominators and non-finite
+    likelihoods map to +inf so the row cannot select this order."""
+    n_eff = nv - float(d_full) - float(p_full)
+    kf = float(k)
+    inf = torch.tensor(torch.inf, dtype=nll.dtype, device=nll.device)
+    if criterion == "bic":
+        c = 2.0 * nll + kf * torch.log(torch.clamp(n_eff, min=1.0))
+        c = torch.where(n_eff > 0, c, inf)
+    else:
+        c = 2.0 * nll + 2.0 * kf
+        if criterion == "aicc":
+            denom = n_eff - kf - 1.0
+            # a tensor numerator: `scalar / tensor` would multiply by a
+            # reciprocal, one rounding more than the reference's division
+            num = torch.tensor(2.0 * kf * (kf + 1.0), dtype=nll.dtype,
+                               device=nll.device)
+            c = c + torch.where(denom > 0,
+                                num / torch.clamp(denom, min=1.0), inf)
+    return torch.where(torch.isfinite(c), c, inf)
+
+
+def _select_program(meta: Tuple[Tuple[int, int, int], ...], criterion: str):
+    """Stacked-grid criterion + per-row argmin.
+
+    ``meta`` is the per-order ``(k, p_full, d_full)`` tuple; inputs are
+    the ``[G, B, k_max]`` params stack, ``[G, B]`` nll/converged/iters/
+    status stacks, and the ``[B]`` valid-span lengths, all on one device.
+    Ties break toward the EARLIER grid entry (``torch.argmin`` returns the
+    first minimal index), so grid order is part of the selection contract.
+    """
+
+    def run(params, nll, conv, iters, status, nv0):
+        nv = nv0.to(nll.dtype)
+        crit = torch.stack([
+            _criterion_one(nll[g], nv, k, p_full, d_full, criterion)
+            for g, (k, p_full, d_full) in enumerate(meta)
+        ])  # [G, B]
+        best = torch.argmin(crit, dim=0).to(torch.int32)
+        bestc = torch.amin(crit, dim=0)
+        has = torch.isfinite(bestc)
+        rows = torch.arange(nll.shape[1], device=nll.device)
+        idx = torch.where(has, best, 0).long()
+        params_sel = torch.where(has[:, None], params[idx, rows], torch.nan)
+        nll_sel = torch.where(has, nll[idx, rows], torch.nan)
+        conv_sel = conv[idx, rows] & has
+        iters_sel = torch.where(has, iters[idx, rows], 0)
+        # a row with no eligible candidate keeps the WORST thing that
+        # happened to it anywhere on the grid (codes are severity-ordered)
+        status_sel = torch.where(has, status[idx, rows],
+                                 torch.amax(status, dim=0))
+        order_idx = torch.where(has, best, -1).to(torch.int32)
+        counts = torch.stack(
+            [torch.sum(order_idx == g) for g in range(len(meta))]
+            + [torch.sum(~has)]).to(torch.int32)
+        crit_sel = torch.where(has, bestc, torch.nan)
+        return (params_sel, nll_sel, conv_sel, iters_sel, status_sel,
+                order_idx, crit_sel, crit, counts)
+
+    return run
+
+
+def criterion_matrix(specs, nll_stack, nv0, *, criterion: str = "aicc",
+                     include_intercept: bool = True):
+    """``[G, B]`` criterion values (a tensor, on ``nll_stack``'s device
+    when it is one, else the host) for a stacked grid of fit results —
+    the standalone spelling of the selection program's first half."""
+    specs = normalize_orders(specs)
+    nll_stack = torch.as_tensor(nll_stack)
+    nv = torch.as_tensor(nv0, device=nll_stack.device).to(nll_stack.dtype)
+    rows = []
+    for spec in specs:
+        p_full, _, d_full = spec.lag_span()
+        rows.append(_criterion_one(
+            nll_stack[len(rows)], nv, spec.n_params(include_intercept),
+            p_full, d_full, criterion))
+    return torch.stack(rows)
+
+
+def select_orders(specs, results, nv0, *, criterion: str = "aicc",
+                  include_intercept: bool = True):
+    """Run the selection over per-order fit results.
+
+    ``results`` is a sequence (one per order, grid order) of objects with
+    ``params`` / ``neg_log_likelihood`` / ``converged`` / ``iters`` /
+    ``status`` arrays (``FitResult`` and ``ResilientFitResult`` both
+    qualify); ``nv0`` is the ``[B]`` per-row valid-span length
+    (:func:`panel_n_valid`).  The selection runs on ``nv0``'s device when
+    it is a tensor (``auto_fit`` passes the panel's), else on the host.
+    Returns the host-side selection dict the :func:`auto_fit` result is
+    assembled from — and IS the exhaustive argmin when the results are
+    exhaustive full fits.
+    """
+    specs = normalize_orders(specs)
+    if len(results) != len(specs):
+        raise ValueError(f"{len(specs)} orders but {len(results)} results")
+    if criterion not in CRITERIA:
+        raise ValueError(f"unknown criterion {criterion!r} "
+                         f"(one of {CRITERIA})")
+    kmax = max(s.n_params(include_intercept) for s in specs)
+    nll0 = _host(results[0].neg_log_likelihood)
+    b, dtype = nll0.shape[0], nll0.dtype
+    params = np.full((len(specs), b, kmax), np.nan, dtype)
+    nll = np.empty((len(specs), b), dtype)
+    conv = np.empty((len(specs), b), bool)
+    iters = np.empty((len(specs), b), np.int32)
+    status = np.empty((len(specs), b), np.int8)
+    for g, (spec, res) in enumerate(zip(specs, results)):
+        k = spec.n_params(include_intercept)
+        rp = _host(res.params)
+        # an all-TIMEOUT walk synthesizes width-1 NaN params (the driver
+        # never learned the real k); those rows' NaN nll keeps them
+        # unselectable, so the narrow copy is purely defensive
+        w = min(k, rp.shape[1])
+        params[g, :, :w] = rp[:, :w]
+        nll[g] = _host(res.neg_log_likelihood)
+        conv[g] = _host(res.converged)
+        iters[g] = _host(res.iters).astype(np.int32)
+        status[g] = _host(res.status).astype(np.int8)
+    meta = []
+    for s in specs:
+        p_full, _, d_full = s.lag_span()
+        meta.append((s.n_params(include_intercept), p_full, d_full))
+    dev = nv0.device if isinstance(nv0, torch.Tensor) else torch.device("cpu")
+    nv_t = (nv0.to(torch.int32) if isinstance(nv0, torch.Tensor)
+            else torch.as_tensor(np.asarray(nv0, np.int32)))
+    with torch.no_grad():
+        out = _select_program(tuple(meta), criterion)(
+            *(torch.as_tensor(a).to(dev)
+              for a in (params, nll, conv, iters, status)), nv_t.to(dev))
+    (params_sel, nll_sel, conv_sel, iters_sel, status_sel, order_idx,
+     crit_sel, crit, counts) = (a.cpu().numpy() for a in out)
+    return {
+        "params": params_sel,
+        "neg_log_likelihood": nll_sel,
+        "converged": conv_sel,
+        "iters": iters_sel,
+        "status": status_sel.astype(np.int8),
+        "order_index": order_idx,
+        "criterion": crit_sel,
+        "criteria_matrix": crit,
+        "counts": counts,
+    }
+
+
+def panel_n_valid(y) -> np.ndarray:
+    """``[B] int32`` valid-span length per row: ``last_non_nan -
+    first_non_nan + 1`` (0 for all-NaN rows) — the one row property every
+    criterion on the grid shares, identical to the span
+    ``base.align_right`` fits against.  Accepts a tensor (computed on its
+    device), a host array or a ``reliability.source.ChunkSource``
+    (streamed on the host, so an oversubscribed panel never touches the
+    device for this)."""
+    from ..reliability import source as source_mod
+
+    if isinstance(y, source_mod.ChunkSource):
+        b, t = y.shape
+        out = np.empty((b,), np.int32)
+        step = max(1, int(y.default_chunk_rows or 4096))
+        buf = np.empty((step, t), y.dtype)
+        for lo in range(0, b, step):
+            hi = min(lo + step, b)
+            y.read_rows(lo, hi, buf[: hi - lo])
+            out[lo:hi] = _nv_host(buf[: hi - lo])
+        return out
+    if isinstance(y, torch.Tensor):
+        return _nv_program()(y).cpu().numpy().astype(np.int32)
+    return _nv_host(np.asarray(y))
+
+
+def _nv_host(y: np.ndarray) -> np.ndarray:
+    valid = ~np.isnan(y)
+    any_valid = valid.any(axis=1)
+    first = valid.argmax(axis=1)
+    last = y.shape[1] - 1 - valid[:, ::-1].argmax(axis=1)
+    return np.where(any_valid, last - first + 1, 0).astype(np.int32)
+
+
+def _nv_program():
+    def run(yb):
+        valid = ~torch.isnan(yb)
+        any_valid = valid.any(1)
+        first = valid.to(torch.int8).argmax(1)
+        last = yb.shape[1] - 1 - valid.flip(1).to(torch.int8).argmax(1)
+        return torch.where(any_valid, last - first + 1, 0).to(torch.int32)
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# fused order execution: the grid as a batch axis, not a loop
+# ---------------------------------------------------------------------------
+
+
+def fusion_groups(orders, fuse="auto"):
+    """Partition a grid into same-``d`` fusion groups of width <= ``fuse``.
+
+    Each group fits as ONE ``fit_chunked`` walk through the fused grid
+    program (``models.arima.fit_grid``) — every chunk is staged,
+    prefetched, and journaled once for the whole group instead of once
+    per order.  ``fuse="auto"`` fuses each ``d``'s orders into one group;
+    an int caps group width (``fuse=1``: one singleton per order — the
+    bitwise per-order search).  Groups are ordered by their first grid
+    index, and a search walks them in that order, so the cost model is
+    ``walks = sum over d of ceil(G_d / K)``.
+    """
+    specs = normalize_orders(orders)
+    if fuse != "auto":
+        fuse = int(fuse)
+        if fuse < 1:
+            raise ValueError(f"fuse must be >= 1 or 'auto', got {fuse}")
+    if fuse == 1:
+        return tuple((g,) for g in range(len(specs)))
+    cap = None if fuse == "auto" else fuse
+    by_d: dict = {}
+    for g, s in enumerate(specs):
+        by_d.setdefault(s.order[1], []).append(g)
+    groups = []
+    for gs in by_d.values():
+        step = cap or len(gs)
+        for lo in range(0, len(gs), step):
+            groups.append(tuple(gs[lo: lo + step]))
+    groups.sort(key=lambda m: m[0])
+    return tuple(groups)
+
+
+def _grid_diff_cache_hits(specs, groups) -> int:
+    """Differencings the shared-prep cache saves across the whole search:
+    per fused group, every order beyond its first (d, D, s) signature
+    reads the cached differenced panel instead of re-differencing."""
+    return sum(
+        len(m) - arima.grid_diff_cache_keys(
+            tuple((specs[g].order, specs[g].seasonal) for g in m))
+        for m in groups if len(m) > 1)
+
+
+def _demux_fused(res, gspecs, include_intercept: bool):
+    """Unpack a fused walk's packed-wide result into per-order results.
+
+    ``res.params`` is the ``[B, K*(k_max + GRID_PACK_COLS)]`` pack
+    ``fit_grid`` built (per order: params, nll, eligible, converged,
+    iters, status — all-finite; the NaN conventions are restored here
+    from the eligibility/status columns) — possibly resumed
+    byte-identically from the journal; the row-level ``res.status``
+    flags TIMEOUT rows the driver synthesized without dispatch (their
+    pack bytes are NaN).  Returns one :class:`~.base.FitResult` of host
+    arrays per order, in group order — exactly what
+    :func:`select_orders` consumes.
+    """
+    from ..reliability.status import FitStatus
+
+    k_max = max(s.n_params(include_intercept) for s in gspecs)
+    wb = k_max + arima.GRID_PACK_COLS
+    wide = _host(res.params)
+    b = wide.shape[0]
+    row_status = _host(res.status)
+    timeout = row_status == int(FitStatus.TIMEOUT)
+    # resilient transitions are ROW-wide facts: the sanitizer repaired the
+    # row's data and the retry ladder refit the whole packed row, so a
+    # SANITIZED/RETRIED/FALLBACK mark lifts every order's pack status
+    # (severity max — a repair never downgrades a DIVERGED)
+    repair = np.where(
+        (row_status >= int(FitStatus.SANITIZED))
+        & (row_status <= int(FitStatus.FALLBACK)),
+        row_status, 0).astype(np.int8)
+    if wide.shape[1] != len(gspecs) * wb:
+        # an all-TIMEOUT walk never finished a chunk: the driver learned
+        # no pack width and synthesized width-1 NaN params
+        return [FitResult(
+            np.full((b, k_max), np.nan, wide.dtype),
+            np.full(b, np.nan, wide.dtype),
+            np.zeros(b, bool), np.zeros(b, np.int32),
+            np.full(b, int(FitStatus.TIMEOUT), np.int8),
+        ) for _ in gspecs]
+    out = []
+    for j, spec in enumerate(gspecs):
+        blk = wide[:, j * wb: (j + 1) * wb]
+        params = np.array(blk[:, :k_max])
+        nll = np.array(blk[:, k_max])
+        eligf = blk[:, k_max + 1]
+        convf = blk[:, k_max + 2]
+        itf = blk[:, k_max + 3]
+        stf = blk[:, k_max + 4]
+        elig = np.isfinite(eligf) & (eligf != 0)
+        conv = np.isfinite(convf) & (convf != 0)
+        iters = np.where(np.isfinite(itf), itf, 0).astype(np.int32)
+        status = np.where(np.isfinite(stf), stf,
+                          float(FitStatus.DIVERGED)).astype(np.int8)
+        status = np.maximum(status, repair)
+        # restore the per-order NaN conventions the pack flattened (the
+        # pack is all-finite for the resilient runner's row mask): an
+        # ineligible order carries NaN nll (criterion: unselectable), an
+        # excluded row NaN params, and every order NaN beyond its own k
+        nll[~elig] = np.nan
+        params[status == int(FitStatus.EXCLUDED)] = np.nan
+        params[:, spec.n_params(include_intercept):] = np.nan
+        if timeout.any():
+            params[timeout] = np.nan
+            nll[timeout] = np.nan
+            conv = conv & ~timeout
+            iters[timeout] = 0
+            status[timeout] = int(FitStatus.TIMEOUT)
+        out.append(FitResult(params, nll, conv, iters, status))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the search driver
+# ---------------------------------------------------------------------------
+
+
+def _order_fit_fn(spec: OrderSpec, include_intercept: bool, fit_kwargs: dict):
+    """The per-order fit partial handed to ``fit_chunked`` — keyword-bound
+    so the journal's config hash covers the order AND every hyperknob."""
+    kw = dict(fit_kwargs)
+    if spec.seasonal is not None:
+        kw["seasonal"] = spec.seasonal
+    return functools.partial(arima.fit, order=spec.order,
+                             include_intercept=include_intercept, **kw)
+
+
+def _grid_dir(checkpoint_dir: Optional[str], g: int,
+              stage: str = "") -> Optional[str]:
+    if checkpoint_dir is None:
+        return None
+    return os.path.join(checkpoint_dir, f"grid_{g:05d}{stage}")
+
+
+def _remaining_budget(job_budget_s: Optional[float],
+                      t0: float) -> Optional[float]:
+    """The job budget LEFT for the next order's walk: the whole search
+    shares one wall-clock allowance, so orders dispatched after it is
+    spent mark their chunks TIMEOUT without dispatch (the driver's
+    normal budget semantics) instead of running unbounded."""
+    if job_budget_s is None:
+        return None
+    return max(1e-6, job_budget_s - (time.perf_counter() - t0))
+
+
+def auto_fit(
+    y,
+    orders=None,
+    *,
+    criterion: str = "aicc",
+    include_intercept: bool = True,
+    stage2: str = "full",
+    stage1_iters: int = 12,
+    fuse="auto",
+    stepwise: bool = False,
+    stepwise_max_passes: int = 8,
+    stepwise_max_order: int = 3,
+    return_criteria: bool = False,
+    chunk_rows: Optional[int] = None,
+    resilient: bool = False,
+    policy: str = "impute",
+    checkpoint_dir: Optional[str] = None,
+    resume: str = "auto",
+    chunk_budget_s: Optional[float] = None,
+    job_budget_s: Optional[float] = None,
+    pipeline: bool = True,
+    pipeline_depth: int = 2,
+    prefetch_depth: int = 1,
+    align_mode: Optional[str] = None,
+    shard: bool = False,
+    mesh=None,
+    _journal_commit_hook=None,
+    **fit_kwargs,
+) -> AutoFitResult:
+    """Batched order search over ``y [B, T]`` (tensor, array or
+    ``ChunkSource``).
+
+    Fits every candidate on ``orders`` (default :data:`DEFAULT_ORDERS`;
+    entries ``(p, d, q)`` or ``(p, d, q, (P, D, Q, s))`` for seasonal
+    SARIMA candidates), computes ``criterion`` (``"aicc"`` default,
+    ``"aic"``/``"bic"``) per (row, order) on the panel's device, and
+    arg-selects per row.  All ``fit_chunked`` knobs ride through
+    (``checkpoint_dir`` fans out into per-order ``grid_00000/...``
+    journals; ``job_budget_s`` bounds the WHOLE search); the remaining
+    ``fit_kwargs`` (``max_iters``, ``backend``, ``method``, ``tol``,
+    ``device`` — default ``"cuda"`` — ...) go to every order's
+    ``models.arima.fit``.  A tensor panel is searched where it lives; any
+    other goes to ``device``.
+
+    **Fused execution** (``fuse``): orders sharing the plain differencing
+    order ``d`` are fused into groups of at most ``fuse`` candidates
+    (``"auto"``, the default: each ``d``'s orders fuse into one group), and
+    each group fits as ONE journaled walk through ``arima.fit_grid``, so
+    every chunk is staged/prefetched/journaled once for K orders and
+    orders sharing a ``(d, D, s)`` signature difference the panel once
+    (``meta["auto_fit"]["diff_cache_hits"]``).  Fused groups take
+    ``backend="auto"`` / ``"eager"`` / ``"cuda"``: on the card they run the
+    CSS kernels.  Selection over a fused group agrees with the per-order
+    search but is not bitwise (padded coefficient slots, one lockstep
+    loop).  Resilient fused searches retry per ROW, not per (row, order).
+    ``fuse=1`` restores the per-order walks bitwise.
+
+    ``stage2="full"`` (default): every order is fully fit.
+    ``stage2="winners"``: sweep every order at ``stage1_iters`` first,
+    rank per row, then spend the full budget only on each row's winning
+    order — approximate selection, full-quality winning params, with the
+    stage-2 spend recorded per order in ``meta["auto_fit"]``.  Fused
+    searches refit each basin as ``retry_cap``-aligned batched fits
+    warm-started from the journaled stage-1 params (deterministic, so a
+    resumed search recomputes them identically); ``fuse=1`` runs one
+    journaled refit walk per winning order.
+
+    **Stepwise search** (``stepwise=True``): fit a small seed
+    neighborhood (``orders``, default :data:`STEPWISE_SEED_ORDERS`) as
+    fused full-budget walks, expand ``p``/``q`` by ±1 (``d`` fixed, capped
+    at ``stepwise_max_order``) around the per-row winners, and repeat
+    until a pass's new orders win zero rows or ``stepwise_max_passes`` is
+    reached.  Each pass journals under ``checkpoint_dir/stepwise_%02d/``.
+    Requires ``stage2="full"`` and non-seasonal candidates.
+
+    Durable: a crash anywhere and a re-run with the same panel/grid/config
+    resumes from the per-group journals, with selection bitwise-identical
+    to an uninterrupted search.  A root ``auto_manifest.json`` records
+    orders tried, fusion groups, per-order spend, and the selection
+    histogram.  ``shard=True`` and ``mesh=`` raise through
+    ``fit_chunked`` (the multi-lane walk, ROADMAP item 17).
+    """
+    if orders is None and stepwise:
+        orders = STEPWISE_SEED_ORDERS
+    specs = normalize_orders(orders)
+    if criterion not in CRITERIA:
+        raise ValueError(f"unknown criterion {criterion!r} "
+                         f"(one of {CRITERIA})")
+    if stage2 not in ("full", "winners"):
+        raise ValueError(f"stage2 must be 'full' or 'winners', got "
+                         f"{stage2!r}")
+    if stage2 == "winners" and int(stage1_iters) < 1:
+        raise ValueError("stage1_iters must be >= 1")
+    if stepwise:
+        if stage2 != "full":
+            raise ValueError(
+                "stepwise search requires stage2='full' — the restricted "
+                "grid IS its economy; the winners split composes with "
+                "exhaustive grids only")
+        if int(stepwise_max_passes) < 1:
+            raise ValueError("stepwise_max_passes must be >= 1")
+        if int(stepwise_max_order) < 0:
+            raise ValueError("stepwise_max_order must be >= 0")
+        if any(s.seasonal is not None for s in specs):
+            raise ValueError(
+                "stepwise expansion is defined on plain (p, d, q) orders; "
+                "pass seasonal candidates on an explicit exhaustive grid")
+        bad = [s.label for s in specs
+               if max(s.order[0], s.order[2]) > int(stepwise_max_order)]
+        if bad:
+            raise ValueError(
+                f"seed orders {bad} exceed stepwise_max_order="
+                f"{int(stepwise_max_order)}")
+    groups = fusion_groups(specs, fuse)
+    if any(len(m) > 1 for m in groups) or (stepwise and fuse != 1):
+        bad = sorted(set(fit_kwargs) - _FUSED_KWARGS)
+        if bad:
+            raise ValueError(
+                f"fit kwargs {bad} are not supported by the fused grid "
+                "program; pass fuse=1 for the per-order search")
+        if fit_kwargs.get("backend", "auto") not in BACKENDS:
+            raise ValueError(
+                f"fused groups take backend in {BACKENDS}, got "
+                f"{fit_kwargs['backend']!r}")
+    diff_cache_hits = _grid_diff_cache_hits(specs, groups)
+    from ..reliability import fit_chunked
+    from ..reliability import source as source_mod
+
+    # the device rides the walks as a fit_chunked keyword (it stages a
+    # source's chunks there and forwards it to every chunk fit); the
+    # per-order partials bind the rest
+    device = fit_kwargs.pop("device", "cuda")
+    if isinstance(y, source_mod.ChunkSource):
+        values = y
+        b = int(y.shape[0])
+        sel_device = torch.device(device)
+    else:
+        values = (y if isinstance(y, torch.Tensor) else to_device(y, device))
+        if values.ndim != 2:
+            raise ValueError(
+                f"auto_fit expects [batch, time], got {tuple(values.shape)}")
+        b = int(values.shape[0])
+        sel_device = values.device
+        device = values.device
+    nv0 = torch.as_tensor(panel_n_valid(values), device=sel_device)
+    g_total = len(specs)
+    t0 = time.perf_counter()
+    cc0 = _compile_cache.program_cache_stats()
+    tele = obs.enabled()
+
+    walk_knobs = dict(
+        chunk_rows=chunk_rows, resilient=resilient, policy=policy,
+        resume=resume, chunk_budget_s=chunk_budget_s,
+        pipeline=pipeline, pipeline_depth=pipeline_depth,
+        prefetch_depth=prefetch_depth, align_mode=align_mode,
+        shard=shard, mesh=mesh, _journal_commit_hook=_journal_commit_hook,
+        device=device,
+    )
+
+    def _walk(spec, g, ckpt, *, stage_tag, max_iters_override=None,
+              vals=None):
+        """One order's walk — the full panel by default, or a gathered
+        sub-panel (``vals``, the winners refit).  EVERY walk inherits the
+        caller's knobs (resilient/policy/align_mode/budgets/pipeline) so a
+        stage-2 refit fits its rows under the same contract the stage-1
+        sweep did; the align hint stays valid on any row subset (it is a
+        row-wise property of the panel)."""
+        kw = dict(fit_kwargs)
+        if max_iters_override is not None:
+            kw["max_iters"] = max_iters_override
+        fit_fn = _order_fit_fn(spec, include_intercept, kw)
+        extra = {"auto_fit": {
+            "grid_index": g, "grid_total": g_total,
+            "order": list(spec.order),
+            "seasonal": (list(spec.seasonal) if spec.seasonal is not None
+                         else None),
+            "criterion": criterion, "stage": stage_tag,
+        }}
+        with obs.span("auto_fit.order", grid=g, order=spec.label,
+                      stage=stage_tag):
+            t_g = time.perf_counter()
+            res = fit_chunked(
+                fit_fn, values if vals is None else vals,
+                checkpoint_dir=ckpt, grid=(g, g_total),
+                job_budget_s=_remaining_budget(job_budget_s, t0),
+                journal_extra=extra, **walk_knobs)
+            wall = time.perf_counter() - t_g
+        return res, wall
+
+    def _walk_fused(members, ckpt, *, stage_tag, max_iters_override=None):
+        """One fusion GROUP's walk: K same-d orders through ONE journaled
+        fit_chunked campaign (models.arima.fit_grid) — chunks carry the
+        whole group, staged/committed once for all K orders, under the
+        same knobs/budgets as a per-order walk."""
+        kw = dict(fit_kwargs)
+        if max_iters_override is not None:
+            kw["max_iters"] = max_iters_override
+        gspecs = tuple((specs[g].order, specs[g].seasonal) for g in members)
+        fit_fn = functools.partial(
+            arima.fit_grid, specs=gspecs,
+            include_intercept=include_intercept, **kw)
+        extra = {"auto_fit": {
+            "grid_index": members[0], "grid_total": g_total,
+            "fused_orders": list(members),
+            "orders": [list(specs[g].order) for g in members],
+            "seasonals": [(list(specs[g].seasonal)
+                           if specs[g].seasonal is not None else None)
+                          for g in members],
+            "criterion": criterion, "stage": stage_tag,
+            "fuse": len(members),
+        }}
+        label = "+".join(specs[g].label for g in members)
+        with obs.span("auto_fit.order", grid=members[0], order=label,
+                      stage=stage_tag, fused=len(members)):
+            t_g = time.perf_counter()
+            res = fit_chunked(
+                fit_fn, values,
+                checkpoint_dir=ckpt,
+                grid=(members[0], g_total, tuple(members)),
+                job_budget_s=_remaining_budget(job_budget_s, t0),
+                journal_extra=extra, **walk_knobs)
+            wall = time.perf_counter() - t_g
+        return res, wall
+
+    def _order_entry(g, wall, res, *, stage2_traces=None, fused_with=None):
+        spec = specs[g]
+        entry = {
+            "grid_index": g,
+            "order": list(spec.order),
+            "seasonal": (list(spec.seasonal)
+                         if spec.seasonal is not None else None),
+            "label": spec.label,
+            "k": spec.n_params(include_intercept),
+            "wall_s": round(wall, 4),
+            "chunks_run": res.meta.get("chunks_run"),
+            "rows_fit": b,
+            "stage2_traces": stage2_traces,
+            "timeouts": res.meta.get("timeouts", 0),
+        }
+        if fused_with is not None:
+            entry["fused_group"] = fused_with[0]
+            entry["fused_width"] = len(fused_with)
+        return entry
+
+    order_meta = []
+    stepwise_meta = None
+    sw_groups = ()
+    if stepwise:
+        seed_labels = [s.label for s in specs]
+        (sel, specs, order_meta, passes_meta, stage1_wall, sw_groups,
+         sw_diff_hits, sw_converged) = _stepwise_search(
+            specs, values, nv0, b, criterion, include_intercept, fuse,
+            checkpoint_dir, stepwise_max_passes, stepwise_max_order,
+            fit_kwargs, walk_knobs,
+            budget_left=(None if job_budget_s is None else
+                         lambda: job_budget_s
+                         - (time.perf_counter() - t0)))
+        g_total = len(specs)
+        stage2_wall = 0.0
+        diff_cache_hits = sw_diff_hits
+        stepwise_meta = {
+            "passes": passes_meta,
+            "max_passes": int(stepwise_max_passes),
+            "max_order": int(stepwise_max_order),
+            "seed": seed_labels,
+            "converged": sw_converged,
+            "orders_tried": g_total,
+        }
+    elif stage2 == "full":
+        results = [None] * g_total
+        for members in groups:
+            if len(members) == 1:
+                g = members[0]
+                s2_0 = ((obs.snapshot() or {}).get("counters", {})
+                        if tele else {})
+                res, wall = _walk(specs[g], g, _grid_dir(checkpoint_dir, g),
+                                  stage_tag="full")
+                s2_1 = ((obs.snapshot() or {}).get("counters", {})
+                        if tele else {})
+                results[g] = res
+                order_meta.append(_order_entry(
+                    g, wall, res,
+                    stage2_traces=(
+                        s2_1.get("optim.stage2_compact_traces", 0)
+                        - s2_0.get("optim.stage2_compact_traces", 0))
+                    if tele else None))
+            else:
+                res, wall = _walk_fused(
+                    members, _grid_dir(checkpoint_dir, members[0]),
+                    stage_tag="full")
+                per = _demux_fused(res, [specs[g] for g in members],
+                                   include_intercept)
+                for j, g in enumerate(members):
+                    results[g] = per[j]
+                    order_meta.append(_order_entry(
+                        g, wall / len(members), res, fused_with=members))
+        order_meta.sort(key=lambda m: m["grid_index"])
+        sel = select_orders(specs, results, nv0, criterion=criterion,
+                            include_intercept=include_intercept)
+        stage1_wall = sum(m["wall_s"] for m in order_meta)
+        stage2_wall = 0.0
+    elif fuse == 1:
+        sel, order_meta, stage1_wall, stage2_wall = _winners_search(
+            specs, values, nv0, b, criterion, include_intercept,
+            stage1_iters, checkpoint_dir, _walk)
+    else:
+        sel, order_meta, stage1_wall, stage2_wall = _winners_search_fused(
+            specs, groups, values, nv0, b, criterion, include_intercept,
+            stage1_iters, checkpoint_dir, _walk, _walk_fused, _order_entry,
+            fit_kwargs={**fit_kwargs, "device": device},
+            resilient=resilient, policy=policy,
+            chunk_rows=chunk_rows, align_mode=align_mode,
+            budget_left=(None if job_budget_s is None else
+                         lambda: job_budget_s
+                         - (time.perf_counter() - t0)))
+
+    counts = sel["counts"]
+    for m in order_meta:
+        m["selected_rows"] = int(counts[m["grid_index"]])
+    selection_counts = {specs[g].label: int(counts[g])
+                        for g in range(g_total)}
+    selection_counts["none"] = int(counts[g_total])
+    cc1 = _compile_cache.program_cache_stats()
+    cc_hits = cc1["hits"] - cc0["hits"]
+    cc_misses = cc1["misses"] - cc0["misses"]
+    total_wall = time.perf_counter() - t0
+    stage_suffix = "" if stage2 == "full" else "_s1"
+    if stepwise:
+        fusion_meta = [
+            {"dir": f"stepwise_{p:02d}/grid_{m[0]:05d}", "orders": list(m),
+             "stepwise_pass": p}
+            for p, m in sw_groups]
+    else:
+        fusion_meta = [
+            {"dir": f"grid_{m[0]:05d}{stage_suffix}", "orders": list(m)}
+            for m in groups]
+    auto_meta = {
+        "criterion": criterion,
+        "stage2": stage2,
+        "stage1_iters": stage1_iters if stage2 == "winners" else None,
+        "fuse": fuse if fuse == "auto" else int(fuse),
+        "stepwise": stepwise_meta,
+        "fusion_groups": fusion_meta,
+        "diff_cache_hits": diff_cache_hits,
+        "n_rows": b,
+        "orders": order_meta,
+        "selection_counts": selection_counts,
+        "wall_s": round(total_wall, 4),
+        "stage1_wall_s": round(stage1_wall, 4),
+        "stage2_wall_s": round(stage2_wall, 4),
+        "stage2_spend_share": (
+            round(stage2_wall / max(stage1_wall + stage2_wall, 1e-9), 4)),
+        "compile_cache": {
+            "hits": cc_hits, "misses": cc_misses,
+            "hit_rate": (round(cc_hits / (cc_hits + cc_misses), 4)
+                         if (cc_hits + cc_misses) else None)},
+    }
+    meta = {"auto_fit": auto_meta}
+    if return_criteria:
+        meta["criteria_matrix"] = sel["criteria_matrix"]
+    if checkpoint_dir is not None:
+        # the dirs THIS search used, derived from its own plan (never a
+        # disk glob: a previous search in the same directory must not be
+        # advertised as part of this one).  A fused search walks one dir
+        # per fusion GROUP, named by the group's first grid index; fused
+        # winners refits are warm-started recomputations of the journaled
+        # stage-1 sweeps, so only fuse=1 leaves grid_*_winners journals
+        # behind.  A stepwise search walks one dir per (pass, group)
+        # under stepwise_%02d/ namespaces.
+        if stepwise:
+            grid_dirs = [fm["dir"] for fm in fusion_meta]
+        else:
+            grid_dirs = [f"grid_{m[0]:05d}{stage_suffix}" for m in groups]
+            if stage2 == "winners" and fuse == 1:
+                grid_dirs += [f"grid_{m['grid_index']:05d}_winners"
+                              for m in order_meta
+                              if m.get("stage2_rows")]
+        _write_auto_manifest(checkpoint_dir, auto_meta, sorted(grid_dirs))
+        meta["auto_manifest"] = os.path.join(checkpoint_dir,
+                                             "auto_manifest.json")
+    obs.counter("auto_fit.searches").inc()
+    obs.event("auto_fit.selected", orders=g_total, rows=b,
+              none=selection_counts["none"])
+    return AutoFitResult(
+        sel["params"], sel["neg_log_likelihood"], sel["converged"],
+        sel["iters"], sel["status"], sel["order_index"], sel["criterion"],
+        specs, meta)
+
+
+def _refit_criterion(sel, rows, nv0, spec, k, criterion):
+    """The reported criterion must match the RETURNED nll, not the
+    truncated stage-1 sweep's — recomputed from the refit (NaN where the
+    refit itself diverged: the row keeps its selection but carries no
+    comparable criterion value)."""
+    p_full, _, d_full = spec.lag_span()
+    nll = sel["neg_log_likelihood"][rows]
+    crit = _criterion_one(
+        torch.as_tensor(nll),
+        torch.as_tensor(_host(nv0)[rows].astype(nll.dtype)),
+        k, p_full, d_full, criterion).numpy()
+    sel["criterion"][rows] = np.where(np.isfinite(crit), crit, np.nan)
+
+
+def _winners_search(specs, values, nv0, b, criterion, include_intercept,
+                    stage1_iters, checkpoint_dir, _walk):
+    """The ``stage2="winners"`` economy for ``fuse=1``: rank on cheap
+    stage-1 sweeps, spend the full budget only on each row's winning
+    order, one journaled refit walk per winning order."""
+    order_meta = []
+    stage1_results = []
+    stage1_wall = 0.0
+    for g, spec in enumerate(specs):
+        res, wall = _walk(spec, g, _grid_dir(checkpoint_dir, g, "_s1"),
+                          stage_tag="stage1",
+                          max_iters_override=stage1_iters)
+        stage1_results.append(res)
+        stage1_wall += wall
+        order_meta.append({
+            "grid_index": g,
+            "order": list(spec.order),
+            "seasonal": (list(spec.seasonal)
+                         if spec.seasonal is not None else None),
+            "label": spec.label,
+            "k": spec.n_params(include_intercept),
+            "wall_s": round(wall, 4),
+            "chunks_run": res.meta.get("chunks_run"),
+            "rows_fit": b,
+            "stage2_traces": None,
+            "timeouts": res.meta.get("timeouts", 0),
+        })
+    sel = select_orders(specs, stage1_results, nv0, criterion=criterion,
+                        include_intercept=include_intercept)
+    order_idx = sel["order_index"]
+    stage2_wall = 0.0
+    # refit each winning order's rows at the FULL budget: gathered into a
+    # retry_cap-aligned sub-batch (bounded shapes — the resilient ladder's
+    # contract) and scattered back over the stage-1 selection.  The refit
+    # walk runs under the SAME knobs as the sweeps via _walk, journaled
+    # under grid_{g}_winners — the sub-panel is a deterministic function
+    # of the journaled stage-1 results, so a resumed search gathers the
+    # same rows and the journal fingerprint matches.
+    for g, spec in enumerate(specs):
+        rows = np.nonzero(order_idx == g)[0]
+        if rows.size == 0:
+            order_meta[g]["stage2_rows"] = 0
+            continue
+        cap = optim.retry_cap(rows.size)
+        pad_idx = optim.gather_pad_indices(rows, cap)
+        sub = _gather_rows(values, pad_idx)
+        res, wall = _walk(spec, g, _grid_dir(checkpoint_dir, g, "_winners"),
+                          stage_tag="winners", vals=sub)
+        stage2_wall += wall
+        keep = np.arange(rows.size)
+        k = spec.n_params(include_intercept)
+        sel["params"][rows, :k] = _host(res.params)[keep]
+        sel["params"][rows, k:] = np.nan
+        sel["neg_log_likelihood"][rows] = _host(res.neg_log_likelihood)[keep]
+        sel["converged"][rows] = _host(res.converged)[keep]
+        sel["iters"][rows] = _host(res.iters)[keep]
+        sel["status"][rows] = _host(res.status)[keep]
+        _refit_criterion(sel, rows, nv0, spec, k, criterion)
+        order_meta[g]["stage2_rows"] = int(rows.size)
+        order_meta[g]["stage2_wall_s"] = round(wall, 4)
+    return sel, order_meta, stage1_wall, stage2_wall
+
+
+def _winners_search_fused(specs, groups, values, nv0, b, criterion,
+                          include_intercept, stage1_iters, checkpoint_dir,
+                          _walk, _walk_fused, _order_entry, *, fit_kwargs,
+                          resilient, policy, chunk_rows, align_mode,
+                          budget_left=None):
+    """The fused ``stage2="winners"`` economy: fused stage-1 sweeps, then
+    ONE warm-started batched refit per basin slice.
+
+    Stage 1 rides the fused group walks at ``stage1_iters`` (journaled
+    under ``grid_*_s1``), and stage 2 groups rows by their winning order
+    and dispatches each basin as compacted ``retry_cap``-aligned batched
+    refits initialized from the stage-1 params — a handful of
+    warm-started dispatches instead of G driver campaigns.  The refits
+    are deterministic functions of the journaled stage-1 results (same
+    gather, same init, same program), so a crashed search resumes the
+    sweeps from their journals and recomputes identical refits.
+    """
+    g_total = len(specs)
+    results = [None] * g_total
+    order_meta = []
+    stage1_wall = 0.0
+    for members in groups:
+        if len(members) == 1:
+            g = members[0]
+            res, wall = _walk(specs[g], g,
+                              _grid_dir(checkpoint_dir, g, "_s1"),
+                              stage_tag="stage1",
+                              max_iters_override=stage1_iters)
+            results[g] = res
+            order_meta.append(_order_entry(g, wall, res))
+        else:
+            res, wall = _walk_fused(
+                members, _grid_dir(checkpoint_dir, members[0], "_s1"),
+                stage_tag="stage1", max_iters_override=stage1_iters)
+            per = _demux_fused(res, [specs[g] for g in members],
+                               include_intercept)
+            for j, g in enumerate(members):
+                results[g] = per[j]
+                order_meta.append(_order_entry(
+                    g, wall / len(members), res, fused_with=members))
+        stage1_wall += wall
+    order_meta.sort(key=lambda m: m["grid_index"])
+    sel = select_orders(specs, results, nv0, criterion=criterion,
+                        include_intercept=include_intercept)
+    order_idx = sel["order_index"]
+    # the refits fit row subsets of the panel; its alignment mode is a
+    # row-wise property, so the panel-level answer is exact for every basin
+    from ..reliability import source as source_mod
+    from ..reliability.status import FitStatus
+    from . import base as model_base
+
+    refit_align = align_mode
+    if refit_align is None:
+        refit_align = (values.align_mode()
+                       if isinstance(values, source_mod.ChunkSource)
+                       else model_base.align_mode_on_host(values))
+    stage2_wall = 0.0
+    for g, spec in enumerate(specs):
+        rows = np.nonzero(order_idx == g)[0]
+        if rows.size == 0:
+            order_meta[g]["stage2_rows"] = 0
+            continue
+        if budget_left is not None and budget_left() <= 0:
+            # the whole-search budget bound covers stage 2 too (once
+            # spent, remaining work is marked TIMEOUT without dispatch — a
+            # resumed search retries it)
+            sel["params"][rows] = np.nan
+            sel["neg_log_likelihood"][rows] = np.nan
+            sel["converged"][rows] = False
+            sel["iters"][rows] = 0
+            sel["status"][rows] = int(FitStatus.TIMEOUT)
+            sel["criterion"][rows] = np.nan
+            order_meta[g]["stage2_rows"] = int(rows.size)
+            order_meta[g]["stage2_timeouts"] = int(rows.size)
+            obs.event("auto_fit.winners_timeout", grid=g,
+                      rows=int(rows.size))
+            continue
+        t_g = time.perf_counter()
+        with obs.span("auto_fit.winners_basin", grid=g, order=spec.label,
+                      rows=int(rows.size)):
+            arrs = _refit_basin(
+                spec, rows, results[g], values,
+                include_intercept=include_intercept, fit_kwargs=fit_kwargs,
+                resilient=resilient, policy=policy, chunk_rows=chunk_rows,
+                align_mode=refit_align)
+        wall = time.perf_counter() - t_g
+        stage2_wall += wall
+        k = spec.n_params(include_intercept)
+        sel["params"][rows, :k] = arrs["params"][:, :k]
+        sel["params"][rows, k:] = np.nan
+        sel["neg_log_likelihood"][rows] = arrs["nll"]
+        sel["converged"][rows] = arrs["converged"]
+        sel["iters"][rows] = arrs["iters"]
+        sel["status"][rows] = arrs["status"]
+        _refit_criterion(sel, rows, nv0, spec, k, criterion)
+        order_meta[g]["stage2_rows"] = int(rows.size)
+        order_meta[g]["stage2_wall_s"] = round(wall, 4)
+    return sel, order_meta, stage1_wall, stage2_wall
+
+
+def _refit_basin(spec, rows, stage1_res, values, *, include_intercept,
+                 fit_kwargs, resilient, policy, chunk_rows, align_mode):
+    """One basin's full-budget stage-2: batched warm-started refits.
+
+    ``rows`` (the rows whose stage-1 winner is ``spec``) are walked in
+    slices of at most the search's ``chunk_rows``, each gathered into a
+    ``retry_cap``-aligned sub-batch (``optim.gather_pad_indices`` — the
+    pad tail recomputes a real row and is dropped on scatter) and
+    dispatched as a single ``models.arima.fit`` initialized from the
+    stage-1 sweep's params for these exact (row, order) cells.  Resilient
+    searches run the sanitize+ladder contract instead of the warm start
+    (the ladder refits failed subsets with the same fit_fn, which a fixed
+    init array cannot follow).  ``fit_kwargs`` carries the device."""
+    from ..reliability import runner as runner_mod
+
+    k = spec.n_params(include_intercept)
+    kw = dict(fit_kwargs)
+    if align_mode is not None:
+        kw["align_mode"] = align_mode
+    device = kw.get("device", "cuda")
+    step = int(min(rows.size, chunk_rows or rows.size))
+    cap = optim.retry_cap(step)
+    s1_params = _host(stage1_res.params)[:, :k]
+    outs = {f: [] for f in ("params", "nll", "converged", "iters", "status")}
+    for lo in range(0, rows.size, step):
+        sl = rows[lo: lo + step]
+        pad_idx = optim.gather_pad_indices(sl, cap)
+        sub = _materialize_rows(values, pad_idx, device)
+        if resilient:
+            fit_fn = _order_fit_fn(spec, include_intercept, dict(fit_kwargs))
+            r = runner_mod.resilient_fit(
+                fit_fn, sub, policy=policy,
+                **({"align_mode": align_mode}
+                   if align_mode is not None else {}))
+        else:
+            fit_fn = _order_fit_fn(spec, include_intercept, kw)
+            init = s1_params[pad_idx]
+            # winners have finite stage-1 params by construction (an
+            # ineligible order cannot win); the guard keeps a violated
+            # assumption from poisoning the whole sub-batch
+            init = np.where(np.isfinite(init), init, 0.0)
+            r = fit_fn(sub, init_params=torch.as_tensor(init,
+                                                        device=sub.device))
+        keep = np.arange(sl.size)
+        outs["params"].append(_host(r.params)[keep])
+        outs["nll"].append(_host(r.neg_log_likelihood)[keep])
+        outs["converged"].append(_host(r.converged)[keep])
+        outs["iters"].append(_host(r.iters).astype(np.int32)[keep])
+        outs["status"].append(_host(r.status).astype(np.int8)[keep])
+    return {f: np.concatenate(v) for f, v in outs.items()}
+
+
+def _materialize_rows(values, idx: np.ndarray, device="cuda"):
+    """Device sub-panel ``values[idx]`` for a basin refit: an on-device
+    gather for a tensor panel; batched contiguous host reads
+    (:func:`_read_rows_host`) moved to ``device`` for a ``ChunkSource`` —
+    a basin slice is a bounded ``retry_cap`` sub-batch, so materializing
+    it on the card is the cheap direction even for oversubscribed
+    panels."""
+    from ..reliability import source as source_mod
+
+    if isinstance(values, source_mod.ChunkSource):
+        return to_device(_read_rows_host(values, np.asarray(idx)), device)
+    return values[torch.as_tensor(np.asarray(idx), device=values.device)]
+
+
+def _read_rows_host(values, idx: np.ndarray) -> np.ndarray:
+    """Host gather of ``values[idx]`` from a ``ChunkSource``: contiguous
+    ascending index runs become one batched ``read_rows`` each (the pad
+    tail repeats ``idx[0]``, its own run), filling ONE buffer."""
+    t = int(values.shape[1])
+    out = np.empty((idx.size, t), values.dtype)
+    pos = 0
+    run_start = 0
+    for i in range(1, idx.size + 1):
+        if i == idx.size or idx[i] != idx[i - 1] + 1:
+            lo, hi = int(idx[run_start]), int(idx[i - 1]) + 1
+            values.read_rows(lo, hi, out[pos: pos + (hi - lo)])
+            pos += hi - lo
+            run_start = i
+    return out
+
+
+def _gather_rows(values, idx: np.ndarray):
+    """Row gather tolerant of tensors and ``ChunkSource`` panels.
+
+    A source-backed panel stays OFF the device: contiguous index runs are
+    read host-side in batches and the gathered sub-panel comes back as a
+    ``HostChunkSource`` — the winners refit then STREAMS it through the
+    staging pool like any other host-resident walk.  Tensor panels keep
+    the on-device gather.
+    """
+    from ..reliability import source as source_mod
+
+    if isinstance(values, source_mod.ChunkSource):
+        return source_mod.HostChunkSource(_read_rows_host(values, idx))
+    return values[torch.as_tensor(idx, device=values.device)]
+
+
+def _stepwise_neighbors(order, max_order: int):
+    """Hyndman–Khandakar expansion moves around one winning order: vary
+    ``p`` and ``q`` by ±1 (including the joint ±1 diagonal) with ``d``
+    FIXED — differencing is a property of the series, not a search move —
+    and both coefficients capped at ``max_order``.  Deterministic
+    ascending output order."""
+    p, d, q = order
+    out = []
+    for dp, dq in ((-1, -1), (-1, 0), (0, -1), (0, 1), (1, 0), (1, 1)):
+        p2, q2 = p + dp, q + dq
+        if 0 <= p2 <= max_order and 0 <= q2 <= max_order:
+            out.append((p2, d, q2))
+    return out
+
+
+def _stepwise_search(seed_specs, values, nv0, b, criterion,
+                     include_intercept, fuse, checkpoint_dir, max_passes,
+                     max_order, fit_kwargs, walk_knobs, *, budget_left=None):
+    """The stepwise Hyndman–Khandakar driver.
+
+    Fits the seed neighborhood as pass 0 (fused same-``d`` groups, full
+    budget), arg-selects over everything tried so far, expands ``p``/``q``
+    around the distinct per-row winners, and repeats until a pass's new
+    orders win zero rows, the expansion is exhausted, or ``max_passes``
+    is reached.  Every pass is an ordinary journaled campaign under
+    ``checkpoint_dir/stepwise_%02d/grid_%05d`` (grid dirs named by GLOBAL
+    trial index): a crash anywhere and a re-run replays the same pass
+    sequence — completed walks load from their journals bitwise, so the
+    recomputed selections and expansions are identical, and the torn walk
+    resumes mid-chunk.  The selection tie-break prefers earlier-TRIED
+    orders, exactly as the exhaustive search prefers earlier grid
+    entries.
+    """
+    from ..reliability import fit_chunked
+
+    max_passes = int(max_passes)
+    max_order = int(max_order)
+    specs: list = []
+    results: list = []
+    order_meta: list = []
+    passes_meta: list = []
+    sw_groups: list = []  # (pass_idx, global member tuple) in walk order
+    diff_hits = 0
+    frontier = list(seed_specs)
+    sel = None
+    wall_total = 0.0
+    converged = False
+
+    def _entry(g, wall, res, pass_idx, fused_with=None):
+        spec = specs[g]
+        entry = {
+            "grid_index": g,
+            "order": list(spec.order),
+            "seasonal": None,
+            "label": spec.label,
+            "k": spec.n_params(include_intercept),
+            "wall_s": round(wall, 4),
+            "chunks_run": res.meta.get("chunks_run"),
+            "rows_fit": b,
+            "stage2_traces": None,
+            "timeouts": res.meta.get("timeouts", 0),
+            "stepwise_pass": pass_idx,
+        }
+        if fused_with is not None:
+            entry["fused_group"] = fused_with[0]
+            entry["fused_width"] = len(fused_with)
+        return entry
+
+    for pass_idx in range(max_passes):
+        if not frontier:
+            converged = True
+            break
+        pass_dir = (None if checkpoint_dir is None else
+                    os.path.join(checkpoint_dir,
+                                 f"stepwise_{pass_idx:02d}"))
+        base_g = len(specs)
+        specs.extend(frontier)
+        g_total = len(specs)
+        local_groups = fusion_groups(tuple(frontier), fuse)
+        diff_hits += _grid_diff_cache_hits(tuple(frontier), local_groups)
+        pass_results = [None] * len(frontier)
+        pass_wall = 0.0
+        for local in local_groups:
+            members = tuple(base_g + j for j in local)
+            sw_groups.append((pass_idx, members))
+            budget = (None if budget_left is None
+                      else max(1e-6, budget_left()))
+            if len(members) == 1:
+                g = members[0]
+                spec = specs[g]
+                fit_fn = _order_fit_fn(spec, include_intercept,
+                                       dict(fit_kwargs))
+                extra = {"auto_fit": {
+                    "grid_index": g, "grid_total": g_total,
+                    "order": list(spec.order), "seasonal": None,
+                    "criterion": criterion, "stage": "stepwise",
+                    "stepwise_pass": pass_idx,
+                }}
+                with obs.span("auto_fit.order", grid=g, order=spec.label,
+                              stage="stepwise", sw_pass=pass_idx):
+                    t_g = time.perf_counter()
+                    res = fit_chunked(
+                        fit_fn, values,
+                        checkpoint_dir=_grid_dir(pass_dir, g),
+                        grid=(g, g_total), job_budget_s=budget,
+                        journal_extra=extra, **walk_knobs)
+                    wall = time.perf_counter() - t_g
+                pass_results[local[0]] = res
+                order_meta.append(_entry(g, wall, res, pass_idx))
+            else:
+                gspecs = tuple((specs[g].order, specs[g].seasonal)
+                               for g in members)
+                fit_fn = functools.partial(
+                    arima.fit_grid, specs=gspecs,
+                    include_intercept=include_intercept,
+                    **dict(fit_kwargs))
+                extra = {"auto_fit": {
+                    "grid_index": members[0], "grid_total": g_total,
+                    "fused_orders": list(members),
+                    "orders": [list(specs[g].order) for g in members],
+                    "seasonals": [None for _ in members],
+                    "criterion": criterion, "stage": "stepwise",
+                    "fuse": len(members), "stepwise_pass": pass_idx,
+                }}
+                label = "+".join(specs[g].label for g in members)
+                with obs.span("auto_fit.order", grid=members[0],
+                              order=label, stage="stepwise",
+                              fused=len(members), sw_pass=pass_idx):
+                    t_g = time.perf_counter()
+                    res = fit_chunked(
+                        fit_fn, values,
+                        checkpoint_dir=_grid_dir(pass_dir, members[0]),
+                        grid=(members[0], g_total, tuple(members)),
+                        job_budget_s=budget,
+                        journal_extra=extra, **walk_knobs)
+                    wall = time.perf_counter() - t_g
+                per = _demux_fused(res, [specs[g] for g in members],
+                                   include_intercept)
+                for pos, (j, g) in enumerate(zip(local, members)):
+                    pass_results[j] = per[pos]
+                    order_meta.append(_entry(g, wall / len(members), res,
+                                             pass_idx, fused_with=members))
+            pass_wall += wall
+        results.extend(pass_results)
+        wall_total += pass_wall
+        sel = select_orders(tuple(specs), results, nv0, criterion=criterion,
+                            include_intercept=include_intercept)
+        order_idx = np.asarray(sel["order_index"])
+        new_rows_won = int(np.sum(order_idx >= base_g))
+        passes_meta.append({
+            "pass": pass_idx,
+            "dir": f"stepwise_{pass_idx:02d}",
+            "orders": list(range(base_g, g_total)),
+            "new_rows_won": new_rows_won,
+            "wall_s": round(pass_wall, 4),
+        })
+        obs.event("auto_fit.stepwise_pass", sw_pass=pass_idx,
+                  orders=g_total - base_g, new_rows_won=new_rows_won)
+        if pass_idx > 0 and new_rows_won == 0:
+            converged = True
+            break
+        # expand around the distinct winning orders: every untried p/q
+        # neighbor, collected in ascending order so global trial indices
+        # are a deterministic function of the journaled results
+        tried = {(s.order, s.seasonal) for s in specs}
+        winner_orders = sorted({specs[int(g)].order
+                                for g in np.unique(order_idx) if g >= 0})
+        cand = []
+        for o in winner_orders:
+            for nb in _stepwise_neighbors(o, max_order):
+                if (nb, None) not in tried:
+                    tried.add((nb, None))
+                    cand.append(nb)
+        cand.sort()
+        frontier = [OrderSpec(o) for o in cand]
+    converged = converged or not frontier
+    order_meta.sort(key=lambda m: m["grid_index"])
+    return (sel, tuple(specs), order_meta, passes_meta, wall_total,
+            tuple(sw_groups), diff_hits, converged)
+
+
+def _write_auto_manifest(checkpoint_dir: str, auto_meta: dict,
+                         grid_dirs: list) -> None:
+    """Atomically write the search-level ``auto_manifest.json`` next to
+    the per-order ``grid_*`` journals (single writer: the search driver,
+    after selection — the per-order manifests carry the durable chunk
+    state; this file is the grid-level accounting the tools read).
+    ``grid_dirs`` is the exact set of journal dirs THIS search walked."""
+    from ..reliability import journal as journal_mod
+
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    payload = {
+        "kind": "auto_fit",
+        "written_at": time.time(),
+        "auto_fit": auto_meta,
+        "grid_dirs": grid_dirs,
+    }
+    journal_mod._atomic_write_bytes(
+        os.path.join(checkpoint_dir, "auto_manifest.json"),
+        json.dumps(payload, indent=1, sort_keys=True).encode())

@@ -65,7 +65,7 @@ __all__ = [
     "ewma_bwd_plain", "ewma_smooth", "ewma_prefold", "ewma_sse",
     "ewma_sse_folded", "hw_ring_in_registers", "hw_structural_ok", "hw_fwd",
     "hw_fwd_plain", "hw_bwd", "hw_bwd_plain", "hw_seeds", "hw_sse_folded",
-    "hw_sse_seeded", "hw_sse",
+    "hw_sse_seeded", "hw_sse", "hw_additive_sse",
 ]
 
 # kernel launches by wrapper name (plain-version calls are not counted)
@@ -1658,3 +1658,9 @@ def hw_sse(params, y, period: int, multiplicative: bool = False,
     _hw_check_period(period)
     seeds = hw_seeds(y, period, multiplicative, n_valid)
     return hw_sse_seeded(params, y, seeds, period, multiplicative)
+
+
+def hw_additive_sse(params, y, period: int):
+    """Additive dense-panel entry (kept for compatibility): see
+    :func:`hw_sse`."""
+    return hw_sse(params, y, period, False, None)

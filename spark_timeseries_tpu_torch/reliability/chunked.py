@@ -568,9 +568,16 @@ def fit_chunked(
         lane_retry_backoff_s=float(lane_retry_backoff_s),
         rebalance_threshold=float(rebalance_threshold),
     )
-    result = LaneRunner(plan, spec, fit_fn, fit_kwargs, lane_values,
-                        journal=journal, deadline=deadline, tele=tele,
-                        fit_key=fit_key, sink=sink).run()
+    # the walk runs on the caller's stream: the committer and the watchdog
+    # worker enter it on their own threads, so their reads and launches
+    # are ordered after the caller's fit kernels on any stream
+    walk_dev = torch.device(device) if src is not None else yb.device
+    walk_stream = (torch.cuda.current_stream(walk_dev)
+                   if walk_dev.type == "cuda" else None)
+    with watchdog_mod._on_stream(walk_stream):
+        result = LaneRunner(plan, spec, fit_fn, fit_kwargs, lane_values,
+                            journal=journal, deadline=deadline, tele=tele,
+                            fit_key=fit_key, sink=sink).run()
 
     # -- assemble ------------------------------------------------------------
     pieces = result.pieces

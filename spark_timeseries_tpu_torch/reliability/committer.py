@@ -51,6 +51,7 @@ import time
 from typing import Callable, NamedTuple, Optional
 
 from .. import obs
+from . import watchdog as watchdog_mod
 
 __all__ = ["ChunkCommitter", "CommitterStats"]
 
@@ -85,8 +86,10 @@ class ChunkCommitter:
     ``fetch(piece) -> dict`` converts a finished chunk into the journal's
     host-side shard schema (``chunked._commit_arrays``) — it runs on the
     worker thread, so for non-resilient fits the device->host copy itself
-    overlaps the next chunk's compute (the worker thread's reads are
-    ordered after the fit's kernels on the device's default stream).  ``probe()`` (optional) samples
+    overlaps the next chunk's compute.  The worker runs on the walk's
+    stream, the one the caller's fit launched on (captured by
+    ``fit_chunked`` at entry), so its reads are ordered after the fit's
+    kernels on any stream.  ``probe()`` (optional) samples
     peak memory per commit, matching the serial driver's per-chunk
     ``peak_hbm_*`` manifest fields.
     """
@@ -123,6 +126,8 @@ class ChunkCommitter:
         self._blocked_s = 0.0
         self._max_depth = 0
         self._closed = False
+        # constructed on the driver thread inside the walk: its stream
+        self._stream = watchdog_mod._walk_stream()
         self._worker = threading.Thread(
             target=self._run, daemon=True, name="chunk-committer")
         self._worker.start()
@@ -130,6 +135,10 @@ class ChunkCommitter:
     # -- worker side --------------------------------------------------------
 
     def _run(self):
+        with watchdog_mod._on_stream(self._stream):
+            self._serve()
+
+    def _serve(self):
         while True:
             item = self._q.get()
             if item is _STOP:

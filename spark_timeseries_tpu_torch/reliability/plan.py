@@ -80,7 +80,9 @@ def is_resource_exhausted(e: BaseException) -> bool:
 
 def _block_until_ready(out) -> None:
     """Wait for the kernels behind every CUDA tensor field of a fit result
-    (the watchdog's barrier: it runs inside the deadline window)."""
+    (the watchdog's barrier: it runs inside the deadline window, on the
+    worker thread, whose current stream is the walk's — the caller's,
+    captured by ``fit_chunked``)."""
     for d in {f.device for f in out
               if isinstance(f, torch.Tensor) and f.device.type == "cuda"}:
         torch.cuda.current_stream(d).synchronize()

@@ -96,6 +96,39 @@ def request_context(tags):
         _lane_ctx.request_tags = prev
 
 
+# -- walk stream -------------------------------------------------------------
+# The walk's worker threads (the committer, the watchdog worker) must read
+# and launch on the stream the CALLER's fit runs on: a fit_chunked call
+# inside ``torch.cuda.stream(side)`` puts its kernels on ``side``, and a
+# read queued on another thread's default stream would not be ordered after
+# them.  fit_chunked captures the caller's current stream at entry and tags
+# the driver thread with it; every thread hop below enters it.
+
+
+def _walk_stream():
+    """The CUDA stream the walk on THIS thread runs on (None off the card
+    or outside a walk)."""
+    return getattr(_lane_ctx, "stream", None)
+
+
+@contextlib.contextmanager
+def _on_stream(stream):
+    """Tag the current thread with ``stream`` and make it the current
+    stream of its device (``None``: no CUDA stream, nothing entered)."""
+    prev = getattr(_lane_ctx, "stream", None)
+    _lane_ctx.stream = stream
+    try:
+        if stream is None:
+            yield
+        else:
+            import torch
+
+            with torch.cuda.stream(stream):
+                yield
+    finally:
+        _lane_ctx.stream = prev
+
+
 class DeadlineExceeded(RuntimeError):
     """A fit dispatch (or the whole job) overran its wall-clock budget."""
 
@@ -156,6 +189,7 @@ def call_with_deadline(fn: Callable, budget_s: Optional[float] = None,
         lane = current_lane()
     req = current_request()  # serving request tag survives the hop too
     tctx = obs.current_trace()  # and so does the trace context
+    stream = _walk_stream()  # and the walk's CUDA stream
     if budget_s is None:
         with lane_context(lane):
             return fn()
@@ -165,7 +199,7 @@ def call_with_deadline(fn: Callable, budget_s: Optional[float] = None,
     def worker():
         try:
             with lane_context(lane), request_context(req), \
-                    obs.trace_scope(tctx):
+                    obs.trace_scope(tctx), _on_stream(stream):
                 box["result"] = fn()
         except BaseException as e:  # noqa: BLE001 - re-raised in the caller
             box["error"] = e

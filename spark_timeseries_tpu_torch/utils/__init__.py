@@ -2,5 +2,7 @@
 accounting."""
 
 from . import compile_cache, linalg, optim
+from .optim import batched_minimize, minimize_lbfgs
 
-__all__ = ["compile_cache", "linalg", "optim"]
+__all__ = ["compile_cache", "linalg", "optim", "minimize_lbfgs",
+           "batched_minimize"]

@@ -24,6 +24,10 @@ bad = sorted(m for m in sys.modules
              or m.startswith("spark_timeseries_tpu."))
 print(len(names), bad)
 assert not bad, bad
+for name in ("models.auto", "forecasting._prng", "forecasting.kernels",
+             "forecasting.params", "forecasting.walk",
+             "forecasting.ensemble", "forecasting.backtest"):
+    assert port.__name__ + "." + name in names, name
 """
 
 
@@ -33,7 +37,7 @@ def test_import_loads_no_jax_and_no_reference_module():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 47  # every submodule was imported
+    assert n_modules >= 54  # every submodule was imported
 
 
 _FORBIDDEN = re.compile(

@@ -1,14 +1,20 @@
-"""The port's public signatures against the reference's.
+"""The port's public names and signatures against the reference's.
 
-Every public function of a ported module that the reference module also
-defines takes the same keyword set, except for the differences recorded
-under ``ROADMAP.md`` queue 3, "Deliberate differences", which are listed
-here with their reasons.  A call written for the reference then never
-meets a ``TypeError`` on the port for a keyword the port forgot.
+Every public name of a ported module (and of a ported package's
+``__init__``) exists in the port, and every public function and class the
+reference module defines takes the same keyword set in the port —
+constructors and public methods included — except for the differences
+recorded under ``ROADMAP.md`` queue 3, "Deliberate differences", and the
+names of the modules still to port (ROADMAP queue 1, items 14, 17 and
+18), which are listed here with their reasons.  A call written for the
+reference then never meets an ``AttributeError`` or a ``TypeError`` on the
+port for a name or keyword the port forgot.
 """
 
+import ast
 import importlib
 import inspect
+import pathlib
 
 import pytest
 
@@ -43,6 +49,12 @@ MODULES = {
     "reliability.delta": "reliability.delta",
     "reliability.chunked": "reliability.chunked",
     "forecasting.augment": "forecasting.augment",
+    "forecasting.kernels": "forecasting.kernels",
+    "forecasting.params": "forecasting.params",
+    "forecasting.walk": "forecasting.walk",
+    "forecasting.ensemble": "forecasting.ensemble",
+    "forecasting.backtest": "forecasting.backtest",
+    "models.auto": "models.auto",
     "stats.tests": "stats.tests",
     "index": "index",
     "obs.core": "obs.core",
@@ -101,7 +113,69 @@ ALLOWED = {
     ("ops.cuda_kernels", "css_neg_loglik_folded"): (
         {"yt", "zb"}, {"interpret", "y3", "zb3"}),
     ("ops.cuda_kernels", "hr_init"): ({"yt"}, {"interpret", "y3"}),
+    ("ops.cuda_kernels", "hw_additive_sse"): _INTERPRET,
+    # the forecast walk, ensembles and backtests place a host panel on
+    # device= (default "cuda"); a chunk fit function receives it too
+    **{("forecasting.walk", n): _DEVICE
+       for n in ("forecast_chunked", "forecast_fit", "warmstart_fit")},
+    ("forecasting.ensemble", "ensemble_forecast"): _DEVICE,
+    ("forecasting.backtest", "run_backtest"): _DEVICE,
 }
+
+_ITEM_17 = ("the multi-lane walk, ROADMAP queue 1 item 17")
+_ITEM_18 = ("serving and chaos, ROADMAP queue 1 item 18")
+# (port module, name) -> why the reference's public name is absent
+ABSENT = {
+    ("models.base", "jit_program"):
+        "the port compiles no programs (deliberate difference)",
+    **{("utils.optim", n): "the lazy stage-1/stage-2 split is one loop in "
+       "the port (deliberate difference)"
+       for n in ("StragglerCarry", "lbfgs_batched_stage1",
+                 "lbfgs_batched_stage2")},
+    **{("reliability.faultinject", n): _ITEM_17
+       for n in ("SimulatedLaneFailure", "lane_kill", "slow_lane",
+                 "lane_oom_storm")},
+    **{("reliability.faultinject", n): _ITEM_18
+       for n in ("FaultyWire", "frame_fault_schedule", "request_storm",
+                 "server_kill", "slow_tenant")},
+    **{("reliability.plan", n): _ITEM_17
+       for n in ("LaneSupervisor", "RestagedPanel", "WorkQueue")},
+    **{("reliability.journal", n): _ITEM_17
+       for n in ("MergeWarmer", "ShardJournalView", "merge_job_manifest")},
+}
+# (port module, class, method) -> why a public method is absent
+ABSENT_METHODS = {
+    ("ops.layout", "FoldedPanel", "tree_flatten"):
+        "FoldedPanel is no JAX pytree (deliberate difference)",
+}
+# (port module, class) -> (constructor keywords only the port takes,
+# those only the reference takes)
+ALLOWED_CTORS = {
+    ("reliability.source", "DeviceChunkSource"): _DEVICE,
+    ("reliability.prefetcher", "ChunkPrefetcher"): _DEVICE,
+}
+# package __init__ (relative name) -> names the reference exports that the
+# port's does not yet
+_ITEM_14 = ("panel, compat and plot, ROADMAP queue 1 item 14")
+ABSENT_EXPORTS = {
+    "": {**dict.fromkeys(("TimeSeriesPanel", "compat", "from_dataframe",
+                          "from_observations", "from_series_dict"),
+                         _ITEM_14),
+         **dict.fromkeys(("default_mesh", "parallel"), _ITEM_17),
+         "serving": _ITEM_18},
+    "reliability": {
+        **dict.fromkeys(("ChaosEvent", "ChaosRunner", "InvariantViolation",
+                         "chaos", "chaos_schedule", "check_invariants",
+                         "load_chaos_manifest", "unavailability_windows",
+                         "write_chaos_manifest"), _ITEM_18),
+        **dict.fromkeys(("LaneSupervisor", "MergeWarmer", "RestagedPanel",
+                         "ShardJournalView", "WorkQueue",
+                         "merge_job_manifest"), _ITEM_17)},
+}
+# package __init__s the port has (compat, parallel and serving are items
+# 14, 17 and 18)
+PACKAGES = ("", "forecasting", "models", "obs", "ops", "reliability",
+            "stats", "utils")
 
 
 def _shared_functions():
@@ -154,3 +228,116 @@ def test_every_allowed_difference_is_still_a_shared_function():
 def test_pass_accounting_names_exist(module, name):
     # the reference's pass-accounting surface, present in the port
     assert (module, name) in _CASES
+
+
+def _modules(pmod):
+    return (importlib.import_module(f"spark_timeseries_tpu_torch.{pmod}"),
+            importlib.import_module(
+                f"spark_timeseries_tpu.{MODULES[pmod]}"))
+
+
+def _public_names(mod) -> set:
+    """A module's public names: its ``__all__`` and every public function
+    and class it defines."""
+    names = set(getattr(mod, "__all__", ()) or ())
+    for name, v in vars(mod).items():
+        if (not name.startswith("_")
+                and (inspect.isfunction(v) or inspect.isclass(v))
+                and getattr(v, "__module__", None) == mod.__name__):
+            names.add(name)
+    return names
+
+
+_NAME_CASES = [(m, n) for m in MODULES
+               for n in sorted(_public_names(_modules(m)[1]))]
+
+
+@pytest.mark.parametrize("module,name", _NAME_CASES,
+                         ids=[f"{m}.{n}" for m, n in _NAME_CASES])
+def test_reference_name_exists_in_port(module, name):
+    port, _ = _modules(module)
+    if (module, name) in ABSENT:
+        assert not hasattr(port, name), "ported: drop the ABSENT entry"
+    else:
+        assert hasattr(port, name)
+
+
+def _signature_keywords(obj):
+    try:
+        return set(inspect.signature(obj).parameters)
+    except (TypeError, ValueError):  # an exception class's builtin init
+        return None
+
+
+def _shared_classes():
+    out = []
+    for pmod in MODULES:
+        port, ref = _modules(pmod)
+        for name in sorted(_public_names(ref)):
+            rc, pc = getattr(ref, name), getattr(port, name, None)
+            if inspect.isclass(rc) and inspect.isclass(pc):
+                out.append((pmod, name))
+    return out
+
+
+_CLASS_CASES = _shared_classes()
+
+
+@pytest.mark.parametrize("module,name", _CLASS_CASES,
+                         ids=[f"{m}.{n}" for m, n in _CLASS_CASES])
+def test_class_constructor_and_methods_match_the_reference(module, name):
+    port, ref = _modules(module)
+    pc, rc = getattr(port, name), getattr(ref, name)
+    got, want = _signature_keywords(pc), _signature_keywords(rc)
+    if got is not None and want is not None:
+        only_port, only_ref = ALLOWED_CTORS.get((module, name),
+                                                (set(), set()))
+        assert (got - want, want - got) == (only_port, only_ref)
+    for mname, rm in vars(rc).items():
+        if mname.startswith("_") or not inspect.isfunction(rm):
+            continue
+        pm = getattr(pc, mname, None)
+        if (module, name, mname) in ABSENT_METHODS:
+            assert pm is None, "ported: drop the ABSENT_METHODS entry"
+            continue
+        assert pm is not None, f"{name}.{mname} missing"
+        assert _signature_keywords(pm) == _signature_keywords(rm), mname
+
+
+def _package_exports(pkg: str, root: str) -> set:
+    """Names a package ``__init__`` exports: its ``__all__``, else every
+    public name its source binds at module level (read from the source,
+    so submodules other imports attached to the package do not count)."""
+    mod = importlib.import_module(root + (f".{pkg}" if pkg else ""))
+    if getattr(mod, "__all__", None):
+        return set(mod.__all__)
+    tree = ast.parse(pathlib.Path(mod.__file__).read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("pkg", PACKAGES, ids=[p or "top" for p in PACKAGES])
+def test_package_exports_the_reference_names(pkg):
+    want = _package_exports(pkg, "spark_timeseries_tpu")
+    port = importlib.import_module(
+        "spark_timeseries_tpu_torch" + (f".{pkg}" if pkg else ""))
+    absent = ABSENT_EXPORTS.get(pkg, {})
+    missing = {n for n in want if not hasattr(port, n)}
+    assert missing == set(absent)
+    assert set(absent) <= want  # no stale entry
+
+
+def test_every_absent_entry_is_a_reference_name():
+    cases = set(_NAME_CASES)
+    assert set(ABSENT) <= cases
+    assert set(ALLOWED_CTORS) <= set(_CLASS_CASES)
+    assert {(m, c) for m, c, _ in ABSENT_METHODS} <= set(_CLASS_CASES)
