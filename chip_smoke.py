@@ -142,13 +142,42 @@ Phases; each failure makes the script exit non-zero with no result line:
    additive Holt-Winters on the hourly panel, each equal to the model's
    own ``forecast``.
 
+12. drive the panel API, compat and the mesh (``phase_panel_mesh``),
+   with the launch counts set to 0 before each step and read after it:
+   (12a) a ``TimeSeriesPanel`` over the headline panel (the tensor taken
+   without a copy): ``fill("linear")`` one ``fill_chain`` launch and
+   ``autocorr(20)``, each bit for bit its ``ops.univariate`` batch
+   function; ``fit("arima", chunk_rows=250_000, checkpoint_dir=...)`` and
+   ``forecast("arima", 30, ...)`` bit for bit ``fit_chunked`` /
+   ``forecast_chunked`` with the same knobs; walls of ``differences``,
+   ``series_stats``, ``to_instants``, ``islice`` / ``select`` /
+   ``with_index``; an npz round trip of 10,000 rows; ``from_observations``
+   of 10,000 x 1,000 observations == the panel's rows.  (12b)
+   ``compat.sparkts``: ``ARIMA.fit_model`` of the headline panel bit for
+   bit ``arima.fit`` (journaled: ``fit_chunked``), ``forecast_panel`` ==
+   ``forecast_chunked``, ``TimeSeriesRDD.map_series(mode="device")`` over
+   1M rows, and the AR, GARCH, ARGARCH (100,000 x 2,520 returns made as in
+   phase 5), EWMA and Holt-Winters (100,000 x 960 hourly rows) fits, each
+   bit for bit its model module's, with their kernels' launches, every
+   model through ``save`` -> ``load_model``.  (12c) ``default_mesh()`` on
+   the card and a panel on it; a (1, 4) mesh listing the card four times:
+   ``sp_moments``, ``sp_autocorr``, ``sp_cumsum``, ``sp_differences``,
+   ``sp_fill_linear_chain`` (also on 100,000 hourly rows with their gaps)
+   and ``sp_ewma_smooth`` over the headline panel against their unsharded
+   counterparts, then ``sp_ewma_fit``, ``sp_garch_fit``,
+   ``sp_argarch_fit`` and ``sp_arima_fit((1,1,1))`` on dense float64
+   rows at the CPU tests' bars: EWMA and ARIMA on 100,000 rows against
+   the models' unsharded fits, the GARCH pair on 25,000 rows against the
+   same objective in one time cell.
+
 The line before the last is a JSON object with one entry per kernel, and
 earlier lines JSON objects with the lag route's times, bounds and
 launches, with phase 9's walls, launches and counts, with phase 10's
 (``{"chunked_walk": ...}``: walls and launches of each walk, the peaks
-of device memory, the commit and staging overlap) and with phase 11's
-(``{"search_forecast": ...}``); the last line is
-``{"ok": true, "device": {...}}``.
+of device memory, the commit and staging overlap), with phase 11's
+(``{"search_forecast": ...}``) and with phase 12's (``{"panel_mesh":
+...}``: walls, launches and peaks of each step, the fits' agreement);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3048,6 +3077,406 @@ def phase_search_forecast(chk: Checks, device) -> dict:
     return out
 
 
+# 12a from_observations: 10^7 observations, cut from 100,000 rows (10^8
+# observations, 10.0-13.1 s of host time measured on one H100)
+OBS_ROWS = 10_000
+# 12a npz round trip: cut from 100,000 rows, whose 400 MB took 20.2 s to
+# compress (measured on one H100; PERF.md section 4)
+PANEL_NPZ_ROWS = 10_000
+COMPAT_ROWS = 100_000  # 12b EWMA / Holt-Winters / GARCH / ARGARCH / AR
+SP_FIT_ROWS = 100_000  # 12c time-sharded fits (the autograd cut, PERF.md)
+SP_SHARDS = 4  # 12c: the card listed four times along the time axis
+# 12c GARCH / ARGARCH: held against the same objective in one time cell
+# on 25,000 rows, not against the models' float64 fits, whose plain
+# PyTorch recursion took 44.8 + 49.8 s, one step of launches a time step
+# (measured on one H100; PERF.md section 4)
+SP_GARCH_ROWS = 25_000
+# the CPU tests' bars for a time-sharded fit against an unsharded one
+# (tests/test_torch_seqparallel.py): params atol on rows both converge
+SP_BARS = {"ewma": 1e-4, "garch": 1e-3, "argarch": 2e-3, "arima": 5e-3}
+
+
+def _dense_garch_rows(b: int, t: int, seed: int, device, ar=None):
+    """``[B, T]`` dense GARCH(1,1) returns with ``entry.GARCH_PARAMS``
+    (an AR(1) mean ``y_t = c + phi y_{t-1} + r_t`` on top when ``ar`` is
+    ``(c, phi)``), built time-major on the card; the time-sharded fits
+    take dense panels."""
+    from spark_timeseries_tpu_torch import entry
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    omega, alpha, beta = entry.GARCH_PARAMS
+    z = torch.randn(t, b, generator=gen, device=device)
+    h = torch.full((b,), omega / (1.0 - alpha - beta), device=device)
+    out = torch.empty_like(z)
+    prev = torch.zeros(b, device=device)
+    for i in range(t):
+        r = h.sqrt() * z[i]
+        h = omega + alpha * r * r + beta * h
+        prev = r if ar is None else ar[0] + ar[1] * prev + r
+        out[i] = prev
+    return out.t().contiguous()
+
+
+def _share_within(got, want, bar: float) -> tuple:
+    """(share of rows both fits converged, share of those rows whose
+    params agree within ``bar``, max |param diff| over them)."""
+    both = got.converged & want.converged
+    d = (got.params - want.params).abs().amax(1)[both]
+    n = max(int(both.sum()), 1)
+    return (float(both.float().mean()), float((d <= bar).sum()) / n,
+            float(d.max()) if d.numel() else 0.0)
+
+
+def phase_panel_mesh(chk: Checks, device) -> dict:
+    """Phase 12: the panel API (``TimeSeriesPanel``), the upstream-shaped
+    ``compat.sparkts`` and the single-process mesh with the time-sharded
+    functions and fits (``parallel.mesh``, ``ops.seqparallel``)."""
+    import functools
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch import forecasting as fc
+    from spark_timeseries_tpu_torch import index as dtix
+    from spark_timeseries_tpu_torch import panel as panellib
+    from spark_timeseries_tpu_torch.compat import sparkts
+    from spark_timeseries_tpu_torch.models import (arima, autoregression,
+                                                   ewma, garch, holtwinters)
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.ops import layout
+    from spark_timeseries_tpu_torch.ops import seqparallel as sp
+    from spark_timeseries_tpu_torch.ops import univariate as uv
+    from spark_timeseries_tpu_torch.parallel import mesh as meshlib
+    from spark_timeseries_tpu_torch.reliability import fit_chunked
+
+    out = {"walls_s": {}, "launches": {}, "peak_gib": {}}
+    t_phase = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_panel_"))
+
+    def timed(name, fn):
+        """``fn()`` with the launch counts set to 0 just before it and read
+        just after, and the allocator's peak reset before it."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            out["walls_s"][name] = time.perf_counter() - t0
+            out["launches"][name] = {k: v for k, v in ck.LAUNCHES.items()
+                                     if v}
+            out["peak_gib"][name] = (torch.cuda.max_memory_allocated(device)
+                                     / 2**30)
+            log(f"  {name}: {out['walls_s'][name]:.3f} s, peak "
+                f"{out['peak_gib'][name]:.2f} GiB, launches "
+                f"{out['launches'][name]}")
+
+    def ran(name, *kernels):
+        la = out["launches"][name]
+        chk.require(all(la.get(k, 0) > 0 for k in kernels),
+                    f"{name}: {', '.join(kernels)} launched ({la})")
+
+    try:
+        y = entry.gen_panel(ROWS, TIME, seed=0, device=device)
+        idx = dtix.uniform("2000-01-03", TIME, dtix.DayFrequency(1))
+        keys = np.arange(ROWS)
+        torch.cuda.synchronize()
+
+        # 12a: the panel on the headline panel
+        log(f"phase 12a: TimeSeriesPanel over the {ROWS} x {TIME} headline "
+            "panel")
+        p = timed("12a construct", lambda: panellib.TimeSeriesPanel(
+            idx, keys, y))
+        chk.require(p.values is y and p.n_series == ROWS,
+                    "12a the constructor takes the tensor without a copy")
+        filled = timed("12a fill linear", lambda: p.fill("linear"))
+        chk.require(out["launches"]["12a fill linear"] == {"fill_chain": 1},
+                    "12a fill('linear') is one fill_chain launch")
+        chk.require(same_bits(filled.values, uv.batch_fill("linear")(y)),
+                    "12a fill('linear') == uv.batch_fill('linear') bit for "
+                    "bit")
+        del filled
+        acf = timed("12a autocorr(20)", lambda: p.autocorr(20))
+        ran("12a autocorr(20)", "autocorr")
+        chk.require(same_bits(acf, uv.batch_autocorr(20)(y)),
+                    "12a autocorr(20) == uv.batch_autocorr(20) bit for bit")
+        del acf
+        walk = dict(order=entry.ORDER, chunk_rows=CHUNK_ROWS)
+        pfit = timed("12a panel.fit", lambda: p.fit(
+            "arima", checkpoint_dir=str(root / "fit_panel"), **walk))
+        dfit = timed("12a fit_chunked", lambda: fit_chunked(
+            arima.fit, y, checkpoint_dir=str(root / "fit_direct"),
+            device=device, **walk))
+        chk.require(_same_walk(pfit, dfit), "12a panel.fit == fit_chunked "
+                    "with the same knobs, bit for bit")
+        chk.require(out["launches"]["12a panel.fit"]
+                    == out["launches"]["12a fit_chunked"]
+                    and out["launches"]["12a panel.fit"].get(
+                        "hr_moments", 0) == 2 * (ROWS // CHUNK_ROWS),
+                    "12a panel.fit launches what the chunk walk launches")
+        del dfit
+        pfc = timed("12a panel.forecast", lambda: p.forecast(
+            "arima", 30, pfit, order=entry.ORDER, chunk_rows=CHUNK_ROWS))
+        dfc = fc.forecast_chunked("arima", pfit, y, 30,
+                                  model_kwargs={"order": entry.ORDER},
+                                  chunk_rows=CHUNK_ROWS, device=device)
+        ran("12a panel.forecast", "css_fwd")
+        chk.require(_same_arrays(pfc.forecast, dfc.forecast)
+                    and _same_arrays(pfc.status, dfc.status),
+                    "12a panel.forecast == forecast_chunked bit for bit")
+        chk.require(bool(np.isfinite(pfc.forecast).mean() > 0.99),
+                    "12a the forecast is finite")
+        del pfc, dfc
+        d = timed("12a differences", lambda: p.differences(1))
+        chk.require(same_bits(d.values, uv.differences_at_lag(y, 1)),
+                    "12a differences(1) == uv.differences_at_lag")
+        del d
+        st = timed("12a series_stats", p.series_stats)
+        chk.require(bool((st["count"] == TIME).all())
+                    and bool(torch.isfinite(st["stdev"]).all()),
+                    "12a series_stats: full counts, finite stdev")
+        del st
+        _, inst = timed("12a to_instants", p.to_instants)
+        chk.require(tuple(inst.shape) == (TIME, ROWS)
+                    and torch.equal(inst[:, ROWS // 3], y[ROWS // 3]),
+                    "12a to_instants is the transpose")
+        del inst
+        lo, hi = TIME // 10, TIME - TIME // 10  # the index starts 2 days in
+        sub = timed("12a islice/select/with_index", lambda: p.islice(
+            lo, hi).select(list(range(0, ROWS, 1000))).with_index(
+                dtix.uniform("2000-01-01", TIME, dtix.DayFrequency(1))))
+        chk.require(sub.n_series == ROWS // 1000 and sub.n_time == TIME
+                    and torch.equal(sub.values[1, lo + 2:hi + 2],
+                                    y[1000, lo:hi])
+                    and bool(torch.isnan(sub.values[:, :lo + 2]).all()),
+                    "12a islice / select / with_index move the right values")
+        del sub
+        small = panellib.TimeSeriesPanel(idx, keys[:PANEL_NPZ_ROWS],
+                                         y[:PANEL_NPZ_ROWS])
+        path = str(root / "panel.npz")
+        timed(f"12a npz save {PANEL_NPZ_ROWS} rows", lambda: small.save(path))
+        back = timed(f"12a npz load {PANEL_NPZ_ROWS} rows",
+                     lambda: panellib.TimeSeriesPanel.load(path,
+                                                           device=device))
+        chk.require(same_bits(back.values, small.values)
+                    and back.keys.tolist() == [str(k) for k in
+                                               keys[:PANEL_NPZ_ROWS]]
+                    and back.index == idx,
+                    "12a npz round trip bit-exact")
+        del small, back
+        t0 = time.perf_counter()
+        host = y[:OBS_ROWS].cpu().numpy()
+        obs_keys = np.repeat(np.arange(OBS_ROWS), TIME)
+        obs_ts = np.tile(idx.datetimes(), OBS_ROWS)
+        out["walls_s"]["12a observations to the host"] = (
+            time.perf_counter() - t0)
+        po = timed(f"12a from_observations {OBS_ROWS} x {TIME}",
+                   lambda: panellib.from_observations(
+                       idx, obs_keys, obs_ts, host.reshape(-1),
+                       device=device))
+        chk.require(po.keys.tolist() == list(range(OBS_ROWS))
+                    and same_bits(po.values, y[:OBS_ROWS]),
+                    "12a from_observations == the panel's rows, bit for bit")
+        del po, host, obs_keys, obs_ts
+
+        # 12b: compat
+        log("phase 12b: compat.sparkts on the headline panel and on "
+            f"{COMPAT_ROWS}-row volatility and hourly panels")
+        cm = timed("12b ARIMA.fit_model", lambda: sparkts.ARIMA.fit_model(
+            1, 1, 1, y))
+        ran("12b ARIMA.fit_model", "css_fwd", "css_bwd", "hr_moments")
+        direct = arima.fit(y, entry.ORDER, method="css-cgd", device=device)
+        chk.require(same_bits(cm.params, direct.params),
+                    "12b ARIMA.fit_model == arima.fit bit for bit")
+        del direct
+        cj = timed("12b ARIMA.fit_model journaled",
+                   lambda: sparkts.ARIMA.fit_model(
+                       1, 1, 1, y, checkpoint_dir=str(root / "compat_j"),
+                       chunk_rows=CHUNK_ROWS))
+        jw = fit_chunked(functools.partial(
+            arima.fit, order=entry.ORDER, include_intercept=True,
+            method="css-cgd", init_params=None), y, chunk_rows=CHUNK_ROWS,
+            resilient=False, checkpoint_dir=str(root / "compat_d"),
+            device=device)
+        chk.require(_same_arrays(cj.coefficients, jw.params),
+                    "12b journaled ARIMA.fit_model == fit_chunked bit for "
+                    "bit")
+        del cj, jw
+        cfp = timed("12b forecast_panel", lambda: cm.forecast_panel(
+            y, 30, chunk_rows=CHUNK_ROWS))
+        dfp = fc.forecast_chunked(
+            "arima", cm.coefficients, y, 30,
+            model_kwargs={"order": entry.ORDER, "include_intercept": True},
+            chunk_rows=CHUNK_ROWS, device=device)
+        chk.require(_same_arrays(cfp.forecast, dfp.forecast),
+                    "12b forecast_panel == forecast_chunked bit for bit")
+        del cfp, dfp
+        rdd = sparkts.TimeSeriesRDD(p)
+        std = timed("12b map_series(mode='device') over the headline panel",
+                    lambda: rdd.map_series(
+                        lambda v: (v - v.mean()) / v.std(), mode="device"))
+        plain = (y - y.mean(1, keepdim=True)) / y.std(1, keepdim=True)
+        err, rel = rel_err(std.panel.values, plain)
+        chk.require(rel <= 1e-6, f"12b map_series(mode='device') == the "
+                    f"panel-wide standardization (rel {rel:.1e})")
+        del std, plain, rdd
+        ar_m = timed("12b Autoregression.fit_model",
+                     lambda: sparkts.Autoregression.fit_model(
+                         y[:COMPAT_ROWS], max_lag=2))
+        chk.require(same_bits(ar_m.params, autoregression.fit(
+            y[:COMPAT_ROWS], 2, device=device).params),
+            "12b Autoregression.fit_model == autoregression.fit bit for bit")
+        prices = entry.gen_garch_prices(COMPAT_ROWS, VOL_TIME, seed=0,
+                                        device=device)
+        (ret_fp,) = uv.batch_fill_linear_chain(
+            layout.fold_panel(100.0 * prices), outputs=("diff",))
+        returns = layout.unfold_panel(ret_fp)
+        del prices, ret_fp
+        g_m = timed("12b GARCH.fit_model",
+                    lambda: sparkts.GARCH.fit_model(returns))
+        ran("12b GARCH.fit_model", "garch_fwd", "garch_bwd")
+        chk.require(same_bits(g_m.params, garch.fit(returns,
+                                                    device=device).params),
+                    "12b GARCH.fit_model == garch.fit bit for bit")
+        ag_m = timed("12b ARGARCH.fit_model",
+                     lambda: sparkts.ARGARCH.fit_model(returns))
+        ran("12b ARGARCH.fit_model", "garch_fwd", "garch_bwd")
+        chk.require(same_bits(ag_m.params, garch.fit_argarch(
+            returns, device=device).params),
+            "12b ARGARCH.fit_model == garch.fit_argarch bit for bit")
+        del returns
+        yh = entry.gen_hourly_panel(COMPAT_ROWS, HOURLY_TIME, seed=0,
+                                    device=device)
+        e_m = timed("12b EWMA.fit_model", lambda: sparkts.EWMA.fit_model(yh))
+        ran("12b EWMA.fit_model", "ewma_fwd", "ewma_bwd")
+        chk.require(same_bits(e_m.params, ewma.fit(yh, device=device).params),
+                    "12b EWMA.fit_model == ewma.fit bit for bit")
+        h_m = timed("12b HoltWinters.fit_model",
+                    lambda: sparkts.HoltWinters.fit_model(yh, SEASON))
+        ran("12b HoltWinters.fit_model", "hw_fwd", "hw_bwd")
+        chk.require(same_bits(h_m.params, holtwinters.fit(
+            yh, SEASON, device=device).params),
+            "12b HoltWinters.fit_model == holtwinters.fit bit for bit")
+        ok = True
+        for name, m in (("arima", cm), ("ar", ar_m), ("garch", g_m),
+                        ("argarch", ag_m), ("ewma", e_m), ("hw", h_m)):
+            mp = str(root / f"model_{name}.npz")
+            m.save(mp)
+            back = sparkts.load_model(mp, device=device)
+            ok &= type(back) is type(m) and same_bits(back.params, m.params)
+        chk.require(ok, "12b save -> load_model round trips every model "
+                    "bit for bit")
+        del cm, ar_m, g_m, ag_m, e_m, h_m
+
+        # 12c: the mesh
+        log(f"phase 12c: default_mesh() and a (1, {SP_SHARDS}) mesh of the "
+            "card")
+        m1 = meshlib.default_mesh()
+        chk.require(m1.shape == {"series": torch.cuda.device_count()}
+                    and m1.devices.flat[0] == device,
+                    f"12c default_mesh() lists the card ({m1})")
+        if m1.shape["series"] == 1:
+            pm = panellib.TimeSeriesPanel(idx, keys, y, mesh=m1)
+            chk.require(pm.values is y and same_bits(
+                pm.differences(1).values, uv.differences_at_lag(y, 1)),
+                "12c a panel on default_mesh() == the unsharded panel")
+            del pm
+        m4 = meshlib.default_mesh(devices=[device] * SP_SHARDS,
+                                  time_shards=SP_SHARDS)
+        mom = timed("12c sp_moments", lambda: sp.sp_moments_sharded(m4, y))
+        mean = y.mean(1)
+        chk.require(bool((mom["count"] == TIME).all())
+                    and rel_err(mom["mean"], mean)[1] <= 1e-5
+                    and rel_err(mom["var"], y.var(1))[1] <= 1e-5,
+                    "12c sp_moments == the unsharded moments (1e-5)")
+        del mom, mean
+        sac = timed("12c sp_autocorr(20)",
+                    lambda: sp.sp_autocorr_sharded(m4, y, 20))
+        # two float32 summation orders over T terms: 1e-4 of r_k
+        err = float((sac - uv.batch_autocorr(20)(y)).abs().max())
+        chk.require(err <= 1e-4, f"12c sp_autocorr == the autocorrelation "
+                    f"kernel (max abs {err:.1e})")
+        del sac
+        scs = timed("12c sp_cumsum", lambda: sp.sp_cumsum_sharded(m4, y))
+        err, rel = rel_err(scs, torch.cumsum(y, 1))
+        chk.require(rel <= 1e-5, f"12c sp_cumsum == cumsum (rel {rel:.1e})")
+        del scs
+        sdf = timed("12c sp_differences", lambda: sp.sp_differences_sharded(
+            m4, y, 1))
+        chk.require(same_bits(sdf, uv.differences_at_lag(y, 1)),
+                    "12c sp_differences == differences_at_lag bit for bit")
+        del sdf
+        for what, panel_ in (("headline", y), ("hourly", yh)):
+            chain = timed(f"12c sp_fill_linear_chain {what}",
+                          lambda: sp.sp_fill_linear_chain_sharded(m4,
+                                                                  panel_))
+            want = uv.batch_fill_linear_chain(panel_)
+            worst = max(rel_err(a, b)[1] for a, b in zip(chain, want))
+            chk.require(worst <= 1e-6, f"12c sp_fill_linear_chain on the "
+                        f"{what} panel == the fill-chain kernel (rel "
+                        f"{worst:.1e})")
+            del chain, want
+        alpha = torch.rand(ROWS, generator=torch.Generator(
+            device=device).manual_seed(12), device=device) * 0.9 + 0.05
+        ssm = timed("12c sp_ewma_smooth", lambda: sp.sp_ewma_smooth_sharded(
+            m4, y, alpha))
+        err, rel = rel_err(ssm, ewma.smooth(alpha, y))
+        chk.require(rel <= 1e-5, f"12c sp_ewma_smooth == ewma.smooth (rel "
+                    f"{rel:.1e})")
+        del ssm, alpha, yh
+
+        # float64, as the CPU tests fit: their bars are float64 optimizer
+        # tolerances (float32's default tol of 1e-4 leaves stop points
+        # further apart than they are); the unsharded float64 fits run the
+        # models' plain PyTorch path, the kernels being float32 only
+        n, ng = SP_FIT_ROWS, SP_GARCH_ROWS
+        m1cell = meshlib.default_mesh(devices=[device])
+        log(f"phase 12c: time-sharded fits on {n} float64 rows ({ng} for "
+            f"the GARCH pair), (1, {SP_SHARDS}) mesh, against the unsharded "
+            "fits (the GARCH pair: the same objective in one time cell)")
+        gen = torch.Generator(device=device).manual_seed(13)
+        level = (100.0 + (0.5 * torch.randn(n, TIME, generator=gen,
+                                            device=device)).cumsum(1)
+                 + torch.randn(n, TIME, generator=gen, device=device)
+                 ).double()
+        rg = _dense_garch_rows(ng, TIME, 14, device).double()
+        ya = _dense_garch_rows(ng, TIME, 15, device, ar=(0.05, 0.4)).double()
+        yd = y[:n].double()
+        fits = (("ewma", lambda: sp.sp_ewma_fit(m4, level),
+                 lambda: ewma.fit(level, device=device)),
+                ("garch", lambda: sp.sp_garch_fit(m4, rg),
+                 lambda: sp.sp_garch_fit(m1cell, rg)),
+                ("argarch", lambda: sp.sp_argarch_fit(m4, ya),
+                 lambda: sp.sp_argarch_fit(m1cell, ya)),
+                ("arima", lambda: sp.sp_arima_fit(m4, yd, entry.ORDER),
+                 lambda: arima.fit(yd, entry.ORDER, device=device)))
+        out["12c fits"] = {}
+        for name, sharded, flat in fits:
+            got = timed(f"12c sp_{name}_fit", sharded)
+            want = timed(f"12c {name} unsharded fit", flat)
+            both, within, worst = _share_within(got, want, SP_BARS[name])
+            out["12c fits"][name] = {
+                "both_converged": both, "within_bar_share": within,
+                "max_abs_param_diff": worst, "bar": SP_BARS[name]}
+            log(f"  {name}: both converged {both:.4f}, within "
+                f"{SP_BARS[name]:g} {within:.5f}, max |diff| {worst:.2e}")
+            chk.require(both >= 0.7 and within == 1.0,
+                        f"12c sp_{name}_fit: >= 70 % of rows converge on "
+                        "both, all of those within the CPU tests' bar")
+            del got, want
+        del level, rg, ya, yd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12 in {out['phase_s']:.1f} s")
+    return out
+
+
 def build() -> int:
     """Phase 2: every source at once, then load each library; returns how
     many libraries it built."""
@@ -3420,6 +3849,7 @@ def main() -> int:
     resilient = phase_resilient(chk, device, n_built)
     chunked = phase_chunked(chk, device)
     search_fc = phase_search_forecast(chk, device)
+    panel_mesh = phase_panel_mesh(chk, device)
     log(json.dumps({"css_lag_route": {
         "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": lag,
         "launches": {"airline fit (8b)": search["airline_launches"],
@@ -3428,6 +3858,7 @@ def main() -> int:
     log(json.dumps({"resilient_fit": resilient}))
     log(json.dumps({"chunked_walk": chunked}))
     log(json.dumps({"search_forecast": search_fc}))
+    log(json.dumps({"panel_mesh": panel_mesh}))
     if chk.failures:
         log("FAILED: " + "; ".join(chk.failures))
         return 1

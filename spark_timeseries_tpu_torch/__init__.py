@@ -16,7 +16,10 @@ journaled chunk walk (``reliability.fit_chunked``) runs them over panels
 larger than one fit's working set, and the telemetry plane (``obs``)
 records their spans and counters.  On top of the walk sit the batched
 order search (``models.auto.auto_fit``) and the forecast walk, ensembles
-and backtests (``forecasting``).
+and backtests (``forecasting``).  ``TimeSeriesPanel`` (``panel``) and the
+upstream-shaped ``compat.sparkts`` are the front doors over all of it;
+``parallel.mesh`` and ``ops.seqparallel`` split one series' time axis
+across a mesh of devices (a card may be listed several times).
 
 Ported so far: ``index``, ``obs``, ``models.arima``, ``models.auto``,
 ``models.autoregression``, ``models.regression_arima``, ``models.garch``,
@@ -27,12 +30,14 @@ Ported so far: ``index``, ``obs``, ``models.arima``, ``models.auto``,
 ``augment``) and the single-lane ``reliability`` (``status``,
 ``sanitize``, ``runner``, ``watchdog``, ``chunked``, ``journal``,
 ``committer``, ``prefetcher``, ``source``, ``sink``, ``delta``, ``plan``
-and the data, commit and disk faults of ``faultinject``).  Still to port:
-``panel``, ``compat`` and ``plot``; ``parallel`` with the multi-lane walk;
-``serving`` with ``reliability.chaos``.
+and the data, commit and disk faults of ``faultinject``), ``panel``,
+``compat``, ``plot``, ``parallel.mesh`` and ``ops.seqparallel``.  Still
+to port: the multi-lane chunk walk (``fit_chunked(shard=True)``,
+``mesh=``) and ``serving`` with ``reliability.chaos``.
 """
 
-from . import forecasting, index, models, obs, ops, reliability, stats, utils
+from . import (compat, forecasting, index, models, obs, ops, parallel,
+               reliability, stats, utils)
 from .index import (
     BusinessDayFrequency,
     DateTimeIndex,
@@ -55,6 +60,9 @@ from .index import (
     uniform_from_interval,
 )
 from .ops import univariate
+from .panel import (TimeSeriesPanel, from_dataframe, from_observations,
+                    from_series_dict)
+from .parallel import default_mesh
 
 __all__ = [
     "BusinessDayFrequency",
@@ -70,8 +78,14 @@ __all__ = [
     "SecondFrequency",
     "UniformDateTimeIndex",
     "WeekFrequency",
+    "TimeSeriesPanel",
     "YearFrequency",
+    "compat",
+    "default_mesh",
     "forecasting",
+    "from_dataframe",
+    "from_observations",
+    "from_series_dict",
     "from_string",
     "hybrid",
     "index",
@@ -79,6 +93,7 @@ __all__ = [
     "models",
     "obs",
     "ops",
+    "parallel",
     "reliability",
     "stats",
     "uniform",

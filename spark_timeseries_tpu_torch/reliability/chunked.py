@@ -85,7 +85,8 @@ __all__ = ["OOMBackoffExceeded", "is_resource_exhausted", "fit_chunked"]
 
 _MULTI_LANE = ("the multi-lane chunk walk (shard=True, mesh=, a "
                "process_index other than 0) is not ported yet: ROADMAP "
-               "queue 1, item 17 (parallel/mesh)")
+               "queue 1, item 17's second half (one lane per series-axis "
+               "device of parallel.mesh)")
 
 
 def _explicit_align_param(fn) -> bool:
@@ -247,7 +248,8 @@ def fit_chunked(
     the result is bitwise-identical to the uninstrumented driver.
 
     ``mesh=``, ``shard=True`` and a ``process_index`` other than None or 0
-    raise ``NotImplementedError`` (the multi-lane walk is not ported);
+    raise ``NotImplementedError``: the multi-lane chunk walk (ROADMAP item
+    17's second half) is not ported, though ``parallel.mesh`` is;
     ``lane_retries``, ``lane_retry_backoff_s`` and ``rebalance_threshold``
     are that walk's knobs and do nothing on one lane.
     """

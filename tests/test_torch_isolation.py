@@ -26,7 +26,8 @@ print(len(names), bad)
 assert not bad, bad
 for name in ("models.auto", "forecasting._prng", "forecasting.kernels",
              "forecasting.params", "forecasting.walk",
-             "forecasting.ensemble", "forecasting.backtest"):
+             "forecasting.ensemble", "forecasting.backtest", "panel", "plot",
+             "compat.sparkts", "parallel.mesh", "ops.seqparallel"):
     assert port.__name__ + "." + name in names, name
 """
 
@@ -38,6 +39,35 @@ def test_import_loads_no_jax_and_no_reference_module():
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 54  # every submodule was imported
+
+
+# the card's machine has no pandas, pyarrow or matplotlib: the port must
+# import without them (the functions that need them import them inside)
+_PROBE_NO_EXTRAS = r"""
+import importlib, pkgutil, sys
+
+
+class _Absent:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("pandas", "pyarrow", "matplotlib"):
+            raise ImportError(f"{name} is absent")
+
+
+sys.meta_path.insert(0, _Absent())
+import spark_timeseries_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("pandas", "pyarrow", "matplotlib")))
+"""
+
+
+def test_import_needs_no_pandas_pyarrow_or_matplotlib():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _PROBE_NO_EXTRAS], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 _FORBIDDEN = re.compile(

@@ -5,8 +5,8 @@ Every public name of a ported module (and of a ported package's
 reference module defines takes the same keyword set in the port —
 constructors and public methods included — except for the differences
 recorded under ``ROADMAP.md`` queue 3, "Deliberate differences", and the
-names of the modules still to port (ROADMAP queue 1, items 14, 17 and
-18), which are listed here with their reasons.  A call written for the
+names of the modules still to port (ROADMAP queue 1: the multi-lane half
+of item 17 and item 18), which are listed here with their reasons.  A call written for the
 reference then never meets an ``AttributeError`` or a ``TypeError`` on the
 port for a name or keyword the port forgot.
 """
@@ -62,6 +62,11 @@ MODULES = {
     "obs.promsink": "obs.promsink",
     "obs.tracing": "obs.tracing",
     "utils.compile_cache": "utils.compile_cache",
+    "parallel.mesh": "parallel.mesh",
+    "ops.seqparallel": "ops.seqparallel",
+    "panel": "panel",
+    "compat.sparkts": "compat.sparkts",
+    "plot": "plot",
 }
 
 _DEVICE = ({"device"}, set())
@@ -120,9 +125,18 @@ ALLOWED = {
        for n in ("forecast_chunked", "forecast_fit", "warmstart_fit")},
     ("forecasting.ensemble", "ensemble_forecast"): _DEVICE,
     ("forecasting.backtest", "run_backtest"): _DEVICE,
+    # the panel, compat and plot entry points that turn host data into
+    # tensors place it on device= (default "cuda"); a tensor stays put
+    **{("panel", n): _DEVICE
+       for n in ("from_observations", "from_dataframe", "from_series_dict")},
+    **{("compat.sparkts", n): _DEVICE
+       for n in ("load_model", "time_series_rdd_from_observations",
+                 "time_series_rdd_from_pandas_dataframe",
+                 "time_series_rdd_from_parquet")},
+    **{("plot", n): _DEVICE for n in ("acf_plot", "pacf_plot")},
 }
 
-_ITEM_17 = ("the multi-lane walk, ROADMAP queue 1 item 17")
+_ITEM_17 = ("the multi-lane walk, ROADMAP queue 1 item 17's second half")
 _ITEM_18 = ("serving and chaos, ROADMAP queue 1 item 18")
 # (port module, name) -> why the reference's public name is absent
 ABSENT = {
@@ -153,16 +167,18 @@ ABSENT_METHODS = {
 ALLOWED_CTORS = {
     ("reliability.source", "DeviceChunkSource"): _DEVICE,
     ("reliability.prefetcher", "ChunkPrefetcher"): _DEVICE,
+    # host values / parameters go to device=; a mesh-attached panel's
+    # values sit on the mesh's first device (the mesh lists torch devices)
+    ("panel", "TimeSeriesPanel"): _DEVICE,
+    **{("compat.sparkts", n): _DEVICE
+       for n in ("ARIMAModel", "SeasonalARIMAModel", "ARModel", "EWMAModel",
+                 "GARCHModel", "ARGARCHModel", "HoltWintersModel",
+                 "RegressionARIMAModel")},
 }
 # package __init__ (relative name) -> names the reference exports that the
 # port's does not yet
-_ITEM_14 = ("panel, compat and plot, ROADMAP queue 1 item 14")
 ABSENT_EXPORTS = {
-    "": {**dict.fromkeys(("TimeSeriesPanel", "compat", "from_dataframe",
-                          "from_observations", "from_series_dict"),
-                         _ITEM_14),
-         **dict.fromkeys(("default_mesh", "parallel"), _ITEM_17),
-         "serving": _ITEM_18},
+    "": {"serving": _ITEM_18},
     "reliability": {
         **dict.fromkeys(("ChaosEvent", "ChaosRunner", "InvariantViolation",
                          "chaos", "chaos_schedule", "check_invariants",
@@ -172,10 +188,9 @@ ABSENT_EXPORTS = {
                          "ShardJournalView", "WorkQueue",
                          "merge_job_manifest"), _ITEM_17)},
 }
-# package __init__s the port has (compat, parallel and serving are items
-# 14, 17 and 18)
-PACKAGES = ("", "forecasting", "models", "obs", "ops", "reliability",
-            "stats", "utils")
+# package __init__s the port has (serving is item 18)
+PACKAGES = ("", "compat", "forecasting", "models", "obs", "ops", "parallel",
+            "reliability", "stats", "utils")
 
 
 def _shared_functions():
