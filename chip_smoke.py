@@ -170,13 +170,50 @@ Phases; each failure makes the script exit non-zero with no result line:
    the models' unsharded fits, the GARCH pair on 25,000 rows against the
    same objective in one time cell.
 
+13. drive the multi-lane chunk walk and the in-process serving loop
+   (``phase_lanes_serving``), with the launch counts set to 0 before each
+   step and read after it, and any quarantine, failed ticket, refusal or
+   chunk fit without its kernels outside the injected faults a failed
+   check: (13a) ``fit_chunked(arima.fit, ...)`` of the headline panel in
+   125,000-row chunks on a series mesh listing the card four times (four
+   lanes, each a thread on its own CUDA stream, two chunks each),
+   journaled: the one-lane walk's bits and launches, one merged manifest
+   (``merged_from_shards == 4``); ``lane_kill(fit, 1, after_chunks=1)``
+   quarantined and reassigned, the same bits and launches;
+   ``slow_lane(fit, 2, 3.0)`` at 62,500-row chunks (four a lane: a steal
+   needs two unstarted chunks behind the straggler, and a stall the other
+   lanes' whole walk fits in twice over on a slow host) stolen from, the
+   one-lane walk's bits at that grid; ``crash_after_commits(3)`` then a
+   resume, the same bits; the one- and four-lane walls, peaks and
+   ``meta["shards"]``.  (13b) ``serving.FitServer(max_batch_rows=65,536,
+   max_queue_rows=262,144, cell_rows=32,768, device="cuda")``: eight
+   tenants of 32,768 ragged rows submitted from eight threads before the
+   serve loop starts (so the batches are pairs whatever the disk), each bit
+   for bit its rows walked alone and tenant 0 its solo request; a 30-step
+   ``submit_forecast`` == the local forecast walk; an auto request on
+   8,192 rows twice (routes new, then stable); an expired deadline (all
+   rows TIMEOUT); a child server killed by SIGKILL mid-commit
+   (``faultinject.server_kill(2)``) and a restarted child re-answering
+   every request as an uninterrupted server does, bit for bit; the
+   server's ``health()``.  (13c) ``run_backtest(y, "arima", 4,
+   server=srv)`` on 10,000 rows with the local campaign's metrics, and
+   ``serving.TickLoop`` over 100,000 x 1,000 npz shards (24 ticks a
+   cycle, 30-step forecasts through the sink), three cycles, crashed
+   after cycle 1's refit committed and resumed: every cycle publishes
+   the uninterrupted loop's bytes.  The gloo multi-process walk runs in
+   the CPU tests only (one process here).  Child mode:
+   ``python3 chip_smoke.py --serve-child run|recover ROOT [OUT]``.
+
 The line before the last is a JSON object with one entry per kernel, and
 earlier lines JSON objects with the lag route's times, bounds and
 launches, with phase 9's walls, launches and counts, with phase 10's
 (``{"chunked_walk": ...}``: walls and launches of each walk, the peaks
 of device memory, the commit and staging overlap), with phase 11's
-(``{"search_forecast": ...}``) and with phase 12's (``{"panel_mesh":
-...}``: walls, launches and peaks of each step, the fits' agreement);
+(``{"search_forecast": ...}``), with phase 12's (``{"panel_mesh":
+...}``: walls, launches and peaks of each step, the fits' agreement) and
+with phase 13's (``{"lanes_serving": ...}``: walls, launches and peaks of
+each walk and request kind, the lanes' elastic records, the server's
+health);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -3477,6 +3514,454 @@ def phase_panel_mesh(chk: Checks, device) -> dict:
     return out
 
 
+LANE_CHUNK = 125_000  # 13a: four lanes x two chunks of the headline panel
+SLOW_CHUNK = 62_500  # 13a slow_lane: four chunks a lane, room to steal
+SLOW_DELAY_S = 3.0  # 13a slow_lane: the straggler's stall before each chunk
+SERVE_TENANTS, SERVE_ROWS = 8, 32_768  # 13b: the tenants' ragged panels
+SERVE_CELL = 32_768  # 13b: the batcher's cell, one tenant a chunk
+SERVE_MAX_BATCH, SERVE_MAX_QUEUE = 65_536, 262_144
+AUTO_ROWS = 8_192  # 13b: the auto request's rows
+KILL_ROWS, KILL_IDS = 8_192, ("kill-0", "kill-1", "kill-2")  # 13b children
+TICK_ROWS, TICK_CHUNK, TICKS, TICK_CYCLES = 100_000, 50_000, 24, 3  # 13c
+BACKTEST_ROWS = 10_000  # 13c
+LANE_DIR = (Path(__file__).resolve().parent / "chiprun_out"
+            / "chip_smoke_lanes")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak_gib(device, reset: bool = False) -> float:
+    if torch.device(device).type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+        return 0.0
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def _tenant_rows(rows: int, seed: int, device):
+    """``[rows, TIME]`` ragged host rows for one tenant: the headline
+    recursion, every seventh row starting late and every eleventh ending
+    three steps early (so every tenant panel aligns in the general mode and
+    all of them share one batch key)."""
+    from spark_timeseries_tpu_torch import entry
+
+    y = entry.gen_panel(rows, TIME, seed=seed, device=device).cpu().numpy()
+    y[::7, :40] = float("nan")
+    y[::11, -3:] = float("nan")
+    return y
+
+
+def _kill_server(root: str, device, hook=None):
+    from spark_timeseries_tpu_torch import serving
+
+    return serving.FitServer(root, cell_rows=KILL_ROWS,
+                             max_batch_rows=SERVE_MAX_BATCH,
+                             max_queue_rows=SERVE_MAX_QUEUE, autotune=False,
+                             device=device, _commit_hook=hook)
+
+
+def _kill_requests(srv, device):
+    from spark_timeseries_tpu_torch import entry
+
+    return [srv.submit(f"k{i}", _tenant_rows(KILL_ROWS, 300 + i, device),
+                       "arima", request_id=rid, order=list(entry.ORDER))
+            for i, rid in enumerate(KILL_IDS)]
+
+
+def serve_child(mode: str, root: str, out: str = "") -> int:
+    """13b's crash-recovery children: ``run`` serves three requests and
+    dies by SIGKILL inside its batch walk, mid-commit after two shard
+    writes; ``recover`` restarts on the root, waits for every request to
+    be re-answered and saves the results to ``out``."""
+    import numpy as np
+
+    from spark_timeseries_tpu_torch.reliability import faultinject as fi
+
+    device = torch.device("cuda", 0)
+    if mode == "run":
+        srv = _kill_server(root, device,
+                           fi.server_kill(2, mid_commit=True))
+        tickets = _kill_requests(srv, device)
+        srv.start()
+        for t in tickets:
+            t.result(timeout=300)
+        print("the server outlived its SIGKILL", file=sys.stderr)
+        return 1
+    srv = _kill_server(root, device)
+    srv.start()
+    got, deadline = {}, time.monotonic() + 240
+    while len(got) < len(KILL_IDS) and time.monotonic() < deadline:
+        for rid in KILL_IDS:
+            try:
+                got[rid] = srv.result_for(rid)
+            except KeyError:
+                pass
+        time.sleep(0.05)
+    srv.stop(timeout_s=120)
+    np.savez(out, **{f"{rid}__{f}": np.asarray(getattr(r, f))
+                     for rid, r in got.items() for f in _FIT_FIELDS},
+             **{f"{rid}__resumed": np.asarray(
+                 r.meta["journal"]["chunks_resumed"])
+                for rid, r in got.items()})
+    print(json.dumps(srv.health()["counters"]))
+    return 0 if len(got) == len(KILL_IDS) else 1
+
+
+def phase_lanes_serving(chk: Checks, device) -> dict:
+    """Phase 13: the multi-lane chunk walk (a series mesh listing the card
+    four times, elastic lanes under lane faults, crash and resume) and the
+    in-process serving loop (``serving.FitServer``: eight tenants at once,
+    a forecast, a warm-routed auto request, a deadline, SIGKILL recovery in
+    child processes, the tick loop and a served backtest)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch import forecasting as fc
+    from spark_timeseries_tpu_torch import serving
+    from spark_timeseries_tpu_torch.models import arima
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.parallel import mesh as meshlib
+    from spark_timeseries_tpu_torch.reliability import (faultinject as fi,
+                                                        fit_chunked,
+                                                        source as source_mod)
+    from spark_timeseries_tpu_torch.reliability.status import FitStatus
+
+    out = {"walls_s": {}, "launches": {}, "peak_gib": {}}
+    t_phase = time.perf_counter()
+    shutil.rmtree(LANE_DIR, ignore_errors=True)
+    LANE_DIR.mkdir(parents=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serving_"))
+    kernels3 = ("css_fwd", "css_bwd", "hr_moments")
+
+    def counted(name, fn):
+        """``fn()`` with the launch counts set to 0 just before it and
+        read just after, its wall and the allocator's peak."""
+        _sync(device)
+        _peak_gib(device, reset=True)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            _sync(device)
+            out["walls_s"][name] = time.perf_counter() - t0
+            out["launches"][name] = {k: ck.LAUNCHES[k] for k in kernels3}
+            out["peak_gib"][name] = _peak_gib(device)
+            log(f"  {name}: {out['walls_s'][name]:.3f} s, launches "
+                f"{out['launches'][name]}, peak "
+                f"{out['peak_gib'][name]:.2f} GiB")
+
+    def walk(name, fit, panel, **kw):
+        kw.setdefault("chunk_rows", LANE_CHUNK)
+        return counted(name, lambda: fit_chunked(
+            fit, panel, resilient=False, order=entry.ORDER, device=device,
+            **kw))
+
+    def kernels_ran(name, fits):
+        la = out["launches"][name]
+        chk.require(la["hr_moments"] == 2 * fits and la["css_fwd"] > 0
+                    and la["css_bwd"] > 0,
+                    f"{name}: hr_moments launched 2 x {fits} chunk fits, "
+                    "the CSS kernels ran (no eager chunk)")
+
+    try:
+        # -- 13a: the multi-lane walk ----------------------------------------
+        mesh = meshlib.default_mesh(devices=[device] * 4)
+        n_chunks = ROWS // LANE_CHUNK
+        log(f"phase 13a: multi-lane walk, ARIMA(1,1,1) on {ROWS} x {TIME}, "
+            f"a series mesh listing {device} four times, chunks of "
+            f"{LANE_CHUNK}")
+        y = entry.gen_panel(ROWS, TIME, seed=0, device=device)
+        _sync(device)
+        one = walk("13a one lane", arima.fit, y)
+        kernels_ran("13a one lane", n_chunks)
+        lanes = walk("13a four lanes", arima.fit, y, mesh=mesh,
+                     checkpoint_dir=str(LANE_DIR / "plain"))
+        man = json.loads((LANE_DIR / "plain" / "manifest.json").read_text())
+        chk.require(_same_walk(one, lanes), "13a four lanes == one lane, "
+                    "bit for bit")
+        chk.require(man["merged_from_shards"] == 4
+                    and len(man["chunks"]) == n_chunks
+                    and all(c["status"] == "committed"
+                            for c in man["chunks"]),
+                    f"13a merged manifest: merged_from_shards "
+                    f"{man['merged_from_shards']}, {len(man['chunks'])} "
+                    "committed chunks")
+        chk.require(out["launches"]["13a four lanes"]
+                    == out["launches"]["13a one lane"],
+                    "13a four lanes launch what one lane launches")
+        el = lanes.meta["shards"]["elastic"]
+        chk.require(el["quarantined"] == [] and el["lane_retries_used"] == 0,
+                    "13a no quarantine or retry on the healthy walk")
+        out["shards"] = lanes.meta["shards"]
+        log(f"  meta['shards'] {json.dumps(lanes.meta['shards'])}")
+
+        killed = walk("13a lane_kill(1, after 1)",
+                      fi.lane_kill(arima.fit, 1, after_chunks=1), y,
+                      mesh=mesh, checkpoint_dir=str(LANE_DIR / "kill"),
+                      lane_retry_backoff_s=0.01)
+        ek = killed.meta["shards"]["elastic"]
+        chk.require(_same_walk(one, killed), "13a lane_kill == one lane, "
+                    "bit for bit")
+        chk.require([q["shard_id"] for q in ek["quarantined"]] == [1]
+                    and ek["reassigned_spans"] >= 1,
+                    f"13a lane_kill: quarantined "
+                    f"{[q['shard_id'] for q in ek['quarantined']]}, "
+                    f"reassigned spans {ek['reassigned_spans']}")
+        chk.require(out["launches"]["13a lane_kill(1, after 1)"]
+                    == out["launches"]["13a one lane"],
+                    "13a lane_kill launches what one lane launches (the "
+                    "dead lane's committed chunk adopted, not refitted)")
+        out["elastic_kill"] = ek
+
+        one62 = walk(f"13a one lane at {SLOW_CHUNK:,}", arima.fit, y,
+                     chunk_rows=SLOW_CHUNK)
+        slow_name = f"13a slow_lane(2, {SLOW_DELAY_S} s)"
+        slow = walk(slow_name,
+                    fi.slow_lane(arima.fit, 2, SLOW_DELAY_S), y, mesh=mesh,
+                    chunk_rows=SLOW_CHUNK, rebalance_threshold=2.0)
+        es = slow.meta["shards"]["elastic"]
+        chk.require(_same_walk(one62, slow), "13a slow_lane == one lane at "
+                    f"{SLOW_CHUNK:,}, bit for bit")
+        chk.require(es["steals"] >= 1 and es["quarantined"] == [],
+                    f"13a slow_lane: {es['steals']} steals, no quarantine")
+        chk.require(out["launches"][slow_name]
+                    == out["launches"][f"13a one lane at {SLOW_CHUNK:,}"],
+                    "13a slow_lane launches what one lane launches")
+        out["elastic_slow"] = es
+        del one62, slow
+
+        crashed = False
+        try:
+            walk("13a crashed", arima.fit, y, mesh=mesh,
+                 checkpoint_dir=str(LANE_DIR / "crash"),
+                 _journal_commit_hook=fi.crash_after_commits(3))
+        except fi.SimulatedCrash:
+            crashed = True
+        resumed = walk("13a resumed", arima.fit, y, mesh=mesh,
+                       checkpoint_dir=str(LANE_DIR / "crash"))
+        n_res = resumed.meta["journal"]["chunks_resumed"]
+        chk.require(crashed and n_res >= 3, f"13a crash after 3 commits, "
+                    f"{n_res} chunks resumed")
+        chk.require(_same_walk(one, resumed), "13a resumed == one lane, "
+                    "bit for bit")
+        chk.require(resumed.meta["shards"]["elastic"]["quarantined"] == [],
+                    "13a no quarantine on the resume")
+        kernels_ran("13a resumed", n_chunks - n_res)
+        out["lane_walls_s"] = {
+            "one lane": out["walls_s"]["13a one lane"],
+            "four lanes": out["walls_s"]["13a four lanes"]}
+        log(f"  13a walls: one lane {out['walls_s']['13a one lane']:.3f} s, "
+            f"four lanes {out['walls_s']['13a four lanes']:.3f} s")
+        del y, one, lanes, killed, resumed
+
+        # -- 13b: the serving loop -------------------------------------------
+        log(f"phase 13b: FitServer on {device}: {SERVE_TENANTS} tenants x "
+            f"{SERVE_ROWS} x {TIME} ragged rows from {SERVE_TENANTS} threads, "
+            f"cell {SERVE_CELL}, max_batch_rows {SERVE_MAX_BATCH}")
+        tenants = [_tenant_rows(SERVE_ROWS, 100 + i, device)
+                   for i in range(SERVE_TENANTS)]
+        srv = serving.FitServer(
+            str(tmp / "srv"), cell_rows=SERVE_CELL,
+            max_batch_rows=SERVE_MAX_BATCH, max_queue_rows=SERVE_MAX_QUEUE,
+            autotune=False, device=device)
+        kw = {"order": list(entry.ORDER)}
+        calls = [((f"t{i}", v, "arima"), kw) for i, v in enumerate(tenants)]
+
+        def storm():
+            # every tenant is admitted before the serve loop starts, so the
+            # batches are pairs whatever the disk's write-ahead speed
+            tickets, errors = fi.request_storm(srv.submit, calls,
+                                               threads=SERVE_TENANTS)
+            chk.require(not any(errors), f"13b every submit admitted "
+                        f"({[repr(e)[:80] for e in errors if e]})")
+            srv.start()
+            return [t.result(timeout=600) for t in tickets if t is not None]
+
+        served = counted("13b fit requests", storm)
+        kernels_ran("13b fit requests", SERVE_TENANTS)
+        chk.require(len(served) == SERVE_TENANTS and max(
+            r.meta["batch_members"] for r in served) == 2,
+            "13b eight tenants answered in two-member batches")
+        direct = [fit_chunked(arima.fit, torch.as_tensor(v, device=device),
+                              chunk_rows=SERVE_CELL, resilient=False,
+                              align_mode="general", order=entry.ORDER,
+                              device=device) for v in tenants]
+        chk.require(all(_same_walk(d, r) for d, r in zip(direct, served)),
+                    "13b every tenant == its rows walked alone, bit for bit")
+        with serving.FitServer(str(tmp / "solo"), cell_rows=SERVE_CELL,
+                               autotune=False, device=device) as solo:
+            s0 = solo.submit("t0", tenants[0], "arima",
+                             **kw).result(timeout=600)
+        chk.require(_same_walk(s0, served[0]), "13b tenant 0 batched == "
+                    "its solo request, bit for bit")
+        shutil.rmtree(tmp / "solo", ignore_errors=True)
+
+        def forecast():
+            return fc.as_result(srv.submit_forecast(
+                "t0", tenants[0], served[0], model="arima", horizon=HORIZON,
+                model_kwargs={"order": entry.ORDER}).result(timeout=600),
+                HORIZON, False)
+
+        f0 = counted("13b forecast request", forecast)
+        local = fc.forecast_chunked(
+            "arima", served[0], torch.as_tensor(tenants[0], device=device),
+            HORIZON, model_kwargs={"order": entry.ORDER}, device=device)
+        chk.require(np.array_equal(f0.forecast, local.forecast,
+                                   equal_nan=True)
+                    and out["launches"]["13b forecast request"]["css_fwd"]
+                    > 0, "13b served forecast == the local forecast walk, "
+                    "bit for bit, on the CSS kernels")
+        y_auto = tenants[1][:AUTO_ROWS]
+        routes = []
+        for k in range(2):
+            r = counted(f"13b auto request {k + 1}", lambda: srv.submit(
+                "auto", y_auto, "panel_auto",
+                warm_routing=True).result(timeout=600))
+            routes.append(r.meta["auto"]["route"])
+            chk.require(out["launches"][f"13b auto request {k + 1}"]
+                        ["css_fwd"] > 0, f"13b auto request {k + 1} ran "
+                        "the CSS kernels")
+        chk.require(routes == ["new", "stable"], f"13b auto routes {routes}")
+        late = counted("13b tight deadline", lambda: srv.submit(
+            "late", tenants[2][:1024], "arima", deadline_s=1e-4,
+            **kw).result(timeout=600))
+        chk.require(bool((late.status == FitStatus.TIMEOUT).all()),
+                    "13b the tight deadline came back all TIMEOUT rows")
+
+        # -- 13c: a served backtest -------------------------------------------
+        yb = entry.gen_panel(BACKTEST_ROWS, TIME, seed=31, device=device)
+        bt_kw = dict(model_kwargs={"order": entry.ORDER}, device=device)
+        bt_local = counted("13c backtest local", lambda: fc.run_backtest(
+            yb, "arima", 4, **bt_kw))
+        bt_served = counted("13c backtest served", lambda: fc.run_backtest(
+            yb, "arima", 4, server=srv, **bt_kw))
+        chk.require(json.dumps(bt_served.metrics, sort_keys=True)
+                    == json.dumps(bt_local.metrics, sort_keys=True),
+                    "13c served backtest metrics == the local campaign's "
+                    "(JSON, sorted keys)")
+        srv.stop(timeout_s=300)
+        health = srv.health()
+        c = health["counters"]
+        chk.require(c["batch_failures"] == 0 and c["solo_retries"] == 0
+                    and c["rejected"] == 0 and c["shed"] == 0,
+                    f"13b no quarantine, rejection or shed: {c}")
+        out["health"] = {k: health[k] for k in ("state", "counters", "queue",
+                                                "knobs", "staging_pools")}
+        log(f"  health {json.dumps(out['health'])}")
+        del tenants, served, direct
+        shutil.rmtree(tmp / "srv", ignore_errors=True)
+
+        # -- 13b: SIGKILL and restart, in child processes --------------------
+        kroot = tmp / "killed"
+        kroot.mkdir()
+        me = str(Path(__file__).resolve())
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, me, "--serve-child", "run",
+                              str(kroot)], capture_output=True, text=True,
+                             timeout=300)
+        chk.require(run.returncode == -9, f"13b child server died by SIGKILL "
+                    f"(exit {run.returncode}; {run.stderr[-300:]})")
+        rec_out = tmp / "recovered.npz"
+        rec = subprocess.run([sys.executable, me, "--serve-child", "recover",
+                              str(kroot), str(rec_out)], capture_output=True,
+                             text=True, timeout=300)
+        out["walls_s"]["13b kill + recover children"] = (
+            time.perf_counter() - t0)
+        chk.require(rec.returncode == 0, f"13b child restart re-answered "
+                    f"every request ({rec.stderr[-300:]})")
+        if rec.returncode == 0:
+            z = np.load(rec_out)
+            ref = _kill_server(str(tmp / "uninterrupted"), device)
+            tickets = _kill_requests(ref, device)
+            ref.start()
+            want = [t.result(timeout=600) for t in tickets]
+            ref.stop(timeout_s=300)
+            same = all(np.array_equal(z[f"{rid}__{f}"],
+                                      np.asarray(getattr(w, f)),
+                                      equal_nan=z[f"{rid}__{f}"].dtype.kind
+                                      == "f")
+                       for rid, w in zip(KILL_IDS, want)
+                       for f in _FIT_FIELDS)
+            chk.require(same and int(z["kill-0__resumed"]) >= 1,
+                        "13b the restarted server's answers == an "
+                        "uninterrupted server's, bit for bit, with "
+                        f"{int(z['kill-0__resumed'])} chunks resumed")
+            log(f"  recovered counters {rec.stdout.strip().splitlines()[-1]}")
+
+        # -- 13c: the tick loop ---------------------------------------------
+        log(f"phase 13c: TickLoop over {TICK_ROWS} x {TIME} npz shards, "
+            f"{TICKS} ticks a cycle, {TICK_CYCLES} cycles, {HORIZON}-step "
+            "forecasts published through the sink")
+        base = entry.gen_panel(TICK_ROWS, TIME, seed=21,
+                               device=device).cpu().numpy()
+        gen = np.random.default_rng(22)
+        ticks = [gen.normal(scale=0.5, size=(TICK_ROWS, TICKS))
+                 .astype(np.float32) for _ in range(TICK_CYCLES)]
+        loops = {}
+        for name in ("uninterrupted", "crashed"):
+            data = tmp / f"ticks_{name}"
+            source_mod.write_npz_shards(str(data), base,
+                                        rows_per_shard=TICK_CHUNK)
+            loops[name] = (tmp / f"loop_{name}", data)
+
+        def loop(name):
+            return serving.TickLoop(
+                str(loops[name][0]), str(loops[name][1]), model="arima",
+                model_kwargs={"order": entry.ORDER}, horizon=HORIZON,
+                chunk_rows=TICK_CHUNK, seed=5, device=device)
+
+        lu = loop("uninterrupted")
+        for k, tk in enumerate(ticks):
+            counted(f"13c cycle {k}", lambda: lu.run_cycle(tk))
+            la = out["launches"][f"13c cycle {k}"]
+            # cycle 0 fits cold (Hannan-Rissanen init: two moment sweeps a
+            # chunk); later cycles refit warm from the journaled params
+            chk.require(la["css_fwd"] > 0 and la["css_bwd"] > 0 and (
+                k > 0 or la["hr_moments"] == 2 * (TICK_ROWS // TICK_CHUNK)),
+                f"13c cycle {k}: the refit and the forecast ran the CSS "
+                "kernels")
+        lc = loop("crashed")
+        lc.run_cycle(ticks[0])
+        real = serving.tickloop.walk_mod.forecast_chunked
+
+        def dies(*a, **k):
+            raise fi.SimulatedCrash("killed after the cycle's fit commit")
+
+        serving.tickloop.walk_mod.forecast_chunked = dies
+        try:
+            lc.run_cycle(ticks[1])
+            crashed = False
+        except fi.SimulatedCrash:
+            crashed = True
+        finally:
+            serving.tickloop.walk_mod.forecast_chunked = real
+        lc = loop("crashed")
+        counted("13c resume", lambda: lc.resume())
+        lc.run_cycle(ticks[2])
+        same = all(np.array_equal(lc.published_forecast(k)[0],
+                                  lu.published_forecast(k)[0],
+                                  equal_nan=True)
+                   for k in range(TICK_CYCLES))
+        chk.require(crashed and same, "13c a cycle crashed after its fit "
+                    "committed, resumed: every cycle published the "
+                    "uninterrupted loop's bytes")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for p in LANE_DIR.rglob("*.npz"):
+            p.unlink()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13 in {out['phase_s']:.1f} s")
+    return out
+
+
 def build() -> int:
     """Phase 2: every source at once, then load each library; returns how
     many libraries it built."""
@@ -3815,6 +4300,14 @@ def css_report() -> None:
             f"{_issue_floor_ms(per_step, n_el):.3f} ms")
 
 
+def failed(chk: Checks) -> int:
+    """Report the failed checks on both streams; the exit code."""
+    msg = "FAILED: " + "; ".join(chk.failures)
+    log(msg)
+    print(msg, file=sys.stderr, flush=True)
+    return 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3835,21 +4328,37 @@ def main() -> int:
     phase_kernels_smoothing(chk, device)
     phase_kernels_seasonal(chk, device)
     if chk.failures:  # a kernel that disagrees makes the rest meaningless
-        log("FAILED: " + "; ".join(chk.failures))
-        return 1
+        return failed(chk)
+
+    def lap(what):
+        """One line of the run's own clock after each phase."""
+        log(f"  [{what} done at {time.perf_counter() - t_start:.1f} s]")
+
+    lap("phases 1-3")
     main_run = phase_main(chk, ROWS, TIME, device)
+    lap("phase 4")
     pipe = phase_pipeline(chk, VOL_ROWS, VOL_TIME, device)
+    lap("phase 5")
     hourly = phase_hourly(chk, HOURLY_ROWS, HOURLY_TIME, device)
+    lap("phase 6")
     times = phase_timing(chk, main_run, device)
     times.update(phase_timing_volatility(chk, pipe, device))
     times.update(phase_timing_hourly(chk, hourly, device))
     lag = phase_timing_seasonal(chk, device)
+    lap("phase 7")
     search = phase_order_search(chk, device)
     phase_leftovers(chk, main_run.pop("params"), device)
+    lap("phase 8")
     resilient = phase_resilient(chk, device, n_built)
+    lap("phase 9")
     chunked = phase_chunked(chk, device)
+    lap("phase 10")
     search_fc = phase_search_forecast(chk, device)
+    lap("phase 11")
     panel_mesh = phase_panel_mesh(chk, device)
+    lap("phase 12")
+    lanes_serving = phase_lanes_serving(chk, device)
+    lap("phase 13")
     log(json.dumps({"css_lag_route": {
         "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": lag,
         "launches": {"airline fit (8b)": search["airline_launches"],
@@ -3859,9 +4368,9 @@ def main() -> int:
     log(json.dumps({"chunked_walk": chunked}))
     log(json.dumps({"search_forecast": search_fc}))
     log(json.dumps({"panel_mesh": panel_mesh}))
+    log(json.dumps({"lanes_serving": lanes_serving}, default=str))
     if chk.failures:
-        log("FAILED: " + "; ".join(chk.failures))
-        return 1
+        return failed(chk)
     launches = {**main_run["launches"],
                 **{k: pipe["launches"][k] for k in
                    ("fill_chain", "autocorr", "garch_fwd", "garch_bwd")},
@@ -3883,4 +4392,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-child"]:
+        sys.exit(serve_child(*sys.argv[2:]))
     sys.exit(main())

@@ -27,17 +27,20 @@ Ported so far: ``index``, ``obs``, ``models.arima``, ``models.auto``,
 ``utils.optim``, ``utils.linalg``, ``utils.compile_cache``, ``ops.layout``,
 ``ops.univariate``, ``ops.lagmat``, ``ops.cuda_kernels``, ``forecasting``
 (``walk``, ``kernels``, ``params``, ``ensemble``, ``backtest``,
-``augment``) and the single-lane ``reliability`` (``status``,
-``sanitize``, ``runner``, ``watchdog``, ``chunked``, ``journal``,
-``committer``, ``prefetcher``, ``source``, ``sink``, ``delta``, ``plan``
-and the data, commit and disk faults of ``faultinject``), ``panel``,
-``compat``, ``plot``, ``parallel.mesh`` and ``ops.seqparallel``.  Still
-to port: the multi-lane chunk walk (``fit_chunked(shard=True)``,
-``mesh=``) and ``serving`` with ``reliability.chaos``.
+``augment``), ``reliability`` (``status``, ``sanitize``, ``runner``,
+``watchdog``, ``chunked`` with its single- and multi-lane walks,
+``journal``, ``committer``, ``prefetcher``, ``source``, ``sink``,
+``delta``, ``plan`` and the data, commit, disk, lane, request and server
+faults of ``faultinject``), ``panel``, ``compat``, ``plot``,
+``parallel.mesh`` (with its gloo process group), ``ops.seqparallel`` and
+the in-process half of ``serving`` (``session``, ``admission``,
+``batcher``, ``profiles``, ``server``, ``tickloop``).  Still to port: the
+wire and fleet half of ``serving`` (``transport``, ``client``,
+``health``, ``fleet``) with ``reliability.chaos``.
 """
 
 from . import (compat, forecasting, index, models, obs, ops, parallel,
-               reliability, stats, utils)
+               reliability, serving, stats, utils)
 from .index import (
     BusinessDayFrequency,
     DateTimeIndex,
@@ -95,6 +98,7 @@ __all__ = [
     "ops",
     "parallel",
     "reliability",
+    "serving",
     "stats",
     "uniform",
     "uniform_from_interval",

@@ -308,8 +308,8 @@ def _durable_fit(fit_fn, ts, checkpoint_dir, *, device="cuda",
     ``ts`` may be a tensor (walked where it lives), a host array (moved to
     ``device``), or a ``reliability.ChunkSource`` / npz shard-directory
     path: the walk then stages each chunk to ``device`` through the
-    source's pinned buffers.  ``shard=True`` / ``mesh=`` (the multi-lane
-    walk) raise ``NotImplementedError`` through ``fit_chunked``.
+    source's pinned buffers.  ``shard=True`` / ``mesh=`` run the
+    multi-lane walk of ``fit_chunked``.
     """
     import os as _os
 

@@ -27,10 +27,11 @@ BITWISE-identical to an uninterrupted run.  A manifest written under a
 different panel or campaign config is rejected loudly
 (:class:`StaleBacktestError`), mirroring the chunk journal's contract.
 
-The reference's ``server=`` routes every window's forecast through a
-resident ``FitServer``; the serving layer is not ported yet (ROADMAP
-queue 1, item 18), so ``server=`` raises ``NotImplementedError``, as
-``shard=`` and ``mesh=`` raise through the chunk walk (item 17).
+``server=`` routes every window's forecast through a resident
+``serving.FitServer`` (the serving half users actually call: fit once,
+forecast many), micro-batched and journaled under the server's root; the
+campaign's metrics are those of the local campaign.  ``shard=`` and
+``mesh=`` run the chunk walk's lanes.
 """
 
 from __future__ import annotations
@@ -59,9 +60,6 @@ __all__ = ["BacktestResult", "StaleBacktestError", "default_origins",
 
 BACKTEST_MANIFEST = "backtest_manifest.json"
 BACKTEST_VERSION = 1
-
-_SERVING = ("server= routes forecasts through the serving layer, which is "
-            "not ported yet: ROADMAP queue 1, item 18 (serving)")
 
 # rows of a device panel hashed (moved to the host) at a time
 _DIGEST_ROWS = 65536
@@ -396,8 +394,11 @@ def run_backtest(
     windows are skipped with status ``"timeout"``; a resume retries
     them).  ``y`` is a tensor (used where it lives), a host array (moved
     to ``device``, default ``"cuda"``) or a ``ChunkSource``.  ``server=``
-    raises ``NotImplementedError`` (the serving layer, ROADMAP item 18);
-    ``shard=True`` and ``mesh=`` raise through the chunk walk (item 17).
+    (a ``serving.FitServer``) routes each window's forecast through its
+    ``submit_forecast`` — the fits stay local, the forecasts ride the
+    server's micro-batched, journaled path on the server's device — with
+    metrics equal to the local campaign's.  ``shard=True`` and ``mesh=``
+    run the multi-lane chunk walk.
 
     ``delta=True`` makes a GROWN panel adopt the prior campaign in the
     same ``checkpoint_dir``: when the new panel's first ``t_prior``
@@ -412,8 +413,6 @@ def run_backtest(
     work is redone, never the bytes, so it is excluded from the
     campaign identity.
     """
-    if server is not None:
-        raise NotImplementedError(_SERVING)
     horizon = int(horizon)
     if horizon < 1:
         raise ValueError(f"horizon must be >= 1, got {horizon}")
@@ -620,11 +619,11 @@ def run_backtest(
                         "window": i, "origin": int(origin),
                         "warm_start": False}},
                     **walk_knobs)
-            fc = walk_mod.forecast_chunked(
-                model, fit_res, y_win, horizon, model_kwargs=cfg,
+            fc = _window_forecast(
+                model, cfg, fit_res, y_win, horizon,
                 intervals=intervals, level=level, n_samples=n_samples,
                 seed=(None if seed is None else int(seed) + i),
-                device=str(device))
+                server=server, device=device)
             actual = _actuals(y, origin, horizon)
             arrays = _window_metrics(fc.forecast, fc.lo, fc.hi, actual,
                                      level)
@@ -726,6 +725,38 @@ def _aggregate(metric_arrays: List[dict], horizon: int,
         if intervals and ncov.any():
             out["coverage_h"] = _round_list(
                 np.where(ncov > 0, cov / np.maximum(ncov, 1), np.nan))
+    return out
+
+
+def _window_forecast(model, cfg, fit_res, y_win, horizon, *, intervals,
+                     level, n_samples, seed, server, device):
+    """One window's forecast: the local walk on ``device``, or the
+    resident ``FitServer``'s micro-batched forecast path (the window's
+    rows go to the host for the server's write-ahead record)."""
+    if server is None:
+        return walk_mod.forecast_chunked(
+            model, fit_res, y_win, horizon, model_kwargs=cfg,
+            intervals=intervals, level=level, n_samples=n_samples,
+            seed=seed, device=str(device))
+    if isinstance(y_win, source_mod.ChunkSource):
+        values = _materialize(y_win)
+    elif isinstance(y_win, torch.Tensor):
+        values = y_win.detach().cpu().numpy()
+    else:
+        values = np.asarray(y_win)
+    ticket = server.submit_forecast(
+        "backtest", values, fit_res, model=model, horizon=horizon,
+        model_kwargs=cfg, intervals=intervals, level=level,
+        n_samples=n_samples, seed=seed)
+    return walk_mod.as_result(ticket.result(), horizon, intervals)
+
+
+def _materialize(src) -> np.ndarray:
+    out = np.empty(tuple(int(s) for s in src.shape), src.dtype)
+    step = max(1, int(src.default_chunk_rows or 4096))
+    for lo in range(0, out.shape[0], step):
+        hi = min(lo + step, out.shape[0])
+        src.read_rows(lo, hi, out[lo:hi])
     return out
 
 

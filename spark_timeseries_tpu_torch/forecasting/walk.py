@@ -261,8 +261,8 @@ def forecast_chunked(
     knobs ride through — ``checkpoint_dir`` journals the walk (forecast
     shards resume bitwise), pipeline/prefetch overlap staging and commits
     — and every composition is bitwise-identical to the serial in-memory
-    walk.  ``shard=True`` and ``mesh=`` raise through ``fit_chunked`` (the
-    multi-lane walk, ROADMAP item 17).
+    walk.  ``shard=True`` and ``mesh=`` run the multi-lane walk of
+    ``fit_chunked``, bitwise the single-lane walk.
 
     ``intervals=True`` adds ``level`` Monte-Carlo quantile bands
     (``n_samples`` forward simulations a row) under a base key derived

@@ -619,8 +619,8 @@ def auto_fit(
     resumes from the per-group journals, with selection bitwise-identical
     to an uninterrupted search.  A root ``auto_manifest.json`` records
     orders tried, fusion groups, per-order spend, and the selection
-    histogram.  ``shard=True`` and ``mesh=`` raise through
-    ``fit_chunked`` (the multi-lane walk, ROADMAP item 17).
+    histogram.  ``shard=True`` and ``mesh=`` ride to every walk
+    (``fit_chunked``'s multi-lane walk, bitwise the single-lane walk).
     """
     if orders is None and stepwise:
         orders = STEPWISE_SEED_ORDERS

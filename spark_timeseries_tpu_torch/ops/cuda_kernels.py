@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -77,6 +78,10 @@ LAUNCHES = {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0, "fill_chain": 0,
 CSS_ROUTES = ("register", "lag", "local")
 ROUTE_LAUNCHES = {name: dict.fromkeys(CSS_ROUTES, 0)
                   for name in ("css_fwd", "css_bwd")}
+# the counts are read-modify-writes on shared dicts: the chunk walk's lanes
+# launch from several threads at once, so every increment and the reset
+# hold this lock (a bare ``+= 1`` can lose a count between threads)
+_COUNT_LOCK = threading.Lock()
 
 _MODES = {"e": 0, "sum": 1, "both": 2, "tail": 3}
 _CSS_REG_LAG = 8
@@ -93,11 +98,22 @@ _SMEM_LIMIT = 227 * 1024
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-    for counts in ROUTE_LAUNCHES.values():
-        for route in counts:
-            counts[route] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+        for counts in ROUTE_LAUNCHES.values():
+            for route in counts:
+                counts[route] = 0
+
+
+def _count_launch(counter: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[counter] += 1
+
+
+def _count_route(counter: str, route: str) -> None:
+    with _COUNT_LOCK:
+        ROUTE_LAUNCHES[counter][route] += 1
 
 
 def supported(x: torch.Tensor) -> bool:
@@ -213,9 +229,14 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launch(lib_name: str, fn: str, counter: str, device, *args) -> None:
+def _launch(lib_name: str, fn: str, counter: str, device, *args,
+            route=None) -> None:
+    """Launch ``fn`` of ``csrc/<lib_name>.cu``; a CSS launch also counts
+    one for its ``route``."""
     _launch_call(lib_name, counter, device,
                  lambda lib, stream: getattr(lib, fn)(*args, stream))
+    if route is not None:
+        _count_route(counter, route)
 
 
 def _launch_call(lib_name: str, counter: str, device, call) -> None:
@@ -227,7 +248,7 @@ def _launch_call(lib_name: str, counter: str, device, call) -> None:
         rc = call(lib, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{counter} launch failed with CUDA error {rc}")
-    LAUNCHES[counter] += 1
+    _count_launch(counter)
 
 
 def _t_limit(t_limit, T: int) -> int:
@@ -278,8 +299,7 @@ def css_fwd(yt, params, zb, p: int, q: int, mode: str, t_limit=None,
         par_t = _css_rows(params, p, q, lags, route)
         _launch("css", "sts_css_fwd", "css_fwd", dev, _ptr(yt), _ptr(par_t),
                 _ptr(zb), _ptr(e), _ptr(sse), _ptr(tail), B, T, p, q,
-                *_c_lags(lags), t_limit, _MODES[mode])
-        ROUTE_LAUNCHES["css_fwd"][route] += 1
+                *_c_lags(lags), t_limit, _MODES[mode], route=route)
     return _fwd_out(mode, e, sse, None if tail is None else tail.t())
 
 
@@ -418,8 +438,7 @@ def css_bwd(yt, et, params, zb, g, p: int, q: int, want_gy: bool = False,
         par_t = _css_rows(params, p, q, lags, route)
         _launch("css", "sts_css_bwd", "css_bwd", dev, _ptr(yt), _ptr(et),
                 _ptr(par_t), _ptr(zb), _ptr(g), _ptr(gpar), _ptr(gy), B, T,
-                p, q, *_c_lags(lags), t_limit, int(g_is_sse))
-        ROUTE_LAUNCHES["css_bwd"][route] += 1
+                p, q, *_c_lags(lags), t_limit, int(g_is_sse), route=route)
         if route == "local" and lags is not None:
             gpar.index_fill_(0, _index(dev, _unlisted(p, q, lags)), 0.0)
     return gpar.t(), gy

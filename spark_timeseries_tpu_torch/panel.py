@@ -439,9 +439,9 @@ class TimeSeriesPanel:
         ``delta_from=`` refits only the chunks whose rows changed since a
         prior journal; ``source=`` walks a host-resident copy of the
         panel's values through pinned staging buffers.  ``shard=True`` /
-        ``mesh=`` (the multi-lane walk) raise ``NotImplementedError``
-        through ``fit_chunked``.  The fit runs where the panel's values
-        live unless ``device=`` says otherwise.
+        ``mesh=`` run the multi-lane walk (one lane per series-axis device
+        of the mesh, bitwise the single-lane walk).  The fit runs where
+        the panel's values live unless ``device=`` says otherwise.
 
         Returns a ``reliability.ResilientFitResult`` whose rows align with
         ``self.keys``; ``.status`` carries per-series ``FitStatus`` codes

@@ -14,11 +14,17 @@ card (the analog of the reference tests' forced 8-device CPU mesh, which
 torch cannot make).  The sharding helpers return :class:`NamedSharding`
 descriptions, a ``(mesh, spec)`` pair, in place of JAX's placements.
 
-This module is the single-process half of the reference's: the
-multi-process placement (``jax.distributed``) belongs to the multi-lane
-chunk walk, which is not ported yet; :func:`init_distributed` with an
-explicit topology and :func:`distribute_panel` under a multi-process
-group raise ``NotImplementedError`` naming it.
+**Several processes** (the reference's ``jax.distributed``):
+:func:`init_distributed` with a coordinator starts a ``torch.distributed``
+process group on gloo (``init_method="tcp://<coordinator>"``) and returns
+the GLOBAL mesh: every process's devices in rank order, each cell tagged
+with the process that owns it (``Mesh.processes``).  The group only
+coordinates — ranks, row counts, the alignment plan and the barrier
+before a sharded walk's manifest merge — and no panel data goes through
+it, which is why gloo is right on every box, a card's included.
+:func:`distribute_panel` then returns this process's share of the global
+panel (a :class:`DistributedPanel`: its row blocks on its own cells), and
+:func:`lane_values` the lanes this process runs.
 """
 
 from __future__ import annotations
@@ -32,11 +38,6 @@ import torch
 
 SERIES_AXIS = "series"
 TIME_AXIS = "time"
-
-_MULTI_PROCESS = ("a multi-process mesh belongs to the multi-lane chunk "
-                  "walk, which is not ported yet: ROADMAP queue 1, item "
-                  "17's second half")
-
 
 class PartitionSpec(tuple):
     """Per-dimension mesh axis names (``None``: not split), as
@@ -57,7 +58,7 @@ class Mesh:
     on ``jax.sharding.Mesh``.  A device may appear in several cells.
     """
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, processes=None):
         arr = np.array(devices, dtype=object)
         for i, d in enumerate(arr.flat):
             arr.flat[i] = torch.device(d)
@@ -67,6 +68,11 @@ class Mesh:
                              f"per axis and a device, got {axis_names}")
         self.devices = arr
         self.axis_names = axis_names
+        # the process owning each cell (a global mesh of a process group);
+        # None: every cell is this process's
+        self.processes = (None if processes is None
+                          else np.asarray(processes, np.int64)
+                          .reshape(arr.shape))
 
     @property
     def shape(self) -> dict:
@@ -183,10 +189,82 @@ def series_devices(mesh: Mesh) -> list:
     return list(mesh.devices.flat)
 
 
-def _multi_process() -> bool:
+def _group() -> bool:
     dist = torch.distributed
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_count() -> int:
+    """Processes in the ``torch.distributed`` group (1 without one)."""
+    return torch.distributed.get_world_size() if _group() else 1
+
+
+def process_index() -> int:
+    """This process's rank in the group (0 without one)."""
+    return torch.distributed.get_rank() if _group() else 0
+
+
+def _multi_process() -> bool:
+    return process_count() > 1
+
+
+def cell_processes(mesh: Mesh) -> list:
+    """The owning process of each series-axis cell, in shard order: the
+    mesh's own tags, else (a mesh built by hand under a group) the
+    contiguous even split of the cells over the group's processes."""
+    n = len(series_devices(mesh))
+    if mesh.processes is not None:
+        return [int(v) for v in mesh.processes.reshape(n)]
+    p = process_count()
+    return [i * p // n for i in range(n)]
+
+
+_ALIGN_RANK = ("dense", "no-trailing", "general")
+
+
+class DistributedPanel:
+    """This process's share of a panel spread over a process group: the
+    row blocks it owns, in GLOBAL row coordinates, each on its cell's
+    device — the analog of the addressable shards of the reference's
+    multi-process global array.  ``shape`` is the GLOBAL ``[keys, time]``
+    shape; ``blocks`` is ``[(lo, hi, device, tensor), ...]``.  A sharded
+    chunk walk over it (``fit_chunked(..., mesh=)``) runs this process's
+    lanes and returns its local rows."""
+
+    is_distributed_panel = True
+    ndim = 2
+
+    def __init__(self, blocks, n_rows: int, n_time: int, dtype):
+        self.blocks = [(int(lo), int(hi), d, t) for lo, hi, d, t in blocks]
+        self.shape = (int(n_rows), int(n_time))
+        self.dtype = dtype
+
+    def align_mode(self) -> str:
+        """The GLOBAL panel's alignment mode: each process probes its own
+        blocks and the group keeps the weakest (one small all-reduce)."""
+        from ..models.base import align_mode_on_host
+
+        rank = max((_ALIGN_RANK.index(align_mode_on_host(t))
+                    for _lo, _hi, _d, t in self.blocks if t.shape[0]),
+                   default=0)
+        if _multi_process():
+            v = torch.tensor([rank], dtype=torch.int64)
+            torch.distributed.all_reduce(v, op=torch.distributed.ReduceOp.MAX)
+            rank = int(v.item())
+        return _ALIGN_RANK[rank]
+
+    def fingerprint(self) -> str:
+        """A shape/dtype/layout identity, the same in every process of the
+        job (the rows themselves are not all readable here)."""
+        import hashlib
+
+        return hashlib.sha256(
+            f"global:{self.shape}:{self.dtype}:{process_count()}".encode()
+        ).hexdigest()[:16]
+
+    def __repr__(self):
+        blocks = [(lo, hi, str(d)) for lo, hi, d, _t in self.blocks]
+        return f"DistributedPanel(shape={self.shape}, blocks={blocks})"
 
 
 def _to_rows(values, device) -> torch.Tensor:
@@ -197,15 +275,19 @@ def _to_rows(values, device) -> torch.Tensor:
     return to_device(values, device)
 
 
-def distribute_panel(local_rows, mesh: Mesh) -> list:
-    """This process's rows as the even split over the series-axis devices:
-    one ``[rows / n, time]`` block on each device, in shard order (the
-    analog of the reference's series-sharded global array, whose
-    addressable shards these are).  The rows must divide evenly, as a
-    sharded placement requires.  Under a multi-process group this raises
-    ``NotImplementedError`` (the multi-lane walk)."""
+def distribute_panel(local_rows, mesh: Mesh):
+    """Build the panel a sharded chunk walk runs from this process's rows.
+
+    Single-process: the even split over the series-axis devices, one
+    ``[rows / n, time]`` block on each device, in shard order (the analog
+    of the reference's series-sharded global array, whose addressable
+    shards these are).  Under a multi-process group: this process's rows
+    split evenly over ITS cells of the global mesh, placed after the rows
+    of every lower rank (the group exchanges only the row counts), as a
+    :class:`DistributedPanel`.  The rows must divide evenly, as a sharded
+    placement requires."""
     if _multi_process():
-        raise NotImplementedError(_MULTI_PROCESS)
+        return _distribute_local(local_rows, mesh)
     devs = series_devices(mesh)
     n = int(local_rows.shape[0])
     if n % len(devs):
@@ -214,6 +296,30 @@ def distribute_panel(local_rows, mesh: Mesh) -> list:
     size = n // len(devs)
     return [_to_rows(local_rows[i * size:(i + 1) * size], d)
             for i, d in enumerate(devs)]
+
+
+def _distribute_local(local_rows, mesh: Mesh) -> DistributedPanel:
+    rank, size = process_index(), process_count()
+    devs = series_devices(mesh)
+    mine = [i for i, p in enumerate(cell_processes(mesh)) if p == rank]
+    n = int(local_rows.shape[0])
+    if not mine:
+        raise ValueError(f"process {rank} owns no cell of {mesh}")
+    if n % len(mine):
+        raise ValueError(f"{n} rows do not split evenly over this "
+                         f"process's {len(mine)} series devices")
+    counts = [None] * size
+    torch.distributed.all_gather_object(counts, n)
+    lo = sum(counts[:rank])
+    size_ = n // len(mine)
+    blocks = []
+    for k, i in enumerate(mine):
+        blk = _to_rows(local_rows[k * size_:(k + 1) * size_], devs[i])
+        blocks.append((lo + k * size_, lo + (k + 1) * size_, devs[i], blk))
+    dtype = (local_rows.dtype if isinstance(local_rows, torch.Tensor)
+             else blocks[0][3].dtype)
+    return DistributedPanel(blocks, sum(counts), int(local_rows.shape[1]),
+                            dtype)
 
 
 def lane_values(values, mesh: Mesh, spans) -> list:
@@ -235,6 +341,39 @@ def lane_values(values, mesh: Mesh, spans) -> list:
         raise ValueError(
             f"{len(spans)} lane spans but only {len(devs)} series devices")
     out = []
+    if getattr(values, "is_distributed_panel", False):
+        # the lanes ARE this process's blocks: no data moves, but each
+        # block must be a chunk-grid lane span
+        by_lo = {lo: (hi, d, t) for lo, hi, d, t in values.blocks}
+        claimed = set()
+        for i, (lo, hi) in enumerate(spans):
+            hit = by_lo.get(lo)
+            if hit is None:
+                continue  # another process's lane
+            if hit[0] != hi:
+                raise ValueError(
+                    f"the distributed block at row {lo} holds "
+                    f"{hit[0] - lo} rows but the chunk-grid lane wants "
+                    f"{hi - lo}; choose chunk_rows so the chunk grid "
+                    "matches the even device split")
+            claimed.add(lo)
+            out.append((i, lo, hi, hit[1], hit[2]))
+        unclaimed = sorted(set(by_lo) - claimed)
+        if unclaimed:
+            raise ValueError(
+                f"distributed blocks starting at rows {unclaimed} are not "
+                "claimed by any chunk-grid lane span; choose chunk_rows so "
+                "block boundaries land on the chunk grid")
+        return out
+    if _multi_process():
+        # a panel every process holds whole: each runs its own cells' lanes
+        owners = cell_processes(mesh)
+        rank = process_index()
+        for i, (lo, hi) in enumerate(spans):
+            if owners[i] == rank:
+                out.append((i, lo, hi, devs[i], _to_rows(values[lo:hi],
+                                                          devs[i])))
+        return out
     if isinstance(values, list):
         lo = 0
         bounds = []
@@ -274,33 +413,67 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
     local_device_ids: Optional[Sequence[int]] = None,
+    devices: Optional[Sequence] = None,
 ) -> Mesh:
-    """Return the mesh of this process's devices.
+    """Initialize the multi-process group and return the global mesh.
 
-    The single-process contract of the reference's entry point: with no
-    coordinator and at most one process, code written against it runs
-    unchanged on one card and gets :func:`default_mesh` (over
-    ``local_device_ids`` when given).  An explicit coordinator or
-    ``num_processes > 1`` raises ``NotImplementedError``: a multi-process
-    group belongs to the multi-lane chunk walk, not ported yet.  Pod-like
-    environment variables with no coordinator warn and continue on the
-    local devices, as the reference does when it cannot discover one.
+    With a ``coordinator_address`` (``"host:port"``) and ``num_processes``,
+    every process calls this once with its own ``process_id``: it starts a
+    ``torch.distributed`` group on gloo (``init_method=
+    "tcp://<coordinator>"``) and returns the 1-D ``(series,)`` mesh of every
+    process's devices in rank order, each cell tagged with its owner.  The
+    group coordinates the walk and moves no panel data.  This process's
+    devices are ``devices`` (any torch devices, a device listed several
+    times for several lanes), else the CUDA devices ``local_device_ids``,
+    else every visible CUDA device.
+
+    Safe to call when a group is already initialized (returns the global
+    mesh without re-initializing); with no coordinator and at most one
+    process it returns the local mesh, so code written against this entry
+    point runs unchanged on one card.  Pod-like environment variables with
+    no coordinator warn and continue on the local devices.
     """
-    if (coordinator_address is not None
-            or (num_processes is not None and num_processes > 1)
-            or _multi_process()):
-        raise NotImplementedError(_MULTI_PROCESS)
-    if _on_cloud_tpu_pod():
+    if devices is not None:
+        local = [torch.device(d) for d in devices]
+    elif local_device_ids is not None:
+        local = [torch.device("cuda", int(i)) for i in local_device_ids]
+    else:
+        local = None
+    dist = torch.distributed
+    explicit = (coordinator_address is not None
+                or (num_processes is not None and num_processes > 1))
+    if explicit and not _group():
+        if coordinator_address is None:
+            raise ValueError(
+                "init_distributed: num_processes > 1 needs the "
+                "coordinator's address ('host:port')")
+        if num_processes is None or process_id is None:
+            raise ValueError(
+                "init_distributed: pass num_processes= and process_id= "
+                "with the coordinator (nothing here discovers a cluster)")
+        if not dist.is_available() or not dist.is_gloo_available():
+            raise RuntimeError("torch.distributed with gloo is not "
+                               "available in this build")
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator_address}",
+            world_size=int(num_processes), rank=int(process_id))
+    elif not explicit and _on_cloud_tpu_pod():
         import warnings
 
         warnings.warn(
             "init_distributed: pod-like environment detected but no "
             "coordinator was given; continuing single-process on local "
             "devices", stacklevel=2)
-    if local_device_ids is not None:
-        return default_mesh(devices=[torch.device("cuda", int(i))
-                                     for i in local_device_ids])
-    return default_mesh()
+    if local is None:
+        local = _visible_cuda_devices()
+    if not _multi_process():
+        return default_mesh(devices=local)
+    per = [None] * process_count()
+    dist.all_gather_object(per, [str(d) for d in local])
+    cells = [torch.device(d) for names in per for d in names]
+    owners = [r for r, names in enumerate(per) for _ in names]
+    return Mesh(np.array(cells, dtype=object), (SERIES_AXIS,),
+                processes=owners)
 
 
 def _on_cloud_tpu_pod() -> bool:

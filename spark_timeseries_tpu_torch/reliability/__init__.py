@@ -39,8 +39,12 @@ guarantees at row granularity:
 - :mod:`.faultinject` — deterministic data, behavioral, commit and disk
   faults that drive every recovery path in tests.
 
-The multi-lane walk of the reference (sharded and elastic lanes, the
-job-manifest merge) and its chaos scenarios are not ported yet.
+``fit_chunked(..., shard=True | mesh=)`` is the multi-lane walk: one lane
+per series-axis device of a mesh (:class:`LaneSupervisor` over a
+:class:`WorkQueue` makes a single-process one elastic), per-shard journal
+namespaces read across by :class:`ShardJournalView`, and one merged root
+manifest (:func:`merge_job_manifest`).  The reference's chaos scenarios
+(``chaos``) belong to the fleet and are not ported yet.
 """
 
 from . import (chunked, committer, delta, faultinject, journal, plan,
@@ -50,10 +54,12 @@ from .committer import ChunkCommitter, CommitterStats
 from .delta import (DeltaError, DeltaPlan, StalePriorError, WarmstartFit,
                     plan_delta)
 from .journal import (ChunkJournal, FencedError, JournalError, Lease,
-                      LeaseError, StaleJournalError, TornManifestError,
-                      acquire_lease, config_hash, panel_fingerprint,
+                      LeaseError, MergeWarmer, ShardJournalView,
+                      StaleJournalError, TornManifestError, acquire_lease,
+                      config_hash, merge_job_manifest, panel_fingerprint,
                       read_lease)
-from .plan import ExecutionPlan, LaneRunner, LaneSpec, shard_spans
+from .plan import (ExecutionPlan, LaneRunner, LaneSpec, LaneSupervisor,
+                   RestagedPanel, WorkQueue, shard_spans)
 from .prefetcher import ChunkPrefetcher, PrefetchStats
 from .runner import (ResilientFitResult, RetryRung, default_ladder,
                      resilient_fit)
@@ -83,15 +89,19 @@ __all__ = [
     "JournalError",
     "LaneRunner",
     "LaneSpec",
+    "LaneSupervisor",
     "Lease",
     "LeaseError",
+    "MergeWarmer",
     "NpzShardSource",
     "OOMBackoffExceeded",
     "PrefetchStats",
     "ResilientFitResult",
+    "RestagedPanel",
     "RetryRung",
     "STATUS_DTYPE",
     "SanitizeReport",
+    "ShardJournalView",
     "SinkError",
     "SourceError",
     "StagingPool",
@@ -99,6 +109,7 @@ __all__ = [
     "StalePriorError",
     "TornManifestError",
     "WarmstartFit",
+    "WorkQueue",
     "WritableChunkSource",
     "acquire_lease",
     "as_source",
@@ -112,6 +123,7 @@ __all__ = [
     "fit_chunked",
     "is_resource_exhausted",
     "journal",
+    "merge_job_manifest",
     "merge_status",
     "panel_fingerprint",
     "plan",

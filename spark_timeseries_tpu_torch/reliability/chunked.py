@@ -55,9 +55,20 @@ cross-resume between residencies.
 to ``fit_kwargs["device"]`` (default ``"cuda"``, as every entry point)
 whole — the in-memory walk — and a source stages each chunk there.
 
-The multi-lane walk of the reference (``shard=True``, ``mesh=``, a
-``process_index`` other than 0) is not ported yet: those arguments raise
-``NotImplementedError``.
+**Sharded execution** (``shard=True`` or an explicit ``mesh=``): the
+walk's configuration is compiled into an :class:`~.plan.ExecutionPlan`
+whose lanes partition the CHUNK GRID contiguously across the mesh's
+series-axis devices, and one :class:`~.plan.LaneRunner` per shard — each
+with its own journal namespace, committer and prefetcher, on its own
+thread and CUDA stream — walks its span concurrently while the job
+deadline and the obs registry stay shared.  Shard boundaries always land
+on the single-lane walk's chunk boundaries, so the sharded result is
+bitwise-identical to the single-lane walk on the same panel; shard/process
+0 merges the per-shard manifests into ONE job manifest
+(``journal.merge_job_manifest``).  A single-process sharded walk is
+elastic (:class:`~.plan.LaneSupervisor`).  Under a ``torch.distributed``
+group each process runs the lanes of its own cells (build the panel with
+``parallel.mesh.distribute_panel``) and returns its local rows.
 """
 
 from __future__ import annotations
@@ -65,14 +76,17 @@ from __future__ import annotations
 import functools
 import inspect
 import os
+import threading
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from .. import obs
+from ..parallel import mesh as meshlib
 from . import delta as delta_mod
 from . import journal as journal_mod
+from . import plan as plan_mod
 from . import sink as sink_mod
 from . import source as source_mod
 from . import watchdog as watchdog_mod
@@ -82,12 +96,6 @@ from .runner import ResilientFitResult, _accepted_kwargs, _host
 from .status import STATUS_DTYPE, FitStatus, status_counts
 
 __all__ = ["OOMBackoffExceeded", "is_resource_exhausted", "fit_chunked"]
-
-_MULTI_LANE = ("the multi-lane chunk walk (shard=True, mesh=, a "
-               "process_index other than 0) is not ported yet: ROADMAP "
-               "queue 1, item 17's second half (one lane per series-axis "
-               "device of parallel.mesh)")
-
 
 def _explicit_align_param(fn) -> bool:
     try:
@@ -247,14 +255,43 @@ def fit_chunked(
     ``telemetry`` block.  Disabled (the default), none of this runs and
     the result is bitwise-identical to the uninstrumented driver.
 
-    ``mesh=``, ``shard=True`` and a ``process_index`` other than None or 0
-    raise ``NotImplementedError``: the multi-lane chunk walk (ROADMAP item
-    17's second half) is not ported, though ``parallel.mesh`` is;
-    ``lane_retries``, ``lane_retry_backoff_s`` and ``rebalance_threshold``
-    are that walk's knobs and do nothing on one lane.
+    **Sharded execution** (``shard=True`` or ``mesh=``): the chunk grid is
+    partitioned contiguously across the mesh's series-axis devices
+    (:func:`~.plan.shard_spans` — every shard owns whole chunks, so shard
+    boundaries ARE single-lane chunk boundaries) and one lane per shard
+    walks its span concurrently, a thread on its cell's device inside a
+    CUDA stream of its own (``parallel.mesh.lane_values`` places the
+    rows: a row view where the lane's device is the panel's).  A mesh may
+    list one card several times: several lanes then share it.  With
+    ``shard=True`` and no ``chunk_rows``, each shard gets one chunk.
+    Journaled sharded walks commit into per-shard namespaces
+    (``shard_00000/…``) and shard/process 0 merges them into ONE
+    ``manifest.json`` (a ``shards`` block, shard-tagged chunk entries,
+    ``merged_from_shards``) after the lanes join; a resume rebuilds the
+    same lanes and replays only uncommitted chunks.  ``meta["shards"]``
+    records the lane layout; ``meta["pipeline"]`` aggregates the lanes and
+    reports per-shard overlap in ``meta["pipeline"]["shards"]``.
+    ``sink=`` is refused with a sharded walk.
+
+    **Elastic lanes** (single-process sharded walks): a lane whose walk
+    raises is retried up to ``lane_retries`` times with exponential
+    backoff (``lane_retry_backoff_s``), then QUARANTINED — its uncommitted
+    chunks are re-staged to survivors' devices and recomputed, its
+    committed chunks adopted from its journal namespace.  Idle lanes STEAL
+    the grid-aligned tail of a straggler's span once its projected finish
+    exceeds ``rebalance_threshold`` mean chunk walls.  Results stay
+    bitwise-identical to the single-lane walk whichever lane computed a
+    chunk; a job that loses ALL lanes fails with the original error.
+    ``meta["shards"]["elastic"]`` records quarantines, steals and retries.
+
+    **Several processes**: under a ``torch.distributed`` group (see
+    ``parallel.mesh.init_distributed``) each process runs the lanes of its
+    own cells, a source-backed walk is refused, lanes are not elastic (a
+    process cannot re-stage another's rows), ``process_index`` defaults to
+    the process's rank, and the processes meet at a best-effort barrier
+    (``torch.distributed.barrier``) before process 0 merges the manifest.
+    Each returns its local rows.
     """
-    if shard or mesh is not None or process_index not in (None, 0):
-        raise NotImplementedError(_MULTI_LANE)
     device = fit_kwargs.get("device", "cuda")
 
     # -- chunk source --------------------------------------------------------
@@ -279,6 +316,10 @@ def fit_chunked(
                 chunk_rows = src.default_chunk_rows
     elif isinstance(y, torch.Tensor):
         yb = y
+    elif getattr(y, "is_distributed_panel", False):
+        # this process's share of a group's panel (parallel.mesh
+        # .distribute_panel): its blocks are the lanes it runs
+        yb = y
     else:
         from ..models.base import to_device  # it imports this package
 
@@ -296,6 +337,7 @@ def fit_chunked(
         b = int(yb.shape[0])
         t_len = int(yb.shape[1])
         panel_dtype = np.dtype(str(yb.dtype).replace("torch.", ""))
+    distributed = getattr(yb, "is_distributed_panel", False)
 
     # -- delta walk ----------------------------------------------------------
     # delta_from= diffs THIS panel against a committed prior journal
@@ -323,6 +365,10 @@ def fit_chunked(
             raise ValueError(
                 "delta_from= requires checkpoint_dir=: the delta walk "
                 "journals adopted + recomputed chunks into a NEW namespace")
+        if meshlib.process_count() > 1 or distributed:
+            raise ValueError(
+                "delta walks are single-process (the planner streams the "
+                "panel's rows on the host to fingerprint each chunk)")
         # only a CALLER-chosen chunk_rows constrains the delta grid: a
         # source's natural chunking (npz shard size) must not preempt
         # the prior walk's grid
@@ -386,11 +432,68 @@ def fit_chunked(
                 b = int(yb.shape[0])
                 t_len = int(yb.shape[1])
 
+    # -- lane layout (the sharded half of the ExecutionPlan) -----------------
+    # resolved BEFORE the align plan and the journal: the shard count can
+    # pick the default chunk size, and lane placement is the mesh plane's
+    # data distribution step
+    use_mesh = mesh
+    if use_mesh is None and shard:
+        use_mesh = meshlib.default_mesh()
+    n_shards = 1
+    if use_mesh is not None:
+        n_shards = len(meshlib.series_devices(use_mesh))
+        if chunk_rows is None and n_shards > 1:
+            # shard=True without a chunk size: one chunk per shard — the
+            # coarsest layout that still gives every device a lane
+            chunk_rows = -(-b // n_shards)
     chunk = int(chunk_rows) if chunk_rows else b
     chunk = max(1, min(chunk, b))
     chunk0 = chunk
-    lane_values = (source_mod.SourceLane(src, device=device)
-                   if src is not None else yb)
+
+    spans = [(0, b)]
+    lanes = None  # [(shard_id, lo, hi, device, lane_values), ...]
+    if use_mesh is not None and n_shards > 1:
+        spans = list(plan_mod.shard_spans(b, chunk0, n_shards))
+        if len(spans) > 1:
+            if src is not None:
+                # source-backed lanes need no device placement up front:
+                # each lane stages ONLY its own spans to its device as its
+                # walk reaches them.  Host RAM is process-local, so a
+                # source-backed sharded walk is SINGLE-process — enforced
+                # here, before any journal namespace is opened
+                if meshlib.process_count() > 1:
+                    raise ValueError(
+                        "sharded walks over a ChunkSource are "
+                        "single-process (host RAM/disk is process-local); "
+                        "under torch.distributed build the panel with "
+                        "parallel.mesh.distribute_panel instead of a source")
+                devs = meshlib.series_devices(use_mesh)
+                lanes = [(sid, slo, shi, devs[sid],
+                          source_mod.SourceLane(src, base=slo,
+                                                device=devs[sid]))
+                         for sid, (slo, shi) in enumerate(spans)]
+            else:
+                try:
+                    lanes = meshlib.lane_values(yb, use_mesh, spans)
+                except BaseException:
+                    # lane placement fails per process: on a journaled job
+                    # the OTHER processes will block in the pre-merge
+                    # barrier — join it so the error surfaces instead of
+                    # hanging the survivors
+                    if checkpoint_dir is not None:
+                        _distributed_barrier()
+                    raise
+    sharded = lanes is not None
+    if not sharded:
+        if distributed:
+            raise ValueError(
+                "a distributed panel walks on its mesh: pass the mesh= its "
+                "blocks were placed on (parallel.mesh.distribute_panel), "
+                "with a chunk_rows whose grid has a lane per device")
+        spans = [(0, b)]
+        lanes = [(0, 0, b, None,
+                  source_mod.SourceLane(src, device=device)
+                  if src is not None else yb)]
 
     # static align-mode plan: resolve the panel's alignment mode ONCE (or
     # take the caller's hint) and pass it to every chunk fit — the
@@ -412,17 +515,21 @@ def fit_chunked(
                       "align_mode": model_base.resolve_align_mode(
                           yb if src is None else src, align_mode)}
     elif (_explicit_align_param(fit_fn)
-          and (src is not None or chunk < b)
+          and (src is not None or chunk < b or sharded)
           and "align_mode" not in fit_kwargs):
         # AUTO-injection requires align_mode as an explicitly NAMED
         # parameter — a bare **kwargs does not count (a third-party fit
         # forwarding to a strict solver would blow up on, or silently
         # absorb, a keyword it never asked for).  Only sliced walks
         # benefit; a SOURCE walk probes on the HOST (streamed through the
-        # source: the panel never touches the device for the probe).
+        # source: the panel never touches the device for the probe).  A
+        # sharded walk always slices, so it always plans; a distributed
+        # panel's processes agree on the weakest mode of their blocks.
         fit_kwargs = {**fit_kwargs,
-                      "align_mode": (src.align_mode() if src is not None
-                                     else model_base.align_mode_on_host(yb))}
+                      "align_mode": (
+                          src.align_mode() if src is not None
+                          else yb.align_mode() if distributed
+                          else model_base.align_mode_on_host(yb))}
     plan_mode = fit_kwargs.get("align_mode") if fit_takes_align else None
 
     # -- grid coordinate -----------------------------------------------------
@@ -465,12 +572,18 @@ def fit_chunked(
             raise ValueError(
                 "sink= streams committed chunks out, so it requires a "
                 "journaled walk: pass checkpoint_dir= as well")
+        if sharded:
+            raise ValueError(
+                "sink= is not supported with shard=True/mesh=: output "
+                "shards are named by global row span and a merged "
+                "multi-lane sink is not implemented")
         if isinstance(sink, (str, os.PathLike)):
             sink = sink_mod.WritableChunkSource(sink)
         journal_extra = {**(journal_extra or {}),
                          "sink": {"directory": sink.directory,
                                   "depth": sink.depth}}
-    journal = None
+    journals = None
+    cfg = fp = None
     if checkpoint_dir is not None:
         if data_cols is None:
             data_cols = t_len
@@ -487,14 +600,20 @@ def fit_chunked(
         if delta_plan is not None:
             journal_extra["delta"] = delta_mod.delta_extra(
                 delta_plan, warmstart=delta_wrapped, data_cols=data_cols)
-        # pipeline knobs deliberately NOT hashed: they move I/O and work
-        # between threads without changing a byte of the result
+        if process_index is None:
+            process_index = meshlib.process_index()
+        # pipeline/shard knobs deliberately NOT hashed: they move I/O and
+        # work between threads and devices without changing a byte of the
+        # result, so a serial journal resumes under a pipelined run (and
+        # the other way round), and a merged sharded manifest is adopted
+        # by a later single-lane walk
         cfg = journal_mod.config_hash(
             fit_fn, fit_kwargs,
             extra={"chunk_rows": chunk0, "min_chunk_rows": min_chunk_rows,
                    "resilient": resilient, "policy": policy,
                    "ladder": "default" if ladder is None else repr(ladder)})
         fp = (src.fingerprint() if src is not None
+              else yb.fingerprint() if distributed
               else journal_mod.panel_fingerprint(yb))
         if delta_plan is not None and not delta_plan.grown \
                 and delta_plan.prior_config_hash != cfg:
@@ -506,26 +625,67 @@ def fit_chunked(
                 f"{delta_plan.prior_config_hash} != {cfg}); its chunks "
                 "cannot be adopted into this walk — refit from scratch or "
                 "point delta_from at the matching journal")
-        journal = journal_mod.ChunkJournal(
-            checkpoint_dir,
-            config_hash=cfg,
-            panel_fingerprint=fp,
-            n_rows=b,
-            chunk_rows=chunk0,
-            resume=resume,
-            process_index=0,
-            extra=journal_extra,
-            commit_hook=_journal_commit_hook,
-            # per-chunk content fingerprints: a LATER delta walk adopts
-            # unchanged chunks by them
-            chunk_fp=delta_mod.chunk_fp_fn(src, yb, data_cols),
-        )
+        # per-chunk content fingerprints: a LATER delta walk adopts
+        # unchanged chunks by them.  A distributed panel's rows are not
+        # all readable here; its entries omit the field
+        chunk_fp = (None if distributed
+                    else delta_mod.chunk_fp_fn(src, yb, data_cols))
+        if not sharded:
+            journals = [journal_mod.ChunkJournal(
+                checkpoint_dir,
+                config_hash=cfg,
+                panel_fingerprint=fp,
+                n_rows=b,
+                chunk_rows=chunk0,
+                resume=resume,
+                process_index=process_index,
+                extra=journal_extra,
+                commit_hook=_journal_commit_hook,
+                chunk_fp=chunk_fp,
+            )]
+        else:
+            # one journal namespace per shard (shard_00000/…): lanes are
+            # concurrent writers, and the journal's single-writer rule is
+            # per namespace.  The shard layout rides in `extra` so a
+            # resume under a DIFFERENT mesh is rejected as stale
+            journals = []
+            try:
+                # lanes never open the root manifest, so a foreign job's
+                # durable state in this dir would survive unnoticed until
+                # the merge destroyed it — reject it BEFORE any compute
+                journal_mod.check_root_manifest(
+                    checkpoint_dir, config_hash=cfg,
+                    panel_fingerprint=fp, n_rows=b)
+                for (sid, slo, shi, _dev, _vals) in lanes:
+                    extra = dict(journal_extra or {})
+                    extra.update({"shard_id": sid, "shard_lo": slo,
+                                  "shard_hi": shi, "n_shards": len(spans)})
+                    journals.append(journal_mod.ChunkJournal(
+                        checkpoint_dir,
+                        config_hash=cfg,
+                        panel_fingerprint=fp,
+                        n_rows=b,
+                        chunk_rows=chunk0,
+                        resume=resume,
+                        process_index=process_index,
+                        shard_index=sid,
+                        extra=extra,
+                        commit_hook=_journal_commit_hook,
+                        chunk_fp=chunk_fp,
+                    ))
+            except BaseException:
+                # stale/torn LOCAL journal state is asymmetric across
+                # processes: peers will block in the pre-merge barrier —
+                # join it so the error surfaces everywhere
+                _distributed_barrier()
+                raise
         if delta_plan is not None and delta_plan.adopted:
             # splice the clean chunks' committed results into the NEW
-            # namespace BEFORE the walk starts: the resume machinery then
-            # skips them like any committed chunk, and a resumed delta
-            # walk never re-adopts — nor recomputes — them
-            _delta_adopt(delta_plan, journal)
+            # namespace(s) BEFORE the walk starts: the resume machinery
+            # then skips them like any committed chunk, and a resumed
+            # delta walk never re-adopts — nor recomputes — them
+            _delta_adopt(delta_plan, journals,
+                         spans if sharded else None, sharded)
     deadline = watchdog_mod.Deadline(job_budget_s)
 
     # per-chunk telemetry rows; None (not empty) when disabled so the
@@ -543,8 +703,13 @@ def fit_chunked(
                "time": t_len, "dtype": str(panel_dtype)},
     ) if tele else None
 
-    # -- the plan, then its lane ---------------------------------------------
-    spec = LaneSpec(0, 0, b, None)
+    # -- the plan, then its lanes -------------------------------------------
+    lane_specs = tuple(LaneSpec(sid, slo, shi, dev)
+                       for (sid, slo, shi, dev, _vals) in lanes)
+    # elastic supervision applies to SINGLE-PROCESS multi-lane walks: under
+    # a process group a process cannot re-stage another process's rows,
+    # so multi-process jobs keep the static fail-fast layout
+    elastic = sharded and len(lane_specs) > 1 and meshlib.process_count() <= 1
     plan = ExecutionPlan(
         n_rows=b,
         chunk_rows=chunk0,
@@ -561,32 +726,100 @@ def fit_chunked(
         pipeline_depth=pipeline_depth,
         prefetch_depth=prefetch_depth,
         align_mode=plan_mode,
-        lanes=(spec,),
-        process_index=0,
-        n_shards=1,
+        lanes=lane_specs,
+        process_index=int(process_index or 0),
+        n_shards=len(spans) if sharded else 1,
         grid=grid,
-        elastic=False,
+        elastic=elastic,
         lane_retries=int(lane_retries),
         lane_retry_backoff_s=float(lane_retry_backoff_s),
         rebalance_threshold=float(rebalance_threshold),
     )
-    # the walk runs on the caller's stream: the committer and the watchdog
-    # worker enter it on their own threads, so their reads and launches
-    # are ordered after the caller's fit kernels on any stream
-    walk_dev = torch.device(device) if src is not None else yb.device
-    walk_stream = (torch.cuda.current_stream(walk_dev)
-                   if walk_dev.type == "cuda" else None)
-    with watchdog_mod._on_stream(walk_stream):
-        result = LaneRunner(plan, spec, fit_fn, fit_kwargs, lane_values,
-                            journal=journal, deadline=deadline, tele=tele,
-                            fit_key=fit_key, sink=sink).run()
+    # journal handles: an elastic lane READS committed state across every
+    # shard namespace (adopting a quarantined/stolen-from lane's durable
+    # chunks) and WRITES only its own; static walks keep the direct handle
+    lane_journals = None
+    if journals is not None:
+        lane_journals = (
+            [journal_mod.ShardJournalView(j, journals) for j in journals]
+            if elastic else list(journals))
+    # overlap the root-manifest merge with the last lanes' tails: while
+    # slower lanes finish, shard/process 0 already reads the shard
+    # manifests the committed lanes have written (read-only; the root
+    # manifest's single writer is still merge_job_manifest)
+    warmer = None
+    if (journals is not None and sharded and len(lane_specs) > 1
+            and int(process_index or 0) == 0):
+        warmer = journal_mod.MergeWarmer(checkpoint_dir, len(spans))
+    elastic_meta = None
+    try:
+        if not sharded:
+            # the walk runs on the caller's stream: the committer and the
+            # watchdog worker enter it on their own threads, so their
+            # reads and launches are ordered after the caller's kernels
+            walk_dev = torch.device(device) if src is not None else yb.device
+            walk_stream = (torch.cuda.current_stream(walk_dev)
+                           if walk_dev.type == "cuda" else None)
+            with watchdog_mod._on_stream(walk_stream):
+                results = [LaneRunner(
+                    plan, lane_specs[0], fit_fn, fit_kwargs, lanes[0][4],
+                    journal=(lane_journals[0] if lane_journals is not None
+                             else None),
+                    deadline=deadline, tele=tele, fit_key=fit_key,
+                    sink=sink).run()]
+        elif elastic:
+            # lanes pull spans from the shared work queue, failures
+            # quarantine instead of failing the job, idle lanes steal from
+            # stragglers, and reassigned spans are re-staged to the
+            # computing lane's device
+            def _restage(rlo, rhi, dev):
+                if src is not None:
+                    return source_mod.SourceLane(src, base=rlo, device=dev)
+                return plan_mod.RestagedPanel(yb, device=dev, base=rlo)
+
+            supervisor = plan_mod.LaneSupervisor(
+                plan, fit_fn, fit_kwargs,
+                [(spec, vals) for spec, (_s, _l, _h, _d, vals)
+                 in zip(lane_specs, lanes)],
+                journals=lane_journals, deadline=deadline, tele=tele,
+                fit_key=fit_key, restage=_restage)
+            results, elastic_meta = supervisor.run()
+        else:
+            results = _run_static_lanes([
+                functools.partial(
+                    LaneRunner, plan, spec, fit_fn, fit_kwargs, vals,
+                    journal=(lane_journals[i]
+                             if lane_journals is not None else None),
+                    deadline=deadline, tele=tele, fit_key=fit_key)
+                for i, (spec, (_sid, _lo, _hi, _dev, vals))
+                in enumerate(zip(lane_specs, lanes))], lane_specs)
+    except BaseException:
+        if warmer is not None:
+            warmer.stop()
+        # peer processes of a journaled sharded job are (or will be)
+        # blocked in the pre-merge barrier: a process whose lane failed
+        # must still JOIN it so the error surfaces everywhere instead of
+        # hanging the survivors (a no-op single-process)
+        if journals is not None and sharded:
+            _distributed_barrier()
+        raise
 
     # -- assemble ------------------------------------------------------------
-    pieces = result.pieces
-    oom_events, timeout_events = result.oom_events, result.timeout_events
+    # results arrive one per WALKED SPAN (an elastic lane can walk several);
+    # spans are disjoint and each result's pieces ascend, so the sort by
+    # lo yields globally ascending pieces either way
+    pieces = [p for r in results for p in r.pieces]
+    pieces.sort(key=lambda p: p[0])
+    oom_events, timeout_events = [], []
+    for r in results:
+        tag = {"shard": r.spec.shard_id} if sharded else {}
+        oom_events.extend({**ev, **tag} for ev in r.oom_events)
+        timeout_events.extend({**ev, **tag} for ev in r.timeout_events)
+    chunk_final = min((r.chunk_final for r in results), default=chunk0)
     tele_chunks = None
     if tele:
-        tele_chunks = sorted(result.tele_chunks or [], key=lambda c: c["lo"])
+        tele_chunks = [row for r in results for row in (r.tele_chunks or [])]
+        tele_chunks.sort(key=lambda c: c["lo"])
 
     dtype = panel_dtype
     sink_acct = None
@@ -637,7 +870,9 @@ def fit_chunked(
             conv = np.concatenate([m[2] for m in mats])
             iters = np.concatenate([m[3] for m in mats])
             status = np.concatenate([m[4] for m in mats])
-        else:  # a zero-row panel
+        else:
+            # a zero-row panel, or a process of a group whose cells own no
+            # lane: its LOCAL result is legitimately empty
             params = np.zeros((0, k), dtype)
             nll = np.zeros(0, dtype)
             conv = np.zeros(0, bool)
@@ -647,7 +882,7 @@ def fit_chunked(
 
     meta = {
         "chunk_rows_initial": chunk0,
-        "chunk_rows_final": result.chunk_final,
+        "chunk_rows_final": chunk_final,
         "chunks_run": len(pieces),
         "oom_backoffs": len(oom_events),
         "oom_events": oom_events,
@@ -658,6 +893,15 @@ def fit_chunked(
     }
     if sink_acct is not None:
         meta["sink"] = sink_acct
+    if sharded:
+        meta["shards"] = {
+            "n_shards": len(spans),
+            "spans": [[int(slo), int(shi)] for slo, shi in spans],
+            "lanes_run": len({r.spec.shard_id for r in results}),
+            "devices": [str(spec.device) for spec in lane_specs],
+        }
+        if elastic_meta is not None:
+            meta["shards"]["elastic"] = elastic_meta
     if grid is not None:
         meta["grid"] = {"index": grid[0], "total": grid[1]}
         if grid_members is not None:
@@ -666,11 +910,11 @@ def fit_chunked(
         meta["delta"] = {"from": delta_plan.prior_dir,
                          "counts": dict(delta_plan.counts),
                          "warmstart": delta_wrapped}
-    if journal is not None:
-        meta["journal"] = journal.accounting()
+    if journals is not None and not sharded:
+        meta["journal"] = journals[0].accounting()
     if plan_mode is not None:
         meta["align_mode"] = plan_mode
-    pipe_meta = _pipeline_meta([result])
+    pipe_meta = _pipeline_meta(results, sharded)
     if src is not None:
         # host-resident accounting: the staging pool's hit/reuse counts,
         # the copy wall/bytes, and the donated-buffer high-water mark —
@@ -697,6 +941,7 @@ def fit_chunked(
     if rung_totals:
         meta["ladder_totals"] = rung_totals
 
+    telemetry = None
     if tele:
         for name, v in meta["status_counts"].items():
             if v:
@@ -714,21 +959,107 @@ def fit_chunked(
                     "staged_misses", "staging_wall_s", "hidden_staging_s",
                     "input_overlap_efficiency", "staging_pool")
                 if k2 in pipe_meta}
+        if pipe_meta is not None and "shards" in pipe_meta:
+            # per-lane commit/staging overlap rides into the merged job
+            # manifest so a straggler lane is a journaled fact
+            extra_tele["shards_pipeline"] = pipe_meta["shards"]
         # summary() is None if the plane was disabled mid-run: drop the
         # block entirely rather than crash or journal a null
         telemetry = obs.summary(counters_since=counters0, chunks=tele_chunks,
                                 **extra_tele)
         if telemetry is not None:
             meta["telemetry"] = telemetry
-            if journal is not None:
-                journal.record_telemetry(telemetry)
+            if journals is not None and not sharded:
+                journals[0].record_telemetry(telemetry)
             obs.emit_metrics()
+
+    if journals is not None and sharded:
+        # shard/process 0 is the single writer of the job-level manifest:
+        # merge every shard namespace (chunks re-pathed shard-relative and
+        # tagged with their shard id, a `shards` block, the merged
+        # telemetry timeline) into ONE manifest.json after the lanes join
+        _distributed_barrier()
+        if int(process_index or 0) == 0:
+            acct = journal_mod.merge_job_manifest(
+                checkpoint_dir,
+                config_hash=cfg,
+                panel_fingerprint=fp,
+                n_rows=b,
+                chunk_rows=chunk0,
+                spans=spans,
+                telemetry=telemetry,
+                extra=journal_extra,
+                cache=warmer.stop() if warmer is not None else None,
+                rebalance=elastic_meta,
+            )
+        else:
+            # a process may own ZERO local lanes: journals is then empty,
+            # but the job root is just the checkpoint dir
+            acct = {"dir": os.path.abspath(checkpoint_dir),
+                    "manifest": None, "merged_shards": None,
+                    "config_hash": cfg,
+                    "process_index": int(process_index or 0)}
+        acct["chunks_resumed"] = sum(j.resumed_entries for j in journals)
+        meta["journal"] = acct
     return ResilientFitResult(params, nll, conv, iters, status, meta)
 
 
-def _pipeline_meta(results) -> Optional[dict]:
-    """``meta["pipeline"]``: the lanes' committer and prefetcher accounting
-    summed (one lane until the multi-lane walk is ported)."""
+def _run_static_lanes(make_runners, specs) -> list:
+    """Run the lanes of a static (multi-process) sharded walk, one thread
+    each, on its device inside a CUDA stream of its own — each runner is
+    built on its lane's thread, so its committer reads on the lane's
+    stream; re-raise the first lane's error after every lane joined (the
+    others ran to completion: their journals keep their commits)."""
+    parents = plan_mod._parent_streams(spec.device for spec in specs)
+    results = [None] * len(specs)
+    errors = [None] * len(specs)
+
+    def _drive(i):
+        try:
+            with plan_mod._lane_stream(specs[i].device, parents):
+                results[i] = make_runners[i]().run()
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors[i] = e
+
+    if len(specs) == 1:
+        _drive(0)
+    else:
+        threads = [threading.Thread(target=_drive, args=(i,), daemon=True,
+                                    name=f"chunk-lane-{spec.shard_id}")
+                   for i, spec in enumerate(specs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    first = next((e for e in errors if e is not None), None)
+    if first is not None:
+        raise first
+    out = [r for r in results if r is not None]
+    out.sort(key=lambda r: r.spec.lo)
+    return out
+
+
+def _distributed_barrier() -> None:
+    """Best-effort cross-process barrier before the job-manifest merge:
+    process 0 must not merge shard manifests other processes are still
+    writing.  A no-op (and never fatal) single-process."""
+    try:
+        if meshlib.process_count() <= 1:
+            return
+        torch.distributed.barrier()
+    except Exception:  # noqa: BLE001 - the barrier is best-effort
+        import warnings
+
+        warnings.warn(
+            "fit_chunked: cross-process barrier before the job-manifest "
+            "merge failed; the merged manifest may briefly lag the last "
+            "shard commits", stacklevel=2)
+
+
+def _pipeline_meta(results, sharded: bool) -> Optional[dict]:
+    """``meta["pipeline"]`` merged across lanes: a sharded plan sums the
+    lanes and adds a per-shard breakdown so a slow lane is visible behind
+    the aggregate."""
     pipes = [(r.spec.shard_id, r.pipe_stats, r.committer_depth)
              for r in results if r.pipe_stats is not None]
     pfs = [(r.spec.shard_id, r.pf_stats, r.prefetch_depth)
@@ -783,23 +1114,58 @@ def _pipeline_meta(results) -> Optional[dict]:
     total_hidden = hidden_commit + hidden_staging
     pipe_meta["end_to_end_overlap_efficiency"] = (
         round(total_hidden / total_wall, 4) if total_wall > 0 else None)
+    if sharded:
+        # per-shard accumulation: an ELASTIC lane walks several spans —
+        # one LaneResult each — and its accounting sums into ONE row
+        by_shard: dict = {}
+        for sid, s, _d in pipes:
+            e = by_shard.setdefault(sid, {"shard": sid})
+            cw = e.get("commit_wall_s", 0.0) + s.commit_wall_s
+            hc = e.get("hidden_commit_s", 0.0) + s.hidden_s
+            e.update({
+                "commits_background": e.get("commits_background", 0)
+                + s.commits,
+                "commit_wall_s": round(cw, 6),
+                "hidden_commit_s": round(hc, 6),
+                "overlap_efficiency": (round(hc / cw, 4) if cw > 0
+                                       else None),
+            })
+        for sid, s, _d in pfs:
+            e = by_shard.setdefault(sid, {"shard": sid})
+            sw = e.get("staging_wall_s", 0.0) + s.staging_wall_s
+            hs = e.get("hidden_staging_s", 0.0) + s.hidden_s
+            e.update({
+                "chunks_staged": e.get("chunks_staged", 0) + s.staged,
+                "staging_wall_s": round(sw, 6),
+                "hidden_staging_s": round(hs, 6),
+                "input_overlap_efficiency": (round(hs / sw, 4) if sw > 0
+                                             else None),
+            })
+        pipe_meta["shards"] = [by_shard[sid] for sid in sorted(by_shard)]
     return pipe_meta
 
 
-def _delta_adopt(plan, journal) -> None:
-    """Commit a delta plan's clean chunks into the new walk's journal.
+def _delta_adopt(plan, journals, spans, sharded: bool) -> None:
+    """Commit a delta plan's clean chunks into the new walk's journal(s).
 
     Adoption is an ordinary batch commit of the prior shards' bytes (zero
     compute, entry tagged ``delta.class == "adopted"`` with the source
-    manifest).  Already-committed chunks (a resumed delta walk) are left
-    exactly as they are: adopted chunks are never recomputed OR re-spliced
-    on resume.
+    manifest), routed into the shard namespace whose span holds the chunk
+    under a sharded plan.  Already-committed chunks (a resumed delta walk)
+    are left exactly as they are: adopted chunks are never recomputed OR
+    re-spliced on resume.
     """
     src_manifest = os.path.join(plan.prior_dir, "manifest.json")
-    items = []
+    batches: dict = {}  # journal id -> (journal, [(lo, hi, path, info)])
     for entry, shard_path in plan.adopted:
         lo, hi = int(entry["lo"]), int(entry["hi"])
-        if journal.committed(lo) is not None:
+        if sharded:
+            sid = next((i for i, (slo, shi) in enumerate(spans)
+                        if slo <= lo < shi), 0)
+            j = journals[sid]
+        else:
+            j = journals[0]
+        if j.committed(lo) is not None:
             continue
         counts = entry.get("status_counts")
         if counts is None:
@@ -812,7 +1178,8 @@ def _delta_adopt(plan, journal) -> None:
             # the planner just PROVED the new panel's rows hash to this —
             # recording the prior value verbatim skips a redundant sample
             info["chunk_fingerprint"] = entry["chunk_fingerprint"]
-        items.append((lo, hi, shard_path, info))
-    if items:
-        adopted = journal.adopt_chunks(items)
+        batches.setdefault(id(j), (j, []))[1].append(
+            (lo, hi, shard_path, info))
+    for j, items in batches.values():
+        adopted = j.adopt_chunks(items)
         obs.counter("delta.chunks_adopted").add(len(adopted))

@@ -37,9 +37,21 @@ disk-fault hook (:func:`~.journal.set_disk_fault_hook`), so the REAL
 durable write paths fail on cue: refusals surface as ``OSError``, torn
 files are rejected loudly by readers and recomputed by recovery.
 
-The lane faults of the reference module drive the multi-lane walk, and
-its request, server, tenant and wire faults the serving layer; neither
-is ported yet, and the faults arrive with them.
+**Lane faults** (the multi-lane walk): :func:`lane_kill` makes one lane's
+fit calls raise :class:`SimulatedLaneFailure` (permanently or a few
+times), :func:`slow_lane` makes one lane a straggler the others steal
+from, and :func:`lane_oom_storm` makes every allocation of one lane fail
+until it is quarantined.  All three key on
+:func:`~.watchdog.current_lane`, the thread-local tag every lane of a
+sharded walk carries.
+
+**Request and server faults** (the in-process serving loop):
+:func:`request_storm` bursts submits from a thread pool,
+:func:`server_kill` is the serving spelling of
+:func:`kill_after_commits`, and :func:`slow_tenant` straggles any batch
+carrying one tenant's rows (keyed on :func:`~.watchdog.current_request`).
+The reference's wire faults (``frame_fault_schedule``, ``FaultyWire``)
+belong to the socket transport, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ import numpy as np
 import torch
 
 from .status import STATUS_DTYPE, FitStatus
+from .watchdog import current_lane, current_request
 
 __all__ = [
     "SimulatedCrash",
@@ -73,6 +86,13 @@ __all__ = [
     "tear_file",
     "disk_fault_schedule",
     "disk_faults",
+    "SimulatedLaneFailure",
+    "lane_kill",
+    "slow_lane",
+    "lane_oom_storm",
+    "request_storm",
+    "server_kill",
+    "slow_tenant",
 ]
 
 
@@ -332,12 +352,15 @@ def kill_after_commits(n: int, *, mid_commit: bool = False) -> Callable:
     """
     event = "shard_written" if mid_commit else "committed"
     seen = {"n": 0}
+    mu = threading.Lock()  # a sharded walk's lanes commit concurrently
 
     def hook(ev: str, lo: int) -> None:
         if ev != event:
             return
-        seen["n"] += 1
-        if seen["n"] >= n:
+        with mu:
+            seen["n"] += 1
+            hit = seen["n"] >= n
+        if hit:
             os.kill(os.getpid(), signal.SIGKILL)
 
     return hook
@@ -350,12 +373,15 @@ def crash_after_commits(n: int, *, mid_commit: bool = False) -> Callable:
     subprocess round trip)."""
     event = "shard_written" if mid_commit else "committed"
     seen = {"n": 0}
+    mu = threading.Lock()  # a sharded walk's lanes commit concurrently
 
     def hook(ev: str, lo: int) -> None:
         if ev != event:
             return
-        seen["n"] += 1
-        if seen["n"] >= n:
+        with mu:
+            seen["n"] += 1
+            hit = seen["n"] >= n
+        if hit:
             raise SimulatedCrash(
                 f"simulated process death after {n} {event} events")
 
@@ -465,3 +491,163 @@ class disk_faults:
         from . import journal
 
         journal.set_disk_fault_hook(self._prev)
+
+
+# ---------------------------------------------------------------------------
+# lane faults (the multi-lane walk: quarantine and rebalance)
+# ---------------------------------------------------------------------------
+
+
+class SimulatedLaneFailure(RuntimeError):
+    """Stands in for a dead lane device: an exception no backoff ladder can
+    absorb (not an allocation failure, not a watchdog timeout), so the
+    elastic supervisor's retry → quarantine path is the only recovery."""
+
+    def __init__(self, shard_id: int):
+        super().__init__(
+            f"lane shard={shard_id} failed "
+            "(simulated by reliability.faultinject.lane_kill)")
+        self.shard_id = int(shard_id)
+
+
+def lane_kill(fit_fn: Callable, shard_id: int, after_chunks: int = 0,
+              n_failures: Optional[int] = None) -> Callable:
+    """Wrap ``fit_fn`` so lane ``shard_id``'s fit calls raise
+    :class:`SimulatedLaneFailure` after ``after_chunks`` successful calls.
+
+    ``n_failures=None`` (default) is a PERMANENT death — every later call
+    on that lane fails too, so the supervisor's retries burn out and the
+    lane is quarantined, its span reassigned to survivors.  An integer
+    makes the fault TRANSIENT (the lane recovers after that many
+    failures), exercising the retry-without-quarantine path.  Calls from
+    other lanes (or outside any lane) pass through untouched.
+    """
+    state = {"ok": 0, "failed": 0}
+
+    @functools.wraps(fit_fn)
+    def wrapped(yb, **kwargs):
+        if current_lane() == int(shard_id):
+            if state["ok"] >= int(after_chunks) and (
+                    n_failures is None or state["failed"] < int(n_failures)):
+                state["failed"] += 1
+                raise SimulatedLaneFailure(int(shard_id))
+            state["ok"] += 1
+        return fit_fn(yb, **kwargs)
+
+    return wrapped
+
+
+def slow_lane(fit_fn: Callable, shard_id: int, delay_s: float) -> Callable:
+    """Wrap ``fit_fn`` so lane ``shard_id`` stalls ``delay_s`` before every
+    fit call — a deterministic straggler device.  The elastic walk's idle
+    survivors should STEAL the straggler's unstarted chunks once its
+    projected finish blows the rebalance threshold; the fault follows the
+    LANE, so stolen chunks run at full speed on their new lane."""
+
+    @functools.wraps(fit_fn)
+    def wrapped(yb, **kwargs):
+        if current_lane() == int(shard_id):
+            time.sleep(float(delay_s))
+        return fit_fn(yb, **kwargs)
+
+    return wrapped
+
+
+def lane_oom_storm(fit_fn: Callable, shard_id: int) -> Callable:
+    """Wrap ``fit_fn`` so every fit call on lane ``shard_id`` raises a
+    simulated ``RESOURCE_EXHAUSTED`` — an allocator storm no chunk halving
+    survives.  The lane's backoff ladder exhausts
+    (``OOMBackoffExceeded``), its retries re-exhaust, and the elastic
+    supervisor quarantines it; survivors recompute its chunks at their own
+    (healthy) chunk size.  Only that lane backs off: the others never see
+    the fault."""
+
+    @functools.wraps(fit_fn)
+    def wrapped(yb, **kwargs):
+        if current_lane() == int(shard_id):
+            raise SimulatedResourceExhausted(
+                int(np.prod(np.asarray(tuple(yb.shape)))) * 4)
+        return fit_fn(yb, **kwargs)
+
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
+# request faults (the resident fit server's admission, deadline, shedding
+# and crash-recovery paths, exercisable in CPU tests)
+# ---------------------------------------------------------------------------
+
+
+def request_storm(submit: Callable, calls, threads: int = 8,
+                  timeout_s: float = 120.0) -> tuple:
+    """Burst-admit ``calls`` concurrently — the admission-control load
+    test.  ``submit`` is typically ``server.submit``; each element of
+    ``calls`` is ``(args_tuple, kwargs_dict)`` and is fired from a pool
+    of ``threads`` worker threads as fast as they can go.
+
+    Returns ``(results, errors)``, both lists aligned with ``calls``:
+    ``results[i]`` is the submit's return value (a ticket) or None,
+    ``errors[i]`` the exception it raised (``RejectedError`` under
+    overload — the storm is exactly how shedding is driven) or None.
+    Deterministic in coverage, deliberately NOT in interleaving: the
+    invariant under test is conservation (every call is answered or
+    explicitly rejected; none hang, none OOM), not ordering.
+    """
+    import queue as queue_mod
+
+    calls = list(calls)
+    results: list = [None] * len(calls)
+    errors: list = [None] * len(calls)
+    work: "queue_mod.Queue" = queue_mod.Queue()
+    for i, c in enumerate(calls):
+        work.put((i, c))
+
+    def _worker():
+        while True:
+            try:
+                i, (args, kwargs) = work.get_nowait()
+            except queue_mod.Empty:
+                return
+            try:
+                results[i] = submit(*args, **(kwargs or {}))
+            except BaseException as e:  # noqa: BLE001 - reported per call
+                errors[i] = e
+
+    ts = [threading.Thread(target=_worker, daemon=True,
+                           name=f"request-storm-{k}")
+          for k in range(max(1, int(threads)))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout_s)
+    return results, errors
+
+
+def server_kill(n_commits: int, *, mid_commit: bool = False) -> Callable:
+    """SIGKILL stand-in for a dying fit SERVER: a journal commit hook that
+    kills the process after ``n_commits`` durable chunk commits COUNTED
+    ACROSS every batch walk the server runs (pass as
+    ``FitServer(_commit_hook=...)`` in a subprocess).  With
+    ``mid_commit=True`` the kill lands inside a commit (shard written,
+    manifest not yet updated) — the torn-batch window restart recovery
+    must replay.  Same contract as :func:`kill_after_commits`."""
+    return kill_after_commits(n_commits, mid_commit=mid_commit)
+
+
+def slow_tenant(fit_fn: Callable, tenant: str, delay_s: float) -> Callable:
+    """Wrap ``fit_fn`` so any serving batch carrying ``tenant``'s rows
+    straggles ``delay_s`` per fit call — one tenant's pathological panel
+    slowing the micro-batch it rides in.  Keys on the thread-local
+    request tag (:func:`~.watchdog.current_request`), so the SAME
+    registered fit behaves normally for every other batch; with a
+    chunk/job budget armed the watchdog TIMEOUTs the straggling batch
+    instead of hanging the server."""
+
+    @functools.wraps(fit_fn)
+    def wrapped(yb, **kwargs):
+        tags = current_request() or ()
+        if tenant in tags:
+            time.sleep(float(delay_s))
+        return fit_fn(yb, **kwargs)
+
+    return wrapped

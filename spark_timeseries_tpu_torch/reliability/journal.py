@@ -48,8 +48,11 @@ never adopt each other's chunks.
 ``proc_00001/...`` with a process-local manifest, and ``shard_index``
 under ``shard_00000/...``; only process 0 commits the job-level
 ``manifest.json``.  :func:`check_root_manifest` rejects a foreign job's
-root manifest.  The multi-lane merge of the reference (its shard views,
-merge warmer and job-manifest merge) is not ported yet.
+root manifest.  A sharded walk's lanes read each other's namespaces
+through :class:`ShardJournalView` (an elastic lane adopts a peer's
+commits), and shard/process 0 folds the namespaces into ONE root
+manifest with :func:`merge_job_manifest` (warmed by :class:`MergeWarmer`
+while the last lanes finish).
 
 **Leases** (the end of the module) are the fleet's single-writer election:
 a pure file protocol of claim files and a heartbeat record.
@@ -82,6 +85,8 @@ __all__ = [
     "Lease",
     "LeaseError",
     "LoadedChunk",
+    "MergeWarmer",
+    "ShardJournalView",
     "StaleJournalError",
     "TornManifestError",
     "acquire_lease",
@@ -93,6 +98,7 @@ __all__ = [
     "durable_replace",
     "highest_claim",
     "lease_is_live",
+    "merge_job_manifest",
     "panel_fingerprint",
     "read_lease",
     "set_disk_fault_hook",
@@ -403,8 +409,8 @@ class ChunkJournal:
     lives under ``shard_{i:05d}/`` with a manifest named for the shard,
     regardless of process (a shard id is globally unique across the
     mesh's processes), and the job-level root ``manifest.json`` is written
-    only by the job-manifest merge after the lanes join (the multi-lane
-    half, not ported yet).  A shard
+    only by the job-manifest merge after the lanes join
+    (:func:`merge_job_manifest`).  A shard
     journal whose recorded span (``extra`` keys ``shard_lo``/``shard_hi``/
     ``n_shards``) does not match the new run's lane layout is STALE: the
     mesh changed, and resuming would replay another lane's boundaries.
@@ -832,6 +838,339 @@ def check_root_manifest(directory: str, *, config_hash: str,
             f"({', '.join(mismatches)} mismatch); merging this sharded "
             "walk would destroy that job's durable state — use a fresh "
             "checkpoint_dir or remove the stale journal explicitly.")
+
+
+class ShardJournalView:
+    """One elastic lane's journal handle: WRITE to its own shard namespace,
+    READ committed state across EVERY namespace of the job .
+
+    Under elastic reassignment a chunk's durable shard can live in any
+    lane's namespace — the lane that COMPUTED it (tagged ``owner`` in its
+    manifest entry), which after a quarantine, a steal, or a resumed
+    rebalanced job need not be the lane whose nominal span contains it.
+    The walk's resume/skip logic (``committed`` / ``load_chunk`` /
+    ``next_committed_lo`` / ``committed_crossing``) therefore consults the
+    lane's own journal first, then every peer namespace, ADOPTING foreign
+    commits instead of recomputing them — "resume replays only
+    truly-uncommitted work".  Writes (``commit_chunk`` / ``mark_timeout``)
+    go exclusively to the lane's own namespace, so the journal's
+    single-writer-per-namespace protocol is untouched; a loaded entry is
+    always rehydrated (and, on a torn shard, downgraded) by the journal
+    that OWNS it, so its manifest bookkeeping stays correct.
+    """
+
+    def __init__(self, own: ChunkJournal, peers):
+        self.own = own
+        self.peers = [p for p in peers if p is not own]
+        # lo -> journal holding the committed entry last returned for it;
+        # load_chunk must dispatch to that journal (paths are
+        # namespace-relative, and a torn-shard downgrade must hit the
+        # owning manifest).  One view per lane; the rare concurrent writer
+        # is a watchdog-abandoned worker re-probing the same lo, which
+        # writes the same value.
+        self._found_in: dict = {}
+
+    def committed(self, lo: int):
+        e = self.own.committed(lo)
+        if e is not None:
+            self._found_in[int(lo)] = self.own
+            return e
+        for j in self.peers:
+            e = j.committed(lo)
+            if e is not None:
+                self._found_in[int(lo)] = j
+                return e
+        return None
+
+    def load_chunk(self, entry: dict):
+        j = self._found_in.get(int(entry["lo"]), self.own)
+        return j.load_chunk(entry)
+
+    def next_committed_lo(self, lo: int):
+        cands = [j.next_committed_lo(lo) for j in (self.own, *self.peers)]
+        cands = [c for c in cands if c is not None]
+        return min(cands) if cands else None
+
+    def committed_crossing(self, pos: int):
+        for j in (self.own, *self.peers):
+            x = j.committed_crossing(pos)
+            if x is not None:
+                return x
+        return None
+
+    def commit_chunk(self, *args, **kwargs):
+        return self.own.commit_chunk(*args, **kwargs)
+
+    def mark_timeout(self, *args, **kwargs):
+        return self.own.mark_timeout(*args, **kwargs)
+
+
+class MergeWarmer:
+    """Overlap the sharded root-manifest merge with the last lanes' tails.
+
+    A sharded walk's fast lanes finish (and atomically commit their shard
+    manifests) while stragglers are still computing; the merge used to
+    start only after EVERY lane joined, re-reading and re-parsing all the
+    shard manifests on the critical path.  The warmer is a read-only
+    background poller shard/process 0 runs while its lanes are still out:
+    it watches each ``shard_?????/manifest.shard_?????.json``, parses any
+    version it has not seen (keyed by ``(mtime_ns, size)`` — shard
+    manifests are written by atomic replace, so a stat change IS a new
+    complete version), and hands the cache to
+    :func:`merge_job_manifest(cache=...)`, which re-reads only manifests
+    that changed after their last warm parse.
+
+    The single-writer rule is untouched: the warmer never writes anything
+    — the root manifest is still written once, by the merge, after the
+    barrier.  A parse failure is simply not cached (the merge re-reads
+    and raises its own, properly attributed, error).
+    """
+
+    def __init__(self, directory: str, n_shards: int,
+                 interval_s: float = 0.05):
+        self.root = os.path.abspath(directory)
+        self.paths = [
+            os.path.join(self.root, f"shard_{sid:05d}",
+                         f"manifest.shard_{sid:05d}.json")
+            for sid in range(int(n_shards))]
+        self.interval_s = float(interval_s)
+        self._cache: dict = {}  # path -> ((mtime_ns, size), manifest)
+        self._stop = threading.Event()
+        self._worker = threading.Thread(
+            target=self._run, daemon=True, name="merge-warmer")
+        self._worker.start()
+
+    def _poll_once(self) -> None:
+        for path in self.paths:
+            try:
+                st = os.stat(path)
+            except OSError:
+                continue  # lane has not committed its manifest yet
+            sig = (st.st_mtime_ns, st.st_size)
+            hit = self._cache.get(path)
+            if hit is not None and hit[0] == sig:
+                continue
+            try:
+                with open(path, "rb") as f:
+                    m = json.loads(f.read().decode())
+            except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+                continue  # merge will re-read and attribute the error
+            self._cache[path] = (sig, m)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self._poll_once()
+
+    def stop(self) -> dict:
+        """Stop polling and return the warm cache (one final sweep first,
+        so lanes that committed in the last interval are still warm)."""
+        self._stop.set()
+        self._worker.join(timeout=30.0)
+        self._poll_once()
+        return self._cache
+
+
+def merge_job_manifest(
+    directory: str,
+    *,
+    config_hash: str,
+    panel_fingerprint: str,
+    n_rows: int,
+    chunk_rows: int,
+    spans,
+    telemetry: Optional[dict] = None,
+    extra: Optional[dict] = None,
+    cache: Optional[dict] = None,
+    rebalance: Optional[dict] = None,
+) -> dict:
+    """Fold the shard-namespace manifests of a sharded walk into the ONE
+    job-level ``manifest.json`` at the journal root, and return the merged
+    accounting.
+
+    Called by shard/process 0 AFTER the lanes join — it is the only writer
+    of the root manifest, mirroring the per-process single-writer rule.
+    ``spans`` is the run's lane layout (``plan.shard_spans``); a shard
+    manifest recorded under a different job (config hash, fingerprint,
+    row count) or a different lane layout is STALE and raises rather than
+    splicing foreign chunks into the job record.  Missing shard manifests
+    are tolerated (a lane that crashed before its first commit, or another
+    process's lane on a non-shared filesystem): their chunks simply stay
+    pending, and a resume recomputes them.
+
+    Merged chunk entries keep their npz shards where the lanes wrote them
+    — the ``shard`` path is re-rooted relative to the journal root and
+    each entry gains its ``shard_id`` — so the merged manifest itself
+    satisfies the resume contract: the same sharded job resumes lane by
+    lane from the shard namespaces, and a later SINGLE-device walk of the
+    same (panel, config) can adopt the merged root manifest directly
+    (plan knobs are excluded from the config hash; the chunk grid is
+    shared by construction).
+
+    ``cache`` (a :meth:`MergeWarmer.stop` result) short-circuits the read
+    and parse of shard manifests whose ``(mtime_ns, size)`` signature is
+    unchanged since the warmer saw them — the merge I/O then overlapped
+    the last lanes' tails instead of following them.  Validation runs on
+    the cached parse exactly as on a fresh read.
+
+    **Elastic reconciliation**: a quarantined or stolen-from
+    lane's chunks are committed by SURVIVORS into the survivors'
+    namespaces, each entry tagged with its computing ``owner`` lane.  The
+    merge reconciles by row range: per chunk ``lo`` a ``committed`` entry
+    wins over a stale ``TIMEOUT``/pending duplicate from another
+    namespace, every entry keeps its namespace-rooted npz path plus its
+    ``owner`` tag, each ``shards[*]`` entry records its ``owner`` identity
+    and how many of its committed chunks were reassigned in from other
+    lanes' nominal spans, and the driver's quarantine/steal record lands
+    as a top-level ``rebalance`` block (``tools/obs_report.py --check``
+    validates all three; ``tools/advise_budget.py`` turns them into
+    ``lane_retries``/``rebalance_threshold`` advice).
+    """
+    root = os.path.abspath(directory)
+    # the root manifest is another job's write-ahead record until proven
+    # otherwise: a sharded walk's lanes only ever open shard namespaces,
+    # so the merge is the last line of defense — mirror ChunkJournal's
+    # never-silently-overwrite contract (the driver also calls
+    # check_root_manifest up front to fail BEFORE any compute)
+    check_root_manifest(root, config_hash=config_hash,
+                        panel_fingerprint=panel_fingerprint, n_rows=n_rows)
+    spans = [(int(lo), int(hi)) for lo, hi in spans]
+    shards, chunks = [], []
+    run_id = None
+    for sid, (slo, shi) in enumerate(spans):
+        d = f"shard_{sid:05d}"
+        mp = os.path.join(root, d, f"manifest.{d}.json")
+        if not os.path.exists(mp):
+            shards.append({"shard_id": sid, "lo": slo, "hi": shi,
+                           "dir": d, "manifest": None, "run_id": None,
+                           "chunks_committed": 0, "chunks_timeout": 0,
+                           "resumes": 0})
+            continue
+        m = None
+        if cache is not None:
+            hit = cache.get(mp)
+            if hit is not None:
+                try:
+                    st = os.stat(mp)
+                    if (st.st_mtime_ns, st.st_size) == hit[0]:
+                        m = hit[1]  # warm parse still current
+                except OSError:
+                    pass
+        if m is None:
+            try:
+                with open(mp, "rb") as f:
+                    m = json.loads(f.read().decode())
+            except (json.JSONDecodeError, UnicodeDecodeError) as e:
+                raise TornManifestError(
+                    f"shard manifest {mp} does not parse ({e}); "
+                    "inspect/remove the journal directory explicitly."
+                ) from e
+        mismatches = []
+        if m.get("config_hash") != config_hash:
+            mismatches.append("config_hash")
+        if m.get("panel_fingerprint") != panel_fingerprint:
+            mismatches.append("panel_fingerprint")
+        if int(m.get("n_rows", -1)) != int(n_rows):
+            mismatches.append("n_rows")
+        mex = m.get("extra") or {}
+        if (mex.get("shard_lo"), mex.get("shard_hi")) != (slo, shi) or \
+                mex.get("n_shards") != len(spans):
+            mismatches.append("shard layout")
+        if mismatches:
+            raise StaleJournalError(
+                f"shard manifest {mp} belongs to a different job/layout "
+                f"({', '.join(mismatches)} mismatch); remove the stale "
+                "journal explicitly or use a fresh checkpoint_dir.")
+        if run_id is None:
+            run_id = m.get("run_id")
+        entries = []
+        for e in m.get("chunks", []):
+            e2 = dict(e)
+            e2["shard_id"] = sid
+            if "shard" in e2:
+                e2["shard"] = f"{d}/{e2['shard']}"
+            entries.append(e2)
+        chunks.extend(entries)
+        shards.append({
+            "shard_id": sid, "lo": slo, "hi": shi, "dir": d,
+            "manifest": os.path.basename(mp), "run_id": m.get("run_id"),
+            "chunks_committed": sum(1 for e in entries
+                                    if e["status"] == "committed"),
+            "chunks_timeout": sum(1 for e in entries
+                                  if e["status"] == "TIMEOUT"),
+            "resumes": len(m.get("resumes") or []),
+        })
+    # elastic reconciliation: one entry per chunk lo.  A chunk marked
+    # TIMEOUT (or left pending) by one lane and later COMMITTED by another
+    # must merge as committed — the committed shard is the durable truth,
+    # and a duplicate entry would double-count its rows
+    by_lo: dict = {}
+    for e in chunks:
+        cur = by_lo.get(e["lo"])
+        if cur is None or (e["status"] == "committed"
+                           and cur["status"] != "committed"):
+            by_lo[e["lo"]] = e
+    chunks = sorted(by_lo.values(), key=lambda e: e["lo"])
+    # per-shard accounting is recomputed from the RECONCILED entries: a
+    # TIMEOUT mark another lane later resolved as committed must not
+    # linger in its namespace's totals (post-mortems and advise_budget
+    # would report a timeout no chunk in the final result has).  Plus the
+    # owner accounting: entries in this namespace whose rows fall OUTSIDE
+    # its nominal span were reassigned in (a quarantine hand-off or a
+    # steal) — a journaled fact read from the manifest alone
+    for s in shards:
+        sid, (slo, shi) = s["shard_id"], (s["lo"], s["hi"])
+        mine = [e for e in chunks if e.get("shard_id") == sid]
+        s["chunks_committed"] = sum(1 for e in mine
+                                    if e["status"] == "committed")
+        s["chunks_timeout"] = sum(1 for e in mine
+                                  if e["status"] == "TIMEOUT")
+        s["owner"] = sid
+        s["chunks_reassigned_in"] = sum(
+            1 for e in mine if e["status"] == "committed"
+            and not (slo <= e["lo"] and e["hi"] <= shi))
+    manifest = {
+        "journal_version": JOURNAL_VERSION,
+        "run_id": run_id or uuid.uuid4().hex[:12],  # lint: nondet(merge run identity metadata, never hashed)
+        "created_at": time.time(),  # lint: nondet(manifest wall-clock metadata; never in fitted bytes)
+        "updated_at": time.time(),  # lint: nondet(manifest wall-clock metadata; never in fitted bytes)
+        "git_commit": _git_commit(),
+        "config_hash": config_hash,
+        "panel_fingerprint": panel_fingerprint,
+        "n_rows": int(n_rows),
+        "chunk_rows": int(chunk_rows),
+        "process_index": 0,
+        "merged_from_shards": len(spans),
+        "extra": dict(extra or {}),
+        "resumes": [],
+        "chunks": chunks,
+        "shards": shards,
+    }
+    if rebalance is not None:
+        manifest["rebalance"] = {
+            **rebalance,
+            "reassigned_chunks": sum(s["chunks_reassigned_in"]
+                                     for s in shards),
+        }
+    if telemetry is not None:
+        manifest["telemetry"] = telemetry
+    _atomic_write_bytes(
+        os.path.join(root, MANIFEST),
+        (json.dumps(manifest, indent=1, sort_keys=True) + "\n").encode())
+    obs.event("journal.merged", shards=len(spans),
+              chunks=len(chunks))
+    return {
+        "dir": root,
+        "manifest": MANIFEST,
+        "run_id": manifest["run_id"],
+        "config_hash": config_hash,
+        "process_index": 0,
+        "merged_shards": len(spans),
+        "chunks_committed": sum(s["chunks_committed"] for s in shards),
+        "chunks_timeout": sum(s["chunks_timeout"] for s in shards),
+        "shards": shards,
+        **({"rebalance": manifest["rebalance"]}
+           if rebalance is not None else {}),
+    }
 
 
 

@@ -20,14 +20,20 @@ message carries an out-of-memory marker (the simulated
 failure halves the lane's chunk size (bounded backoff); any other error
 propagates unchanged.
 
-The multi-lane half of the reference module — ``RestagedPanel``,
-``WorkQueue`` and ``LaneSupervisor``, the sharded and elastic walks — is
-not ported yet.  ``LaneRunner`` keeps the span-stealing surface
-(``try_steal``, ``close_steals``, ``progress``) those walks drive.
+A sharded plan runs one :class:`LaneRunner` per series-axis device of a
+mesh; a single-process sharded walk is ELASTIC: a :class:`LaneSupervisor`
+drives the lanes over a shared :class:`WorkQueue`, quarantines a lane
+whose walk keeps failing and re-stages its span on a survivor
+(:class:`RestagedPanel`), and lets idle lanes steal the tail of a
+straggler's span.  Every lane is a thread on its mesh cell's device,
+inside a CUDA stream of its own (a mesh may list one card several times:
+then several lanes share it, each on its own stream).
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 import threading
 import time
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
@@ -47,7 +53,10 @@ __all__ = [
     "ExecutionPlan",
     "LaneRunner",
     "LaneSpec",
+    "LaneSupervisor",
     "OOMBackoffExceeded",
+    "RestagedPanel",
+    "WorkQueue",
     "is_resource_exhausted",
     "shard_spans",
 ]
@@ -257,6 +266,81 @@ class _LaneView:
         return self.arr[s.start - self.base:s.stop - self.base]
 
 
+class RestagedPanel:
+    """Device-staging view over the driver's resident panel, for a lane
+    walking a REASSIGNED span (a quarantine hand-off or a straggler
+    steal): the lane's device never held those rows, so each chunk's slice
+    is copied to it on demand — ``panel[lo:hi].to(device)`` on the lane's
+    stream, the same bytes the original lane's slice held, at O(chunk)
+    device footprint (the ``SourceLane`` pattern, for resident panels).
+    When the lane's device is the panel's own, the slice is a row view.
+
+    Local coordinates: row 0 is global row ``base`` (the reassigned span's
+    lo), matching the lane-values convention ``LaneRunner`` slices with.
+    """
+
+    __slots__ = ("arr", "device", "base")
+
+    def __init__(self, arr, device=None, base: int = 0):
+        self.arr = arr
+        self.device = device
+        self.base = int(base)
+
+    def __getitem__(self, s: slice):
+        vals = self.arr[s.start + self.base:s.stop + self.base]
+        if isinstance(vals, torch.Tensor):
+            return vals if self.device is None else vals.to(self.device)
+        from ..models.base import to_device  # it imports this package
+
+        return to_device(vals, "cpu" if self.device is None
+                         else self.device)
+
+
+@contextlib.contextmanager
+def _lane_stream(device, parents: dict):
+    """Run the body as one lane thread: on a CUDA ``device``, inside a
+    stream of its own that first waits for the caller's stream on that
+    device (``parents``: device -> the caller's current stream, captured
+    on the caller's thread), tagged for the watchdog and the committer
+    (``watchdog._on_stream``).  The stream is synchronized before the
+    thread ends, so the caller reads every lane result after its kernels.
+    Off the card the body runs as it is."""
+    dev = _cuda_device(device)
+    if dev is None:
+        yield None
+        return
+    stream = torch.cuda.Stream(dev)
+    parent = parents.get(dev)
+    if parent is not None:
+        stream.wait_stream(parent)
+    try:
+        with torch.cuda.device(dev), watchdog_mod._on_stream(stream):
+            yield stream
+    finally:
+        stream.synchronize()
+
+
+def _cuda_device(device):
+    """``device`` as an indexed CUDA device, or None off the card."""
+    dev = None if device is None else torch.device(device)
+    if dev is None or dev.type != "cuda":
+        return None
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _parent_streams(devices) -> dict:
+    """The calling thread's current stream on every CUDA device of
+    ``devices`` (what each lane stream must wait for)."""
+    out = {}
+    for d in devices:
+        dev = _cuda_device(d)
+        if dev is not None:
+            out.setdefault(dev, torch.cuda.current_stream(dev))
+    return out
+
+
 class LaneResult(NamedTuple):
     """Everything one lane hands back to the driver for merging."""
 
@@ -277,7 +361,7 @@ class LaneRunner:
 
     The walk of the reference's ``LaneRunner``, in behavior: the same
     chunk boundaries, journal protocol and backoff/timeout/rollback
-    semantics.  A sharded plan (not ported yet) runs several of these
+    semantics.  A sharded plan runs several of these
     concurrently, each against its own journal namespace and its own
     committer/prefetcher pair; the shared pieces of state are the job
     :class:`~.watchdog.Deadline` (wall clock is global) and the obs
@@ -334,8 +418,10 @@ class LaneRunner:
         # host-resident ChunkSource — every chunk, including a whole-span
         # one, must be STAGED (there is no resident device tensor to hand
         # through), and the staged buffer is donated back to the allocator
-        # the moment the chunk's fit drops it
-        self._from_source = isinstance(values, source_mod.SourceLane)
+        # the moment the chunk's fit drops it.  RestagedPanel is the
+        # resident-panel twin for reassigned spans: same rule
+        self._from_source = isinstance(
+            values, (source_mod.SourceLane, RestagedPanel))
         # elastic-steal state: the span's END is mutable — an
         # idle lane may steal the grid-aligned tail of the remaining span
         # (try_steal, called from ANOTHER thread) — so every read of the
@@ -869,3 +955,421 @@ class LaneRunner:
             lo = hi
 
 
+# ---------------------------------------------------------------------------
+# elastic lane scheduling: work queue, supervision, rebalance
+# ---------------------------------------------------------------------------
+
+
+class WorkQueue:
+    """Lock-protected queue of chunk-grid spans the elastic lanes pull.
+
+    Seeded with the static shard partition, each span PREFERRED by its
+    nominal lane — so a healthy walk pulls exactly the spans the static
+    layout would have assigned and stays namespace- and byte-identical to
+    it.  A quarantined lane's span re-enters unpreferred and is picked up
+    by whichever survivor goes idle first.  ``cond`` is the one condition
+    variable the whole supervisor synchronizes on (push, pull, lane
+    completion, fatal errors): lanes never take it while holding a
+    runner/journal lock, so the lock order cond → runner → journal is
+    acyclic.
+    """
+
+    # lock-discipline contract (tools/lint lock-map): every lane thread
+    # pushes/pulls spans; the ``*_locked`` helpers are called with the
+    # condition held (the codebase convention the linter honors).
+    _protected_by_ = {"_spans": "cond"}
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self._spans: list = []  # (lo, hi, preferred_sid-or-None)
+
+    def push(self, lo: int, hi: int, preferred: Optional[int] = None) -> None:
+        with self.cond:
+            self._push_locked(lo, hi, preferred)
+            self.cond.notify_all()
+
+    def _push_locked(self, lo: int, hi: int,
+                     preferred: Optional[int] = None) -> None:
+        self._spans.append((int(lo), int(hi), preferred))
+        self._spans.sort(key=lambda s: s[0])
+
+    def _pull_locked(self, sid: int) -> Optional[Tuple[int, int]]:
+        """Lowest-lo span preferred by ``sid``, else lowest-lo UNPREFERRED
+        span.  A span preferred by ANOTHER lane is never poached: its lane
+        is alive and will pull it (at thread-startup a fast lane could
+        otherwise grab a peer's span before that peer's thread is even
+        scheduled — work the peer's device should do, and the surface
+        lane-targeted fault injection and per-lane accounting key on);
+        quarantine strips the dead lane's preference first
+        (:meth:`release_preference`), so nothing is ever stranded."""
+        pick = None
+        for i, (_lo, _hi, pref) in enumerate(self._spans):
+            if pref == sid:
+                pick = i
+                break
+            if pref is None and pick is None:
+                pick = i
+        if pick is None:
+            return None
+        lo, hi, _ = self._spans.pop(pick)
+        return lo, hi
+
+    def _release_preference_locked(self, sid: int) -> None:
+        self._spans = [(lo, hi, None if pref == sid else pref)
+                       for lo, hi, pref in self._spans]
+
+    def pending(self) -> list:
+        with self.cond:
+            return [(lo, hi) for lo, hi, _ in self._spans]
+
+
+class LaneSupervisor:
+    """Elastic scheduler for a multi-lane sharded walk.
+
+    One supervisor thread per lane device, each looping pull → walk →
+    pull over the shared :class:`WorkQueue`.  Failure containment per the
+    module docstring: an ``Exception`` escaping a lane's walk (fit bug,
+    exhausted OOM ladder, dead device) is retried up to
+    ``plan.lane_retries`` times with exponential backoff, then the lane is
+    QUARANTINED — its span re-enqueued for survivors, who re-stage the
+    rows to their own devices (``restage``) and adopt whatever chunks the
+    dead lane already committed (the per-lane journal handle is a
+    cross-namespace :class:`~.journal.ShardJournalView`).  A
+    ``BaseException`` (KeyboardInterrupt, the fault harness's
+    ``SimulatedCrash`` standing in for SIGKILL) is FATAL: no quarantine,
+    no reassignment — it re-raises from :meth:`run` exactly as the static
+    layout would, so crash-resume semantics are unchanged.  Idle lanes
+    STEAL from stragglers via ``LaneRunner.try_steal`` once the victim's
+    projected remaining wall exceeds ``plan.rebalance_threshold`` mean
+    chunk walls.  If every lane is quarantined with work remaining, the
+    FIRST lane's original error re-raises — a job that loses all lanes
+    still fails loudly.
+    """
+
+    # lock-discipline contract (tools/lint lock-map): supervisor state
+    # is mutated from every lane thread; the ONE condition variable the
+    # whole supervisor synchronizes on (queue.cond) guards it all —
+    # keeping the lock order cond -> runner -> journal acyclic.
+    _protected_by_ = {
+        "results": "queue.cond",
+        "_active": "queue.cond",
+        "_busy": "queue.cond",
+        "_fatal": "queue.cond",
+        "_quarantined": "queue.cond",
+        "_errors": "queue.cond",
+        "_steals": "queue.cond",
+        "_retries": "queue.cond",
+        "_global_walls": "queue.cond",
+        "_lane_mean_wall": "queue.cond",
+    }
+
+    def __init__(self, plan: ExecutionPlan, fit_fn: Callable,
+                 fit_kwargs: dict, lanes: Sequence[tuple], *,
+                 journals: Optional[Sequence] = None, deadline=None,
+                 tele: bool = False, fit_key=None,
+                 restage: Optional[Callable] = None):
+        # built on the caller's thread: each lane stream waits for the
+        # caller's stream on its device (the panel was written there)
+        self._parents = _parent_streams(spec.device for spec, _v in lanes)
+        self.plan = plan
+        self.fit_fn = fit_fn
+        self.fit_kwargs = fit_kwargs
+        self.lanes = list(lanes)  # [(LaneSpec, values), ...]
+        self.journals = list(journals) if journals is not None else None
+        self.deadline = deadline or watchdog_mod.Deadline(plan.job_budget_s)
+        self.tele = tele
+        self.fit_key = fit_key
+        self.restage = restage
+
+        self.queue = WorkQueue()
+        self.results: list = []
+        self._active: dict = {}  # sid -> live LaneRunner (steal victims)
+        self._busy: set = set()  # sids mid-span (walking or retry backoff)
+        self._journal_by_sid = {}
+        if self.journals is not None:
+            for (spec, _v), j in zip(self.lanes, self.journals):
+                self._journal_by_sid[spec.shard_id] = j
+        self._lane_mean_wall: dict = {}  # sid -> mean computed-chunk wall
+        self._global_walls: list = []  # (n_chunks, wall_s) per finished span
+        self._quarantined: list = []
+        self._errors: list = []
+        self._fatal: Optional[BaseException] = None
+        self._steals = 0
+        self._retries = 0
+
+    # -- scheduling ---------------------------------------------------------
+
+    def _state(self, sid: int, state: str) -> None:
+        obs.gauge(f"lane.state.{sid}").set(state)
+
+    def _mean_chunk_wall(self, sid: int) -> Optional[float]:
+        ref = self._lane_mean_wall.get(sid)
+        if ref:
+            return ref
+        n = sum(c for c, _w in self._global_walls)
+        w = sum(w for _c, w in self._global_walls)
+        return (w / n) if n else None
+
+    def _pick_victim_locked(self, thief_sid: int):
+        """The active lane worth stealing from, or None.  Called under the
+        queue cond; reads each runner's live progress (runner lock)."""
+        ref = self._mean_chunk_wall(thief_sid)
+        if ref is None:
+            return None  # no completed chunk anywhere yet: too early
+        best, best_proj = None, 0.0
+        for vsid, runner in self._active.items():
+            if vsid == thief_sid:
+                continue
+            p = runner.progress()
+            if p["rows_remaining"] <= 0:
+                continue
+            if p["rows_done"] > 0:
+                proj = p["rows_remaining"] * p["elapsed_s"] / p["rows_done"]
+            elif p["elapsed_s"] > 2.0 * ref:
+                proj = math.inf  # no chunk done yet and already overdue
+            else:
+                continue
+            if proj > best_proj:
+                best, best_proj = runner, proj
+        if best is None:
+            return None
+        if best_proj <= self.plan.rebalance_threshold * ref:
+            return None
+        return best
+
+    def _next_work(self, sid: int):
+        """Block until there is a span for this lane: from the queue, or
+        stolen from a straggler.  None = no work will ever come (all spans
+        done, or a fatal error is propagating)."""
+        cond = self.queue.cond
+        while True:
+            with cond:
+                if self._fatal is not None:
+                    return None
+                span = self.queue._pull_locked(sid)
+                if span is not None:
+                    self._busy.add(sid)
+                    return span
+                if not self._busy and not self.queue._spans:
+                    cond.notify_all()  # release peers blocked in wait()
+                    return None
+                victim = self._pick_victim_locked(sid)
+            if victim is not None:
+                stolen = victim.try_steal()
+                if stolen is not None:
+                    with cond:
+                        self._busy.add(sid)
+                        self._steals += 1
+                    obs.counter("lane.steal").inc()
+                    obs.counter("lane.rebalance").inc()
+                    obs.event("lane.steal", shard=sid,
+                              victim=victim.spec.shard_id,
+                              lo=stolen[0], hi=stolen[1])
+                    return stolen
+            with cond:
+                # spans preferred by not-yet-started peers also park us
+                # here: their own lanes will pull them (or a quarantine
+                # will release them to everyone)
+                if self._fatal is None and (self._busy
+                                            or self.queue._spans):
+                    cond.wait(timeout=0.05)
+
+    def _values_for(self, spec0: LaneSpec, values0, lo: int, hi: int):
+        """The values a lane walks for span ``[lo, hi)``: its own resident
+        array when that IS its nominal span, else a re-staged O(chunk)
+        view onto the driver's panel/source."""
+        if (lo, hi) == (spec0.lo, spec0.hi):
+            return values0
+        if self.restage is None:
+            raise RuntimeError(
+                "elastic reassignment needs a restage callback")
+        return self.restage(lo, hi, spec0.device)
+
+    def _quarantine(self, sid: int, e: Exception, attempts: int,
+                    lo: int, hi: int) -> None:
+        cause = f"{type(e).__name__}: {e}"[:200]
+        rec = {"shard_id": int(sid), "cause": cause,
+               "retries": int(attempts - 1), "span": [int(lo), int(hi)]}
+        with self.queue.cond:
+            self._quarantined.append(rec)
+            self._errors.append(e)
+            self._busy.discard(sid)
+            self._push_remainder_locked(sid, lo, hi)
+            # any span still reserved for this lane is up for grabs now
+            self.queue._release_preference_locked(sid)
+            self.queue.cond.notify_all()
+        obs.counter("lane.quarantine").inc()
+        obs.counter("lane.rebalance").inc()
+        obs.event("lane.quarantine", shard=sid, cause=cause,
+                  retries=attempts - 1, lo=lo, hi=hi)
+        self._state(sid, "quarantined")
+
+    def _push_remainder_locked(self, sid: int, lo: int, hi: int) -> None:
+        self.queue._push_locked(lo, hi, preferred=None)
+
+    # -- the lane loop ------------------------------------------------------
+
+    def _drive(self, idx: int) -> None:
+        plan = self.plan
+        spec0, values0 = self.lanes[idx]
+        sid = spec0.shard_id
+        cond = self.queue.cond
+        jour = self._journal_by_sid.get(sid)
+        self._state(sid, "active")
+        while True:
+            work = self._next_work(sid)
+            if work is None:
+                self._state(sid,
+                            "done" if self._fatal is None else "stopped")
+                return
+            lo, hi = work
+            try:
+                vals = self._values_for(spec0, values0, lo, hi)
+            except Exception as e:  # noqa: BLE001 - a restage failure is a
+                # lane failure (the device may be gone): quarantine, do not
+                # kill the job
+                self._quarantine(sid, e, 1, lo, hi)
+                return
+            failures = 0
+            span_hi = hi
+            while True:  # attempt loop over this span
+                spec = LaneSpec(sid, lo, span_hi, spec0.device)
+                if span_hi != hi and not isinstance(
+                        vals, (source_mod.SourceLane, RestagedPanel)):
+                    # a steal landed during a failed attempt: shrink the
+                    # resident values to the kept span so the whole-span
+                    # hand-through can never pass extra rows to the fit
+                    vals = vals[:span_hi - lo]
+                    hi = span_hi
+                runner = LaneRunner(plan, spec, self.fit_fn,
+                                    self.fit_kwargs, vals, journal=jour,
+                                    deadline=self.deadline, tele=self.tele,
+                                    fit_key=self.fit_key)
+                with cond:
+                    self._active[sid] = runner
+                self._state(sid, "active")
+                t0 = time.perf_counter()
+                try:
+                    result = runner.run()
+                except Exception as e:  # noqa: BLE001 - lane containment
+                    with cond:
+                        self._active.pop(sid, None)
+                    # close the failed span to steals BEFORE reading its
+                    # end: a thief holding this runner could otherwise
+                    # still shrink it after we decide what to retry/
+                    # re-enqueue, and the stolen tail would be walked by
+                    # both sides (duplicate rows in assembly)
+                    span_hi = runner.close_steals()
+                    failures += 1
+                    if failures <= plan.lane_retries:
+                        # concurrent peers retry too: the counter is
+                        # cond-guarded like the rest of the supervisor
+                        # state (a bare += here dropped increments)
+                        with cond:
+                            self._retries += 1
+                        self._state(sid, "retrying")
+                        obs.counter("lane.retry").inc()
+                        obs.event("lane.retry", shard=sid, attempt=failures,
+                                  lo=lo, hi=span_hi,
+                                  error=f"{type(e).__name__}: {e}"[:160])
+                        time.sleep(plan.lane_retry_backoff_s
+                                   * (2 ** (failures - 1)))
+                        continue
+                    self._quarantine(sid, e, failures, lo, span_hi)
+                    return
+                except BaseException as e:  # crash/interrupt: fatal, no
+                    # containment — resume semantics must match the static
+                    # layout (the journal, not a survivor, is the recovery)
+                    with cond:
+                        self._active.pop(sid, None)
+                        self._busy.discard(sid)
+                        if self._fatal is None:
+                            self._fatal = e
+                        cond.notify_all()
+                    raise
+                break
+            span_wall = time.perf_counter() - t0
+            n_comp = 0
+            for _plo, _phi, p in result.pieces:
+                if isinstance(p, _TimeoutChunk):
+                    continue
+                pm = getattr(p, "meta", None)
+                if isinstance(pm, dict) and pm.get("resumed_from_journal"):
+                    continue
+                n_comp += 1
+            with cond:
+                self._active.pop(sid, None)
+                self._busy.discard(sid)
+                self.results.append(result)
+                if n_comp:
+                    self._global_walls.append((n_comp, span_wall))
+                    prev = self._lane_mean_wall.get(sid)
+                    mean = span_wall / n_comp
+                    self._lane_mean_wall[sid] = (
+                        mean if prev is None else 0.5 * (prev + mean))
+                cond.notify_all()
+            self._state(sid, "idle")
+
+    # -- entry point --------------------------------------------------------
+
+    def run(self) -> Tuple[list, dict]:
+        """Run the elastic walk; returns ``(results, elastic_meta)``.
+
+        Raises the fatal error (crash/interrupt) unchanged, or — when
+        every lane was quarantined with spans still unprocessed — the
+        FIRST quarantined lane's original error.
+        """
+        for spec, _vals in self.lanes:
+            self.queue.push(spec.lo, spec.hi, preferred=spec.shard_id)
+        threads = [
+            threading.Thread(target=self._drive_safe, args=(i,), daemon=True,
+                             name=f"chunk-lane-{spec.shard_id}")
+            for i, (spec, _v) in enumerate(self.lanes)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if self._fatal is not None:
+            raise self._fatal
+        undone = self.queue.pending()
+        if undone:
+            # every lane is gone and work remains: the job is lost — fail
+            # with the FIRST lane's original error (invariant 3 of the
+            # tentpole), the quarantine record riding its __notes__-free
+            # message via the exception chain below
+            first = self._errors[0] if self._errors else RuntimeError(
+                f"elastic walk stalled with spans pending: {undone}")
+            raise first
+        with self.queue.cond:
+            # every lane joined, but the declared discipline (results is
+            # cond-guarded) holds uniformly — uncontended here
+            self.results.sort(key=lambda r: r.spec.lo)
+        return self.results, self.elastic_meta()
+
+    def _drive_safe(self, idx: int) -> None:
+        spec0 = self.lanes[idx][0]
+        sid = spec0.shard_id
+        try:
+            with _lane_stream(spec0.device, self._parents):
+                self._drive(idx)
+        except BaseException as e:  # noqa: BLE001 - re-raised after join
+            # ANY error escaping the lane loop — including supervisor-level
+            # failures outside the runner.run() handlers (LaneRunner
+            # construction, the retry-path values slice) — is recorded as
+            # fatal and the lane's busy state released, so peers stop
+            # polling and the job FAILS LOUDLY instead of hanging with a
+            # silently dead lane still marked busy
+            with self.queue.cond:
+                self._active.pop(sid, None)
+                self._busy.discard(sid)
+                if self._fatal is None:
+                    self._fatal = e
+                self.queue.cond.notify_all()
+
+    def elastic_meta(self) -> dict:
+        return {
+            "quarantined": list(self._quarantined),
+            "steals": int(self._steals),
+            "lane_retries_used": int(self._retries),
+            "reassigned_spans": len(self._quarantined) + int(self._steals),
+        }

@@ -1,0 +1,1480 @@
+"""The resident fit server: a long-lived serving loop over the chunk driver
+(port of ``serving/server.py``).
+
+Every other caller surface is one-shot — build a plan, walk it, exit — but
+a production service holds state BETWEEN requests.  :class:`FitServer` is
+that state:
+
+- **admission** (:mod:`.admission`): caller threads ``submit()`` tenant
+  panels; a bounded queue + per-tenant quotas keep memory finite, and
+  overload sheds lowest-priority work with explicit
+  :class:`~.session.RejectedError` (retry-after backpressure) — never an
+  OOM, never an unbounded queue.
+- **micro-batching** (:mod:`.batcher`): compatible requests coalesce into
+  ONE chunked walk (tenants packed on the row axis the way the order
+  search packs candidate orders), demuxed per tenant afterwards —
+  bitwise-identical to fitting each tenant alone.
+- **deadlines**: a request's ``deadline_s`` bounds its wall clock —
+  expired-in-queue requests answer all-TIMEOUT rows immediately, and a
+  dispatched batch runs under ``job_budget_s`` = the earliest member
+  deadline, riding the chunk driver's watchdog (TIMEOUT rows, never a
+  hang).
+- **graceful degradation**: a batch walk that raises quarantines only
+  that batch — its members re-run SOLO so one poisoned tenant panel
+  cannot take down its co-batched neighbors (the serving rung of the
+  quarantine ladder; sharded walks additionally quarantine failing LANES
+  inside the walk) — and the server keeps serving.
+- **crash recovery**: requests are durable at admission (write-ahead npz
+  under ``<root>/requests/``), batch membership is durable before each
+  walk (``<root>/batches/<id>/members.json``), and every batch walk
+  journals under its batch directory.  A SIGKILLed server restarted on
+  the same root re-forms the in-flight batches from their membership
+  records, RESUMES their journals (replaying only uncommitted chunks —
+  results bitwise-identical to an uninterrupted run), re-answers
+  completed requests from ``<root>/results/``, and re-enqueues the rest.
+- **warmth**: ONE process-level staging-pool family
+  (``reliability.source.StagingPool``, pinned host buffers on a card) is
+  shared across every request's walk, and the kernel-library cache
+  accounting (``utils.compile_cache.program_cache_stats``) spans requests;
+  both hit rates are exposed.
+- **observability**: health/readiness state (``health()``), obs-plane
+  gauges/counters, and a streaming Prometheus-textfile sink
+  (``obs.promsink``) rewritten after every batch so the server is
+  scrapeable MID-run.
+- **device**: ``FitServer(..., device="cuda")`` fits every request on
+  ``device``, as every entry point of the package does: a request's rows
+  are host numpy in its write-ahead record, staged onto the device through
+  the pinned pool by the batch walk, and the fits launch the CUDA kernels
+  there.  Results come back as host arrays.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+import uuid
+from typing import Callable, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from .. import obs
+from ..reliability import fit_chunked
+from ..reliability import source as source_mod
+from ..reliability import watchdog as watchdog_mod
+from ..reliability.faultinject import SimulatedCrash
+from ..reliability.status import FitStatus
+from ..utils import compile_cache
+from . import _advise, batcher
+from .admission import AdmissionQueue, TenantQuota
+from ..reliability.journal import consult_disk_fault, tear_after_replace
+from ..reliability.runner import _accepted_kwargs, _host
+from .session import (FitRequest, FitTicket, RejectedError,
+                      ServerClosedError, StorageError, TenantFitResult)
+
+__all__ = ["AUTO_MODEL", "FORECAST_MODEL", "FitServer"]
+
+# registry name of the chunked forecast walk's fit function — forecast
+# requests reference it BY NAME so they survive restarts like model fits
+FORECAST_MODEL = "panel_forecast"
+
+# registry name of the auto order-search workload: requests
+# run models.auto.auto_fit per tenant instead of a micro-batched single-
+# order walk, warm-routed through the tenant's durable profile — see
+# _run_auto_request
+AUTO_MODEL = "panel_auto"
+
+# fit_kwargs of an AUTO request that only steer the fit itself (ride to
+# auto_fit / the warm refit); everything routes through config_key so a
+# changed knob re-searches instead of trusting a stale profile
+_AUTO_FIT_KNOBS = ("max_iters", "tol", "backend", "method")
+
+
+def _align_mode_host(values: np.ndarray) -> str:
+    """The panel's static align mode, probed host-side at admission (the
+    same vocabulary as ``models.base.align_mode_on_host``).  Part of the
+    batch key: same-mode panels concatenate to the same mode, so a
+    micro-batched walk runs the exact program each solo walk would."""
+    nan_last = bool(np.isnan(values[:, -1]).any())
+    if nan_last:
+        return "general"
+    return "no-trailing" if bool(np.isnan(values).any()) else "dense"
+
+
+def _profile_winner_specs(prof: dict) -> list:
+    """Distinct winning ``(p, d, q)`` tuples recorded in a tenant profile
+    (sorted — the drifted route's stepwise seed neighborhood)."""
+    orders = np.asarray(prof["orders"], np.int64).reshape(-1, 3)
+    idx = np.asarray(prof["order_index"], np.int64)
+    seen = {tuple(int(v) for v in orders[g]) for g in idx if g >= 0}
+    return sorted(seen)
+
+
+def _auto_result(req: FitRequest, route: str, *, stability, orders,
+                 order_index, criterion, params, nll, converged, iters,
+                 status, criterion_name, include_intercept,
+                 selection_counts, stepwise) -> TenantFitResult:
+    """Assemble the AUTO_MODEL :class:`TenantFitResult` — one meta shape
+    for all three route legs, so clients and the failover smoke compare
+    results without caring which leg produced them."""
+    from ..reliability.status import status_counts
+
+    status = np.asarray(status, np.int8)
+    meta = {
+        "model": AUTO_MODEL,
+        "req_id": req.req_id,
+        "tenant": req.tenant,
+        "status_counts": status_counts(status),
+        "auto": {
+            "route": str(route),
+            "stability": int(stability),
+            "orders": [[int(v) for v in o]
+                       for o in np.asarray(orders).reshape(-1, 3)],
+            "order_index": [int(v) for v in np.asarray(order_index)],
+            "criterion": [float(v) for v in np.asarray(criterion, float)],
+            "criterion_name": str(criterion_name),
+            "include_intercept": bool(include_intercept),
+            "selection_counts": dict(selection_counts),
+        },
+    }
+    if stepwise is not None:
+        meta["auto"]["stepwise"] = stepwise
+    return TenantFitResult(
+        params=np.asarray(params),
+        neg_log_likelihood=np.asarray(nll),
+        converged=np.asarray(converged, bool),
+        iters=np.asarray(iters, np.int32),
+        status=status,
+        meta=meta)
+
+
+class FitServer:
+    """A long-lived in-process fit daemon (see module docstring).
+
+    .. attribute:: _protected_by_
+
+        Lock-discipline contract (the lint lock map): caller threads
+        submit/cancel while the serve loop batches, delivers, and
+        recovers — the five shared maps/counters below mutate only
+        under their declared locks.  Serve-loop-private state
+        (``_batch_seq``, ``_prom_last``, ``_degraded_until``,
+        ``_crash_error``) and caller-set flags (``_drain``) have a
+        single writing role and stay undeclared.
+
+    ``root`` is the server-owned checkpoint root — requests, batch
+    journals, and results live under it, and a restarted server on the
+    same root recovers everything in flight.  ``models`` extends the
+    built-in model registry (name -> fit callable); requests reference
+    models BY NAME so they stay durable/re-resolvable across restarts.
+
+    Thread model: ``submit()`` is safe from any thread; ONE serve-loop
+    thread forms and walks batches (the walk itself pipelines
+    stage/compute/commit internally, and ``shard=True`` or ``mesh=`` in
+    ``walk_kwargs`` adds elastic mesh lanes).
+
+    ``device`` (default ``"cuda"``) is where every request is fitted; the
+    server's fit kwargs carry it to the walk, so a restart on the same
+    root must use the same device to resume its batch journals.
+    """
+
+    _protected_by_ = {
+        "counters": "_counters_lock",
+        "_live": "_live_lock",
+        "_seq": "_seq_lock",
+        "_pools": "_pools_lock",
+        "_state": "_state_lock",
+    }
+
+    def __init__(self, root: str, *,
+                 models: Optional[Dict[str, Callable]] = None,
+                 batch_window_s: float = 0.01,
+                 max_batch_rows: int = 4096,
+                 max_queue_rows: int = 65_536,
+                 max_queue_requests: int = 1024,
+                 max_inflight_per_tenant: Optional[int] = None,
+                 max_rows_per_tenant: Optional[int] = None,
+                 max_rows_per_request: Optional[int] = None,
+                 cell_rows: int = 256,
+                 pipeline_depth: int = 2,
+                 prefetch_depth: int = 1,
+                 chunk_budget_s: Optional[float] = None,
+                 default_deadline_s: Optional[float] = None,
+                 resilient: bool = False,
+                 policy: str = "impute",
+                 warm_routing: bool = True,
+                 autotune: bool = True,
+                 prom_path: Optional[str] = None,
+                 prom_interval_s: float = 2.0,
+                 degraded_window_s: float = 5.0,
+                 walk_kwargs: Optional[dict] = None,
+                 compile_cache_dir: Optional[str] = None,
+                 _commit_hook: Optional[Callable] = None,
+                 device="cuda"):
+        self.device = torch.device(device)
+        self.root = os.path.abspath(root)
+        self._requests_dir = os.path.join(self.root, "requests")
+        self._results_dir = os.path.join(self.root, "results")
+        self._batches_dir = os.path.join(self.root, "batches")
+        # per-request auto-search journals: <root>/auto/<req_id>/ — a
+        # deterministic dir, so a recovered AUTO request resumes its
+        # own stepwise/grid journals mid-walk
+        self._auto_dir = os.path.join(self.root, "auto")
+        for d in (self._requests_dir, self._results_dir, self._batches_dir):
+            os.makedirs(d, exist_ok=True)
+        from .profiles import TenantProfileStore
+
+        # tenant profiles on the (possibly fleet-shared) root; the fleet's
+        # fenced server subclass points .fence at its lease check
+        self.profiles = TenantProfileStore(
+            os.path.join(self.root, "profiles"))
+        self._models = dict(models or {})
+        self.batch_window_s = float(batch_window_s)
+        self.max_batch_rows = int(max_batch_rows)
+        self.chunk_budget_s = chunk_budget_s
+        self.default_deadline_s = default_deadline_s
+        self.resilient = bool(resilient)
+        self.policy = str(policy)
+        self.warm_routing = bool(warm_routing)
+        self.autotune = bool(autotune)
+        self.degraded_window_s = float(degraded_window_s)
+        self.walk_kwargs = dict(walk_kwargs or {})
+        self._commit_hook = _commit_hook
+        self.queue = AdmissionQueue(max_queue_rows=max_queue_rows,
+                                    max_queue_requests=max_queue_requests)
+        self.quota = TenantQuota(
+            max_inflight_per_tenant=max_inflight_per_tenant,
+            max_rows_per_tenant=max_rows_per_tenant,
+            max_rows_per_request=max_rows_per_request)
+        # adaptive walk knobs: seeded from config, then advise_budget's
+        # inference updates them ONLINE after each journaled batch; a
+        # restart reloads the last adaptation so warmup is not re-paid.
+        # cell_rows is both the batcher's padding quantum and the batch
+        # walk's chunk size — one request per chunk cell is what keeps
+        # micro-batched results bitwise-identical to solo fits.
+        self._knobs = {"cell_rows": max(1, min(int(cell_rows),
+                                               self.max_batch_rows)),
+                       "pipeline_depth": int(pipeline_depth),
+                       "prefetch_depth": int(prefetch_depth)}
+        self._knobs_path = os.path.join(self.root, "knobs.json")
+        if self.autotune and os.path.exists(self._knobs_path):
+            try:
+                with open(self._knobs_path) as f:
+                    saved = json.load(f)
+                self._knobs.update({k: saved[k] for k in self._knobs
+                                    if saved.get(k) is not None})
+            except (OSError, json.JSONDecodeError, KeyError):
+                pass
+        # the budget advisor's inference, the package's own copy
+        self._advise = _advise.advise if self.autotune else None
+        # ONE process-level staging-pool family shared across requests
+        # (keyed by panel geometry — a pool's buffers are [*, T] dtype)
+        self._pools: Dict[tuple, source_mod.StagingPool] = {}
+        self._pools_lock = threading.Lock()
+        if compile_cache_dir:
+            compile_cache.enable_compile_cache(compile_cache_dir)
+        # prom sink (obs.promsink): rewritten after every batch + idle tick
+        self._prom = None
+        self._prom_interval_s = float(prom_interval_s)
+        self._prom_last = 0.0
+        if prom_path:
+            self._prom = obs.PromTextfileSink(prom_path)
+        self._state = "starting"
+        self._state_lock = threading.Lock()
+        self._degraded_until = 0.0
+        self._ready = threading.Event()
+        self._stop = threading.Event()
+        self._drain = True
+        self._thread: Optional[threading.Thread] = None
+        self._crash_error: Optional[BaseException] = None
+        self._seq_lock = threading.Lock()
+        self._seq = self._next_seq_floor()
+        self._batch_seq = 0
+        self._live: Dict[str, FitRequest] = {}  # req_id -> admitted request
+        self._live_lock = threading.Lock()
+        self.counters = {
+            "admitted": 0, "completed": 0, "rejected": 0, "shed": 0,
+            "cancelled": 0, "timeout_requests": 0, "deadline_expired": 0,
+            "batches_run": 0, "batch_failures": 0, "solo_retries": 0,
+            "rows_fitted": 0, "recovered_requests": 0,
+            "recovered_batches": 0, "autotune_updates": 0,
+            "storage_errors": 0, "torn_results": 0,
+            "auto_requests": 0, "route_stable": 0, "route_drifted": 0,
+            "route_new": 0, "route_cold": 0, "profile_updates": 0,
+        }
+        self._counters_lock = threading.Lock()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self, wait_ready: bool = True,
+              timeout_s: float = 300.0) -> "FitServer":
+        """Start the serve loop (recovery first, then steady state).
+        ``wait_ready=True`` blocks until recovery finished and the server
+        reports ready."""
+        if self._thread is not None:
+            raise RuntimeError("FitServer.start() called twice")
+        self._thread = threading.Thread(target=self._serve, daemon=True,
+                                        name="fit-server")
+        self._thread.start()
+        if wait_ready and not self._ready.wait(timeout=timeout_s):
+            raise TimeoutError("FitServer recovery did not finish in "
+                               f"{timeout_s}s")
+        if self._crash_error is not None:
+            raise ServerClosedError(
+                f"server crashed during startup: {self._crash_error!r}")
+        return self
+
+    def stop(self, drain: bool = True, timeout_s: float = 300.0) -> None:
+        """Stop serving.  ``drain=True`` answers everything already
+        queued first; ``drain=False`` abandons the queue (requests stay
+        durable for the next start on this root)."""
+        self._drain = drain
+        self._set_state("draining" if drain else "stopping")
+        self._stop.set()
+        t = self._thread
+        if t is not None and t.is_alive():
+            t.join(timeout=timeout_s)
+        # ALWAYS close the queue, drained or not: a submit() racing the
+        # state check can land an offer after the serve loop exits, and
+        # an enqueued-but-never-served ticket would hang its caller —
+        # reject it explicitly (the durable request record survives for
+        # the next start on this root)
+        for req in self.queue.close():
+            req.ticket._reject(ServerClosedError(
+                "server stopped before serving this request; it is "
+                "durable — restart the server on the same root"))
+        self._set_state("stopped")
+        self._write_server_state()
+        self._write_prom(force=True)
+
+    def __enter__(self) -> "FitServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    # -- admission (caller threads) ------------------------------------------
+
+    def submit(self, tenant: str, values, model: Union[str, Callable] = "arima",
+               *, priority: int = 0, deadline_s: Optional[float] = None,
+               request_id: Optional[str] = None,
+               warm_routing: Optional[bool] = None,
+               **fit_kwargs) -> FitTicket:
+        """Admit one tenant panel fit; returns a :class:`FitTicket`.
+
+        ``values`` is a ``[rows, T]`` array or tensor (copied to the host
+        for the durable request record; the batch walk fits it on the
+        server's device).  ``model`` must be a registry NAME (built-in
+        model module or a name passed via ``models=`` at construction) so
+        the request survives a restart.  ``deadline_s`` bounds the
+        request's wall clock from NOW (default: the server's
+        ``default_deadline_s``); ``priority`` (higher = keep longer under
+        overload) drives shedding.  ``request_id`` makes the submit
+        idempotent: re-submitting a completed id returns its stored
+        result instantly.
+
+        ``model="panel_auto"`` runs a per-tenant order SEARCH
+        (``models.auto.auto_fit``) instead of a micro-batched
+        single-order walk: remaining ``fit_kwargs`` ride to ``auto_fit``
+        (``orders``, ``stepwise``, ``criterion``, ...), and
+        ``warm_routing`` selects the routing mode — ``True`` classifies
+        the panel against the tenant's durable profile (stable submits
+        skip stage 1 entirely), ``False`` is EXACT mode (bitwise the
+        plain exhaustive search, no profile reads), ``None`` (default)
+        uses the server's ``warm_routing`` setting.  The knob rides the
+        durable request record, so recovery re-routes identically.
+
+        Raises :class:`RejectedError` (queue full / quota — carries
+        ``retry_after_s``) or :class:`ServerClosedError`.
+        """
+        if self._state in ("draining", "stopping", "stopped", "crashed"):
+            raise ServerClosedError(f"server is {self._state}")
+        if warm_routing is not None:
+            if model != AUTO_MODEL:
+                raise ValueError(
+                    "warm_routing only applies to model="
+                    f"{AUTO_MODEL!r} submits, got model={model!r}")
+            fit_kwargs["warm_routing"] = bool(warm_routing)
+        if callable(model):
+            name = next((k for k, v in self._models.items() if v is model),
+                        None)
+            if name is None:
+                raise TypeError(
+                    "model callables must be registered by name "
+                    "(FitServer(models={'name': fn})) so requests stay "
+                    "durable across restarts")
+            model = name
+        self._resolve_model(model)  # unknown model fails at the door
+        arr = np.ascontiguousarray(_host(values))
+        if arr.ndim != 2 or arr.shape[0] < 1 or arr.shape[1] < 1:
+            raise ValueError(f"expected a non-empty [rows, T] panel, "
+                             f"got {arr.shape}")
+        if request_id is not None:
+            prior = self._try_stored(request_id)
+            if prior is not None:
+                return prior
+            with self._live_lock:
+                dup = request_id in self._live
+            if dup:
+                self._count_rejected()
+                raise RejectedError(
+                    f"request {request_id!r} is already in flight; poll "
+                    "its ticket or result_for()", retry_after_s=0.5)
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        try:
+            self.quota.try_acquire(tenant, arr.shape[0])
+        except RejectedError:
+            self._count_rejected()
+            raise
+        try:
+            with self._seq_lock:
+                self._seq += 1
+                seq = self._seq
+            req_id = request_id or f"r{seq:08d}-{uuid.uuid4().hex[:8]}"
+            req = FitRequest(
+                req_id, seq, tenant, arr, model, fit_kwargs,
+                priority=priority, deadline_s=deadline_s,
+                align_mode=_align_mode_host(arr),
+                resilient=self.resilient, policy=self.policy)
+            req.ticket._canceller = self._cancel
+            # write-ahead: the request is durable BEFORE the caller holds
+            # a ticket for it — a crash after this line re-answers it.
+            # A disk that refuses the record (EIO/ENOSPC) refuses the
+            # ADMISSION: an un-journaled acceptance would be silently
+            # lost by the next crash, so the typed StorageError (a
+            # RejectedError: the handlers below refund quota and count
+            # it) tells the client to retry on a replica whose disk works
+            try:
+                req.save(self._request_path(req_id))
+            except OSError as e:
+                with self._counters_lock:
+                    self.counters["storage_errors"] += 1
+                obs.counter("server.storage_errors").inc()
+                obs.event("server.storage_refusal", req_id=req_id,
+                          error=repr(e)[:200])
+                raise StorageError(
+                    f"write-ahead record refused: {e}") from e
+            # live BEFORE the queue sees it: the moment offer() returns,
+            # the serve loop (or a shedding offer on another thread) may
+            # complete the request and call _forget — registering after
+            # the fact would leak a stale entry (and its panel) forever
+            with self._live_lock:
+                self._live[req.req_id] = req
+            try:
+                self.queue.offer(req, on_shed=self._on_shed)
+            except RejectedError:
+                with self._live_lock:
+                    self._live.pop(req.req_id, None)
+                self._remove_request_file(req_id)
+                raise
+        except RejectedError:
+            self.quota.release(tenant, arr.shape[0])
+            self._count_rejected()
+            raise
+        with self._counters_lock:
+            self.counters["admitted"] += 1
+        obs.counter("server.admitted").inc()
+        # the server-side hop of the request's causal timeline: a
+        # transport dispatch establishes the trace scope, so a traced
+        # admission is stamped with the fleet-wide trace id (a resubmit
+        # after failover emits this again on the survivor — expected:
+        # the timeline shows BOTH admissions, one terminal)
+        obs.event("server.admit", req_id=req.req_id, tenant=str(tenant),
+                  seq=seq)
+        return req.ticket
+
+    def submit_forecast(self, tenant: str, values, fitted, *,
+                        model: str = "arima",
+                        horizon: int = 1,
+                        model_kwargs: Optional[dict] = None,
+                        status=None,
+                        intervals: bool = False, level: float = 0.9,
+                        n_samples: int = 256,
+                        seed: Optional[int] = None,
+                        priority: int = 0,
+                        deadline_s: Optional[float] = None,
+                        request_id: Optional[str] = None) -> FitTicket:
+        """Admit one tenant panel FORECAST (fit-once / forecast-many: the
+        serving half users actually call).
+
+        ``values`` is the tenant's ``[rows, T]`` history and ``fitted``
+        its per-row params (a fit result, a raw ``[rows, k]`` array, or
+        a journal path — ``forecasting.forecast_chunked`` semantics).
+        The request rides the NORMAL admission/batching/durability
+        machinery as a ``panel_forecast`` walk over the AUGMENTED panel
+        (``forecasting.augment``): compatible forecast requests (same
+        model/horizon/config/width) coalesce into ONE journaled chunk
+        walk on the cell grid and demux bitwise-identically to solo
+        submits; the write-ahead request record carries the augmented
+        panel, so a SIGKILLed server re-answers forecasts bitwise like
+        fits.  Interval keys are counter-based per request-local row
+        with a base seed derived from the request's own content (or
+        ``seed``), so batching composition cannot move a row's bands.
+
+        The result's ``params`` is the packed ``[point | lo | hi]``
+        forecast block — unpack with ``forecasting.as_result(res,
+        horizon, intervals)``.
+        """
+        from .. import forecasting as _forecasting
+        from ..forecasting import kernels as _fkernels
+        from ..reliability import journal as _journal
+
+        if int(horizon) < 1:
+            raise ValueError(f"horizon must be >= 1, got {horizon}")
+        mk = _fkernels.normalize_model_kwargs(model, model_kwargs or {})
+        cfg = dict(mk)
+        k = _fkernels.param_width(model, cfg)
+        if isinstance(fitted, str):
+            fitted = _forecasting.load_fit_result(fitted)
+        if hasattr(fitted, "order_index"):
+            raise ValueError(
+                "an auto-fit selection mixes parameter layouts per row; "
+                "forecast it with forecasting.ensemble_forecast("
+                "auto_root=..., temperature=0), not a single-order "
+                "forecast request")
+        if hasattr(fitted, "params"):
+            params = _host(fitted.params)
+            if status is None:
+                status = getattr(fitted, "status", None)
+        else:
+            params = _host(fitted)
+        if status is not None:
+            status = _host(status)
+        if params.ndim != 2 or params.shape[1] < k:
+            raise ValueError(
+                f"model {model!r} needs [rows, >={k}] params, got "
+                f"{params.shape}")
+        params = np.ascontiguousarray(params[:, :k])
+        arr = np.ascontiguousarray(_host(values))
+        if arr.ndim != 2 or arr.shape[0] != params.shape[0]:
+            raise ValueError(
+                f"values {arr.shape} and params {params.shape} disagree "
+                "on rows")
+        st = _forecasting.augment.derive_status(params, status)
+        aug = _forecasting.augment.augmented_host(arr, params, st)
+        base_seed = 0
+        if intervals:
+            base_seed = (int(seed) if seed is not None
+                         else _forecasting.walk._derive_base_seed(
+                             _journal.panel_fingerprint(aug)))
+        return self.submit(
+            tenant, aug, FORECAST_MODEL,
+            priority=priority, deadline_s=deadline_s,
+            request_id=request_id,
+            forecast_model=model, horizon=int(horizon),
+            n_time=int(arr.shape[1]), k=int(k),
+            model_kwargs={key: (list(v) if isinstance(v, tuple) else v)
+                          for key, v in cfg.items()},
+            intervals=bool(intervals), level=float(level),
+            n_samples=int(n_samples), base_seed=int(base_seed))
+
+    def _count_rejected(self) -> None:
+        """Every refusal — queue, quota, duplicate — is load evidence:
+        it must show in the counters and flip the degraded signal, or a
+        saturated server reads as healthy."""
+        with self._counters_lock:
+            self.counters["rejected"] += 1
+        self._note_degraded()
+        obs.counter("server.rejected").inc()
+
+    def _cancel(self, req_id: str) -> bool:
+        req = self.queue.cancel(req_id)
+        if req is None:
+            return False
+        self._forget(req)
+        self._remove_request_file(req_id)
+        with self._counters_lock:
+            self.counters["cancelled"] += 1
+        obs.counter("server.cancelled").inc()
+        return True
+
+    def _on_shed(self, req: FitRequest) -> None:
+        """Queue eviction callback: refund the quota and durable record."""
+        self._forget(req)
+        self._remove_request_file(req.req_id)
+        with self._counters_lock:
+            self.counters["shed"] += 1
+        self._note_degraded()
+        obs.counter("server.shed").inc()
+        obs.event("server.shed", req_id=req.req_id, tenant=req.tenant,
+                  priority=req.priority)
+
+    def _try_stored(self, request_id: str) -> Optional[FitTicket]:
+        path = os.path.join(self._results_dir, f"{request_id}.npz")
+        if not os.path.exists(path):
+            return None
+        try:
+            res = self._load_result(path)
+        except Exception as e:  # noqa: BLE001 - torn bytes, not a bug
+            # a torn stored result must never be SERVED; discard it and
+            # fall through to a fresh admission (recompute)
+            self._discard_torn_result(path, e)
+            return None
+        t = FitTicket(request_id)
+        t._resolve(res)
+        return t
+
+    # -- results / durable paths ---------------------------------------------
+
+    def _request_path(self, req_id: str) -> str:
+        return os.path.join(self._requests_dir, f"{req_id}.npz")
+
+    def _remove_request_file(self, req_id: str) -> None:
+        try:
+            os.remove(self._request_path(req_id))
+        except OSError:
+            pass
+
+    def _store_result(self, req_id: str, res: TenantFitResult) -> None:
+        path = os.path.join(self._results_dir, f"{req_id}.npz")
+        # disk-fault seam: a refused result store (EIO/ENOSPC) raises
+        # into the serve loop's crash path — the request record is still
+        # durable, so a takeover/restart on a WORKING disk re-answers it
+        verdict = consult_disk_fault(path, "result")
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, params=res.params, nll=res.neg_log_likelihood,
+                     converged=res.converged, iters=res.iters,
+                     status=res.status,
+                     meta=np.frombuffer(
+                         json.dumps(res.meta, default=repr).encode(),
+                         dtype=np.uint8))
+        os.replace(tmp, path)
+        if verdict == "torn":
+            tear_after_replace(path)
+
+    def _load_result(self, path: str) -> TenantFitResult:
+        with np.load(path) as z:
+            return TenantFitResult(
+                params=np.array(z["params"]),
+                neg_log_likelihood=np.array(z["nll"]),
+                converged=np.array(z["converged"]),
+                iters=np.array(z["iters"]),
+                status=np.array(z["status"]),
+                meta=json.loads(bytes(z["meta"].tobytes()).decode()))
+
+    def _discard_torn_result(self, path: str, err: BaseException) -> None:
+        """A stored result whose bytes do not parse (torn-at-fsync) is
+        worse than no result: remove it so recovery/resubmission
+        recomputes instead of any reader trusting half a file."""
+        with self._counters_lock:
+            self.counters["torn_results"] += 1
+        obs.counter("server.torn_results").inc()
+        obs.event("server.torn_result", path=os.path.basename(path),
+                  error=repr(err)[:200])
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+
+    def result_for(self, req_id: str) -> TenantFitResult:
+        """Load a completed request's stored result — how a client
+        re-attaches after a server restart re-answered its request.
+        A torn stored file downgrades to ``KeyError`` (recompute /
+        resubmit), never to serving corrupt bytes."""
+        path = os.path.join(self._results_dir, f"{req_id}.npz")
+        if not os.path.exists(path):
+            raise KeyError(f"no stored result for request {req_id!r}")
+        try:
+            return self._load_result(path)
+        except KeyError:
+            raise
+        except Exception as e:  # noqa: BLE001 - torn bytes, not a bug
+            self._discard_torn_result(path, e)
+            raise KeyError(
+                f"stored result for {req_id!r} was torn and has been "
+                "discarded — resubmit (idempotent by request id)") from None
+
+    def request_pending(self, req_id: str) -> bool:
+        """Whether ``req_id`` is admitted and still in flight (live in
+        this instance, or durable under ``requests/`` awaiting recovery)
+        — the transport layer's idempotent-resubmit probe: a pending id
+        is acked, not re-admitted."""
+        with self._live_lock:
+            if req_id in self._live:
+                return True
+        return os.path.exists(self._request_path(req_id))
+
+    # -- the serve loop ------------------------------------------------------
+
+    def _serve(self) -> None:
+        try:
+            self._recover()
+            self._set_state("ready")
+            self._ready.set()
+            while True:
+                if self._stop.is_set() and not self._drain:
+                    break
+                cell = self._knobs["cell_rows"]
+                members = self.queue.take_batch(
+                    batcher.batch_key, self.max_batch_rows,
+                    window_s=self.batch_window_s, timeout_s=0.25,
+                    # the PADDED size is what the walk stages and fits:
+                    # max_batch_rows must bound the packed panel, not
+                    # just the payload
+                    rows_fn=lambda r: -(-r.rows // cell) * cell)
+                if not members:
+                    if self._stop.is_set():
+                        break  # drained
+                    self._idle_tick()
+                    continue
+                self._run_members(members)
+        except BaseException as e:  # noqa: BLE001 - crash path below
+            self._crash_error = e
+            self._set_state("crashed")
+            self._ready.set()
+            # pending tickets must not hang forever on a dead loop: the
+            # durable state re-answers them on the next start
+            with self._live_lock:
+                live = list(self._live.values())
+            for req in live:
+                req.ticket._reject(ServerClosedError(
+                    f"server crashed ({type(e).__name__}); the request is "
+                    "durable — restart the server on this root to "
+                    "re-answer it"))
+            if not isinstance(e, (SimulatedCrash, KeyboardInterrupt)):
+                obs.event("server.crash", error=repr(e)[:300])
+                raise
+
+    def _run_members(self, members) -> None:
+        # deadline triage: a request that expired while queued answers
+        # all-TIMEOUT rows NOW — it never costs a dispatch
+        ready = []
+        for req in members:
+            if req.ticket.done():  # cancelled while the batch formed
+                self._forget(req)
+                continue
+            if req.expired():
+                self._finalize(req, batcher.timeout_result(
+                    req, "deadline expired while queued"))
+                with self._counters_lock:
+                    self.counters["deadline_expired"] += 1
+                obs.counter("server.deadline_expired").inc()
+                continue
+            ready.append(req)
+        if not ready:
+            return
+        if ready[0].model == AUTO_MODEL:
+            # AUTO requests never micro-batch: each is a whole SEARCH
+            # (per-tenant result layouts differ by winning order), run
+            # solo under its own deterministic journal dir — the durable
+            # request record plus journal resume is its crash recovery,
+            # no batch membership record needed (batch_key groups only
+            # same-model requests, so a mixed `ready` cannot occur)
+            for req in ready:
+                self._run_auto_request(req)
+            return
+        self._batch_seq += 1
+        knobs = dict(self._knobs)
+        batch = batcher.pack(ready, self._batch_seq,
+                             cell_rows=knobs["cell_rows"])
+        batch.save_members(self.root, knobs)
+        t0 = time.perf_counter()
+        try:
+            res = self._execute_batch(batch, knobs)
+        except Exception as e:  # noqa: BLE001 - batch quarantine below
+            self._quarantine_batch(batch, e)
+            return
+        wall = time.perf_counter() - t0
+        self._deliver(batch, res)
+        self.queue.record_drain(batch.rows, wall)
+        self._after_batch(batch, wall)
+
+    def _execute_batch(self, batch: "batcher.MicroBatch", knobs: dict):
+        fit_fn = self._resolve_model(batch.members[0].model)
+        head = batch.members[0]
+        # the explicit align hint is what makes batched == solo bitwise
+        # (the same code path either way); a registry fit that does not
+        # take the hint simply runs its own per-chunk plan
+        align = (head.align_mode
+                 if "align_mode" in _accepted_kwargs(
+                     fit_fn, {"align_mode": None}) else None)
+        # the request's device rides the fit kwargs: the source stages each
+        # chunk there through the pinned pool, and the fit runs there
+        kw = {**self.walk_kwargs, **head.fit_kwargs}
+        if "device" in _accepted_kwargs(fit_fn, {"device": None}):
+            kw.setdefault("device", str(self.device))
+        src = source_mod.HostChunkSource(
+            batch.values, pool=self._pool_for(batch.values.shape[1],
+                                              batch.values.dtype))
+        ckpt = os.path.join(batch.dir(self.root), "journal")
+        job_budget = batch.job_budget_s()
+        # forecast walks NEVER run the resilient ladder: the augmented
+        # panel's extra columns are fitted parameters, and the sanitizer
+        # "repairing" them would corrupt the forecast inputs (the walk's
+        # own status propagation is the forecast-side resilience)
+        resilient = head.resilient and head.model != FORECAST_MODEL
+        # the batch walk gets its OWN trace keyed on the content-derived
+        # batch_id (recovery re-forms the identical batch on a survivor,
+        # so the post-failover walk CONTINUES the same batch trace); the
+        # join back to each member request's trace is the
+        # server.batch_member event below, stamped per-request with the
+        # batch_id attr — obs_report --trace follows that link
+        for req in batch.members:
+            with obs.trace_scope(
+                    obs.trace_for_request(req.req_id, "server")):
+                obs.event("server.batch_member", req_id=req.req_id,
+                          batch_id=batch.batch_id, tenant=req.tenant)
+        bctx = obs.trace_for_request(batch.batch_id, "server.batch")
+        with watchdog_mod.request_context(batch.tenants), \
+                obs.trace_scope(bctx):
+            with obs.span("server.batch", batch_id=batch.batch_id,
+                          members=len(batch.members), rows=batch.rows):
+                return fit_chunked(
+                    fit_fn, src,
+                    chunk_rows=batch.cell_rows,
+                    resilient=resilient,
+                    policy=head.policy,
+                    checkpoint_dir=ckpt,
+                    chunk_budget_s=self.chunk_budget_s,
+                    job_budget_s=job_budget,
+                    pipeline_depth=int(knobs.get("pipeline_depth") or 2),
+                    prefetch_depth=int(knobs.get("prefetch_depth") or 1),
+                    align_mode=align,
+                    _journal_commit_hook=self._commit_hook,
+                    **kw)
+
+    def _deliver(self, batch: "batcher.MicroBatch", res) -> None:
+        # counters BEFORE tickets resolve: a caller that reads health()
+        # the moment its result() unblocks must see this batch counted
+        with self._counters_lock:
+            self.counters["batches_run"] += 1
+            self.counters["rows_fitted"] += batch.rows
+        obs.counter("server.batches").inc()
+        obs.counter("server.rows_fitted").add(batch.rows)
+        obs.histogram("server.batch_members").observe(len(batch.members))
+        for req, tres in zip(batch.members, batch.demux(res)):
+            self._finalize(req, tres)
+        batch.mark_complete(self.root)
+
+    def _quarantine_batch(self, batch: "batcher.MicroBatch",
+                          error: Exception) -> None:
+        """A failed batch walk takes down ONLY this batch: members re-run
+        solo so a poisoned tenant panel is isolated to its own request
+        (the serving rung of the quarantine ladder); a solo failure
+        lands on that request's ticket alone.  The server keeps serving
+        either way."""
+        with self._counters_lock:
+            self.counters["batch_failures"] += 1
+        self._note_degraded()
+        obs.counter("server.batch_failures").inc()
+        obs.event("server.batch_quarantined", batch_id=batch.batch_id,
+                  members=len(batch.members), error=repr(error)[:200])
+        if len(batch.members) == 1:
+            req = batch.members[0]
+            self._forget(req)
+            req.ticket._reject(error)
+            return
+        for req in batch.members:
+            if req.ticket.done():
+                self._forget(req)
+                continue
+            with self._counters_lock:
+                self.counters["solo_retries"] += 1
+            self._batch_seq += 1
+            knobs = dict(self._knobs)
+            solo = batcher.pack([req], self._batch_seq,
+                                cell_rows=knobs["cell_rows"])
+            solo.save_members(self.root, knobs)
+            try:
+                res = self._execute_batch(solo, knobs)
+            except Exception as e:  # noqa: BLE001 - per-request terminal
+                self._forget(req)
+                req.ticket._reject(e)
+                continue
+            self._deliver(solo, res)
+
+    # -- the auto order search ---------------------------------------------
+
+    def _run_auto_request(self, req: FitRequest) -> None:
+        """One tenant's auto-fit search, warm-routed through its durable
+        profile.
+
+        The ladder: **cold** (``warm_routing=False`` — exact mode, the
+        plain search with no profile reads, bitwise today's behavior),
+        **stable** (fingerprint/config match — skip stage 1 entirely: a
+        warm-started refit of each row's known winning order), **drifted**
+        (content moved — stepwise expansion seeded from the profile's
+        winners), **new** (full stepwise).  The decision lands on the
+        request's trace (``server.route``) and in the result meta; the
+        profile update after completion is FENCED on a fleet root, so a
+        zombie primary dies loudly instead of clobbering warm state.
+        """
+        from ..reliability.journal import FencedError
+        from . import profiles as profiles_mod
+
+        fk = dict(req.fit_kwargs)
+        warm = bool(fk.pop("warm_routing", self.warm_routing))
+        cfg_key = profiles_mod.config_key(fk)
+        route, prof = "cold", None
+        if warm:
+            route, prof = self.profiles.classify(req.tenant, req.values,
+                                                 cfg_key)
+        stability = int(prof.get("stability", 0)) if prof else 0
+        with self._counters_lock:
+            self.counters["auto_requests"] += 1
+            self.counters[f"route_{route}"] += 1
+        obs.counter(f"server.route_{route}").inc()
+        t0 = time.perf_counter()
+        try:
+            with obs.trace_scope(
+                    obs.trace_for_request(req.req_id, "server")):
+                # the routing decision is a first-class hop on the
+                # request's causal timeline — obs_report --trace renders
+                # the attrs, and the fleet smoke asserts a takeover
+                # continues warm from the dead primary's profile
+                obs.event("server.route", req_id=req.req_id,
+                          tenant=req.tenant, route=route, warm=warm,
+                          stability=stability)
+                with obs.span("server.route", req_id=req.req_id,
+                              tenant=req.tenant, route=route,
+                              stability=stability):
+                    if route == "stable":
+                        tres = self._auto_warm_refit(req, prof, fk)
+                    else:
+                        tres = self._auto_search(req, fk, route, prof)
+        except FencedError:
+            # zombie primary: the fencing contract says die loudly — the
+            # serve loop's crash path rejects live tickets and the
+            # surviving primary re-answers from the durable records
+            raise
+        except Exception as e:  # noqa: BLE001 - per-request terminal
+            with self._counters_lock:
+                self.counters["batch_failures"] += 1
+            self._note_degraded()
+            obs.event("server.auto_failed", req_id=req.req_id,
+                      route=route, error=repr(e)[:200])
+            self._forget(req)
+            req.ticket._reject(e)
+            return
+        wall = time.perf_counter() - t0
+        with self._counters_lock:
+            self.counters["rows_fitted"] += req.rows
+        obs.counter("server.rows_fitted").add(req.rows)
+        self._finalize(req, tres)
+        if warm:
+            # AFTER the result is durable: the profile is warm-start
+            # state, so losing an update costs the next pass a search,
+            # never an answer.  The write is fenced (FencedError
+            # propagates — see above); a refused disk degrades to a cold
+            # next pass.
+            try:
+                self._update_profile(req, tres, cfg_key, route)
+                with self._counters_lock:
+                    self.counters["profile_updates"] += 1
+                obs.counter("server.profile_updates").inc()
+            except FencedError:
+                raise
+            except OSError as e:
+                with self._counters_lock:
+                    self.counters["storage_errors"] += 1
+                obs.event("server.profile_refused", req_id=req.req_id,
+                          error=repr(e)[:200])
+        self.queue.record_drain(req.rows, wall)
+        self._write_server_state()
+        self._write_prom()
+
+    def _auto_search(self, req: FitRequest, fk: dict, route: str,
+                     prof) -> TenantFitResult:
+        """The search leg of the ladder: exhaustive for exact/cold mode
+        (bitwise the direct ``auto_fit`` call), stepwise for new tenants,
+        stepwise seeded from the profile's distinct winners for drifted
+        ones.  Journals under ``<root>/auto/<req_id>/`` — deterministic,
+        so a recovered request resumes mid-search."""
+        from ..models import auto as auto_mod
+
+        kw = dict(fk)
+        if route == "new":
+            # default to the stepwise economy unless the caller pinned
+            # the mode or passed a seasonal grid (stepwise is (p, d, q)
+            # only — seasonal grids keep the exhaustive sweep)
+            seasonal = any(len(tuple(o)) == 4
+                           for o in (kw.get("orders") or ()))
+            if not seasonal:
+                kw.setdefault("stepwise", True)
+        elif route == "drifted":
+            seeds = _profile_winner_specs(prof)
+            if seeds:
+                kw["stepwise"] = True
+                kw["orders"] = seeds
+            else:
+                kw.setdefault("stepwise", True)
+        if kw.get("stepwise"):
+            # the seed neighborhood must fit under the expansion cap —
+            # profile winners (or caller seeds) can sit at the cap edge
+            span = max((max(o[0], o[2]) for o in
+                        (kw.get("orders") or ((0, 0, 0),))), default=0)
+            kw["stepwise_max_order"] = max(
+                int(kw.get("stepwise_max_order", 3)), int(span))
+        kw.setdefault("chunk_rows", self._knobs["cell_rows"])
+        kw.setdefault("resilient", req.resilient)
+        kw.setdefault("policy", req.policy)
+        kw.setdefault("align_mode", req.align_mode)
+        kw.setdefault("device", str(self.device))
+        res = auto_mod.auto_fit(
+            req.values,
+            checkpoint_dir=os.path.join(self._auto_dir, req.req_id),
+            job_budget_s=req.remaining_s(),
+            _journal_commit_hook=self._commit_hook, **kw)
+        return _auto_result(req, route,
+                            stability=(int(prof.get("stability", 0))
+                                       if prof else 0),
+                            orders=[list(s.order) for s in res.orders],
+                            order_index=_host(res.order_index),
+                            criterion=_host(res.criterion),
+                            params=_host(res.params),
+                            nll=_host(res.neg_log_likelihood),
+                            converged=_host(res.converged),
+                            iters=_host(res.iters),
+                            status=_host(res.status),
+                            criterion_name=kw.get("criterion", "aicc"),
+                            include_intercept=kw.get("include_intercept",
+                                                     True),
+                            selection_counts=res.meta["auto_fit"]
+                            ["selection_counts"],
+                            stepwise=res.meta["auto_fit"].get("stepwise"))
+
+    def _auto_warm_refit(self, req: FitRequest, prof: dict,
+                         fk: dict) -> TenantFitResult:
+        """The stable leg: skip stage 1 entirely — refit each row's KNOWN
+        winning order, warm-started from the profile's params
+        (``reliability.delta.WarmstartFit``, one compacted dispatch per
+        winning-order basin).  Deterministic in (panel, profile), so a
+        takeover re-answers it bitwise from the shared root."""
+        import functools as _ft
+
+        from ..models import arima as arima_mod
+        from ..models import auto as auto_mod
+        from ..reliability import delta as delta_mod
+
+        y = np.asarray(req.values)
+        b, t = y.shape
+        orders = np.asarray(prof["orders"], np.int32).reshape(-1, 3)
+        order_index = np.asarray(prof["order_index"], np.int32)
+        p_params = np.asarray(prof["params"])
+        include_intercept = bool(fk.get("include_intercept", True))
+        criterion = str(fk.get("criterion", "aicc"))
+        fit_kw = {k: fk[k] for k in _AUTO_FIT_KNOBS
+                  if fk.get(k) is not None}
+        nv0 = auto_mod.panel_n_valid(y)
+        dev = self.device
+        dtype = p_params.dtype if p_params.dtype.kind == "f" else y.dtype
+        out_params = np.full((b, p_params.shape[1]), np.nan, dtype)
+        out_nll = np.full(b, np.nan, dtype)
+        out_conv = np.zeros(b, bool)
+        out_iters = np.zeros(b, np.int32)
+        # rows no candidate ever fit keep the profile's recorded status
+        out_status = np.asarray(prof["status"], np.int8).copy()
+        out_crit = np.full(b, np.nan, dtype)
+        for g in sorted(int(v) for v in np.unique(order_index) if v >= 0):
+            rows = np.nonzero(order_index == g)[0]
+            spec = auto_mod.OrderSpec(tuple(int(v) for v in orders[g]))
+            k = spec.n_params(include_intercept)
+            init = p_params[rows, :k].astype(y.dtype, copy=False)
+            aug = np.concatenate([y[rows], init], axis=1)
+            fit_fn = _ft.partial(
+                arima_mod.fit, order=spec.order,
+                include_intercept=include_intercept, **fit_kw)
+            wf = delta_mod.WarmstartFit(fit_fn, n_time=t, k=k)
+            with obs.span("server.warm_basin", order=spec.label,
+                          rows=int(rows.size)):
+                r = wf(aug, align_mode=req.align_mode, device=str(dev))
+            out_params[rows, :k] = _host(r.params)[:, :k]
+            out_nll[rows] = _host(r.neg_log_likelihood)
+            out_conv[rows] = _host(r.converged)
+            out_iters[rows] = _host(r.iters).astype(np.int32)
+            out_status[rows] = _host(r.status).astype(np.int8)
+            p_full, _, d_full = spec.lag_span()
+            # the criterion runs on the request's device, as the search's
+            crit = _host(auto_mod._criterion_one(
+                torch.as_tensor(out_nll[rows], device=dev),
+                torch.as_tensor(np.asarray(nv0)[rows].astype(out_nll.dtype),
+                                device=dev),
+                k, p_full, d_full, criterion))
+            out_crit[rows] = np.where(np.isfinite(crit), crit, np.nan)
+        counts = {auto_mod.OrderSpec(tuple(int(v) for v in o)).label:
+                  int(np.sum(order_index == g))
+                  for g, o in enumerate(orders)}
+        counts["none"] = int(np.sum(order_index < 0))
+        return _auto_result(req, "stable",
+                            stability=int(prof.get("stability", 0)),
+                            orders=orders.tolist(),
+                            order_index=order_index,
+                            criterion=out_crit, params=out_params,
+                            nll=out_nll, converged=out_conv,
+                            iters=out_iters, status=out_status,
+                            criterion_name=criterion,
+                            include_intercept=include_intercept,
+                            selection_counts=counts, stepwise=None)
+
+    def _update_profile(self, req: FitRequest, tres: TenantFitResult,
+                        cfg_key: str, route: str) -> None:
+        a = tres.meta.get("auto") or {}
+        self.profiles.update(
+            req.tenant, values=req.values,
+            orders=a["orders"],
+            order_index=np.asarray(a["order_index"], np.int32),
+            params=np.asarray(tres.params),
+            criterion=np.asarray(a["criterion"], float),
+            status=np.asarray(tres.status, np.int8),
+            cfg_key=cfg_key,
+            criterion_name=str(a.get("criterion_name", "aicc")),
+            include_intercept=bool(a.get("include_intercept", True)),
+            route=route)
+
+    def _finalize(self, req: FitRequest, tres: TenantFitResult) -> None:
+        self._store_result(req.req_id, tres)
+        self._remove_request_file(req.req_id)
+        self._forget(req)
+        with self._counters_lock:
+            self.counters["completed"] += 1
+            if int((tres.status == FitStatus.TIMEOUT).sum()):
+                self.counters["timeout_requests"] += 1
+        obs.counter("server.completed").inc()
+        # server-side completion marker on the request's own trace.  NOT
+        # the timeline's uniqueness terminal: a SIGKILL can land between
+        # the durable os.replace and this flush, and the survivor skips
+        # re-finalizing stored ids — the client's client.result event is
+        # the exactly-once terminal obs_report gates on
+        with obs.trace_scope(obs.trace_for_request(req.req_id, "server")):
+            obs.event("server.result_stored", req_id=req.req_id,
+                      tenant=req.tenant)
+        req.ticket._resolve(tres)  # last: the caller may read health() now
+
+    def _forget(self, req: FitRequest) -> None:
+        with self._live_lock:
+            self._live.pop(req.req_id, None)
+        self.quota.release(req.tenant, req.rows)
+
+    # -- recovery (restart on a used root) -----------------------------------
+
+    def _recover(self) -> None:
+        """Re-answer everything a dead server left in flight: re-form
+        recorded batches (their journals resume bitwise), then re-enqueue
+        admitted-but-unbatched requests."""
+        pending: Dict[str, FitRequest] = {}
+        for fn in sorted(os.listdir(self._requests_dir)):
+            if not fn.endswith(".npz"):
+                continue
+            path = os.path.join(self._requests_dir, fn)
+            try:
+                req = FitRequest.load(path)
+            except Exception:  # noqa: BLE001 - torn request record
+                obs.event("server.recovery_torn_request", path=path)
+                continue
+            if os.path.exists(os.path.join(self._results_dir,
+                                           f"{req.req_id}.npz")):
+                self._remove_request_file(req.req_id)
+                continue
+            with self._live_lock:
+                live = req.req_id in self._live
+            if live:
+                # already admitted to THIS instance (submitted before
+                # start()): the queue owns it — recovery is for the
+                # previous process's orphans only
+                continue
+            # recovery voids deadlines: the original clock died with the
+            # original process, and the re-answer contract is bitwise
+            # identity with an uninterrupted run, not latency
+            req.deadline_s = None
+            req.ticket._canceller = self._cancel
+            pending[req.req_id] = req
+        records = []
+        if os.path.isdir(self._batches_dir):
+            for bid in sorted(os.listdir(self._batches_dir)):
+                d = os.path.join(self._batches_dir, bid)
+                mpath = os.path.join(d, batcher.MEMBERS_FILE)
+                if not os.path.exists(mpath) or os.path.exists(
+                        os.path.join(d, batcher.COMPLETE_FILE)):
+                    continue
+                try:
+                    with open(mpath) as f:
+                        rec = json.load(f)
+                except (OSError, json.JSONDecodeError):
+                    continue
+                ids = [m["req_id"] for m in rec.get("members", [])]
+                if not ids or not all(i in pending for i in ids):
+                    # some members already answered (results written
+                    # before the crash finished the batch) or records
+                    # torn: the remaining members re-enqueue below
+                    continue
+                records.append((rec.get("seq", 0), ids,
+                                rec.get("knobs", {}),
+                                int(rec.get("cell_rows", 1))))
+        # a crash during batch quarantine leaves OVERLAPPING records (the
+        # failed batch plus its solo re-runs name the same request);
+        # replay in seq order and skip any record with a member an
+        # earlier record already took, or this replay would execute the
+        # same request twice and double-release its quota
+        handled: set = set()
+        for seq, ids, knobs, cell in sorted(records):
+            if any(i in handled for i in ids):
+                continue
+            handled.update(ids)
+            members = [pending[i] for i in ids]
+            self._batch_seq = max(self._batch_seq, int(seq))
+            batch = batcher.MicroBatch(members, int(seq), cell_rows=cell)
+            # force=True (like the unbatched path below): _finalize/
+            # _quarantine release per member, so every replayed member
+            # must be acquired or the tenant ledger skews negative
+            for m in members:
+                self.quota.try_acquire(m.tenant, m.rows, force=True)
+            with self._counters_lock:
+                self.counters["recovered_batches"] += 1
+                self.counters["recovered_requests"] += len(members)
+            obs.event("server.recover_batch", batch_id=batch.batch_id,
+                      members=len(members))
+            try:
+                res = self._execute_batch(batch, knobs or dict(self._knobs))
+            except Exception as e:  # noqa: BLE001 - quarantine, as live
+                self._quarantine_batch(batch, e)
+                continue
+            self._deliver(batch, res)
+        for req in sorted(pending.values(), key=lambda r: r.seq):
+            if req.req_id in handled:
+                continue
+            # force=True: the dead server already admitted this work, so
+            # recovery never refuses it — and the acquire stays symmetric
+            # with the release in _forget (an unbalanced ledger would
+            # corrupt the tenant's quota for the server's lifetime)
+            self.quota.try_acquire(req.tenant, req.rows, force=True)
+            with self._counters_lock:
+                self.counters["recovered_requests"] += 1
+            with self._live_lock:
+                self._live[req.req_id] = req
+            try:
+                self.queue.offer(req, on_shed=self._on_shed)
+            except RejectedError as e:
+                with self._live_lock:
+                    self._live.pop(req.req_id, None)
+                self.quota.release(req.tenant, req.rows)
+                req.ticket._reject(e)
+                continue
+
+    def _next_seq_floor(self) -> int:
+        """Request sequence numbers survive restarts (monotonic ids)."""
+        floor = 0
+        try:
+            for fn in os.listdir(self._requests_dir):
+                if fn.startswith("r") and "-" in fn:
+                    try:
+                        floor = max(floor, int(fn[1:].split("-", 1)[0]))
+                    except ValueError:
+                        pass
+        except OSError:
+            pass
+        return floor
+
+    # -- adaptation / warmth -------------------------------------------------
+
+    def _pool_for(self, n_cols: int, dtype) -> source_mod.StagingPool:
+        key = (int(n_cols), str(np.dtype(dtype)))
+        with self._pools_lock:
+            pool = self._pools.get(key)
+            if pool is None:
+                pool = source_mod.StagingPool(n_cols, dtype)
+                self._pools[key] = pool
+            return pool
+
+    def _after_batch(self, batch: "batcher.MicroBatch", wall: float) -> None:
+        self._autotune_from(os.path.join(batch.dir(self.root), "journal"))
+        self._write_server_state()
+        self._write_prom()
+
+    def _autotune_from(self, ckpt: str) -> None:
+        """The budget advisor's knob inference (:mod:`._advise`), run
+        online — the finished batch's manifest suggests the NEXT batch's
+        ``chunk_rows``/``pipeline_depth`` instead of waiting for a
+        post-mortem."""
+        if self._advise is None:
+            return
+        try:
+            m = _advise.load_manifest(ckpt)
+            if m is None:
+                return
+            a = self._advise(m)
+            s = a.get("suggest") or {}
+        except Exception:  # noqa: BLE001 - advisory only
+            return
+        changed = False
+        cr = s.get("chunk_rows")
+        if cr:
+            # the suggested chunk size becomes the NEXT batches' cell (the
+            # sustained-size logic only ever shrinks it, e.g. after OOM
+            # backoff); results are bitwise-stable per cell setting
+            cr = max(1, min(int(cr), self.max_batch_rows))
+            if cr != self._knobs["cell_rows"]:
+                self._knobs["cell_rows"] = cr
+                changed = True
+        pd = s.get("pipeline_depth")
+        if pd:
+            pd = max(1, min(int(pd), 8))
+            if pd != self._knobs["pipeline_depth"]:
+                self._knobs["pipeline_depth"] = pd
+                changed = True
+        pf = s.get("prefetch_depth")
+        if pf:
+            pf = max(0, min(int(pf), 4))
+            if pf != self._knobs["prefetch_depth"]:
+                self._knobs["prefetch_depth"] = pf
+                changed = True
+        if changed:
+            with self._counters_lock:
+                self.counters["autotune_updates"] += 1
+            obs.counter("server.autotune_updates").inc()
+            obs.event("server.autotune", **self._knobs)
+            try:
+                tmp = self._knobs_path + ".tmp"
+                with open(tmp, "w", encoding="utf-8") as f:
+                    json.dump(self._knobs, f)
+                os.replace(tmp, self._knobs_path)
+            except OSError:
+                pass
+
+    def _resolve_model(self, model: str) -> Callable:
+        fn = self._models.get(model)
+        if fn is not None:
+            return fn
+        if model == FORECAST_MODEL:
+            # the chunked forecast walk's fit function: requests carry
+            # an augmented panel + the forecast config in fit_kwargs
+            # (submit_forecast) — a built-in name so forecast requests
+            # stay durable/re-resolvable across restarts like model fits
+            from ..forecasting import walk as _fwalk
+
+            return _fwalk.forecast_fit
+        if model == AUTO_MODEL:
+            # the auto order search: resolvable at the door like any
+            # model, but executed per request by _run_auto_request (the
+            # serve loop intercepts AUTO batches before packing)
+            from ..models import auto as _auto
+
+            return _auto.auto_fit
+        from .. import models as _models
+
+        mod = getattr(_models, model, None)
+        if mod is None or not hasattr(mod, "fit"):
+            raise ValueError(f"unknown model {model!r} (not in the server "
+                             "registry or the bundled model set)")
+        return mod.fit
+
+    # -- health / observability ----------------------------------------------
+
+    def _set_state(self, state: str) -> None:
+        with self._state_lock:
+            if self._state == "crashed":
+                return  # terminal: stop()/__exit__ must not mask a crash
+            if self._state == "stopped" and state != "stopped":
+                return
+            self._state = state
+
+    def _note_degraded(self) -> None:
+        self._degraded_until = time.monotonic() + self.degraded_window_s
+
+    def state(self) -> str:
+        """Lifecycle/health state: ``starting`` → ``ready`` (``degraded``
+        while shedding/rejecting/failing recently or the queue is near its
+        bound) → ``draining``/``stopping`` → ``stopped``; ``crashed``
+        terminal on a serve-loop crash."""
+        with self._state_lock:
+            s = self._state
+        if s == "ready":
+            depth = self.queue.depth()
+            if (time.monotonic() < self._degraded_until
+                    or depth["rows"] > 0.8 * depth["max_rows"]):
+                return "degraded"
+        return s
+
+    def ready(self) -> bool:
+        return self.state() in ("ready", "degraded")
+
+    def health(self) -> dict:
+        """Readiness + load + warmth in one scrape-able dict (also
+        exported through the Prometheus sink)."""
+        depth = self.queue.depth()
+        with self._counters_lock:
+            counters = dict(self.counters)
+        with self._pools_lock:
+            pools = {f"{t}x{dt}": p.stats()
+                     for (t, dt), p in self._pools.items()}
+        with self._live_lock:
+            inflight = len(self._live)
+        return {
+            "state": self.state(),
+            "ready": self.ready(),
+            "degraded": self.state() == "degraded",
+            "queue": depth,
+            "inflight_requests": inflight,
+            "tenants": self.quota.snapshot(),
+            "counters": counters,
+            "knobs": dict(self._knobs),
+            "staging_pools": pools,
+            "compile_cache": compile_cache.program_cache_stats(),
+            "root": self.root,
+        }
+
+    def _numeric_health(self) -> dict:
+        """Flat numeric gauges for the prom sink / obs plane."""
+        h = self.health()
+        out = {
+            "server_ready": 1.0 if h["ready"] else 0.0,
+            "server_degraded": 1.0 if h["degraded"] else 0.0,
+            "server_queue_rows": float(h["queue"]["rows"]),
+            "server_queue_requests": float(h["queue"]["requests"]),
+            "server_inflight_requests": float(h["inflight_requests"]),
+        }
+        for k, v in h["counters"].items():
+            out[f"server_{k}_total"] = float(v)
+        pool_hits = sum(p["pool_hits"] for p in h["staging_pools"].values())
+        pool_miss = sum(p["pool_misses"]
+                        for p in h["staging_pools"].values())
+        out["server_staging_pool_hits_total"] = float(pool_hits)
+        out["server_staging_pool_misses_total"] = float(pool_miss)
+        cc = h["compile_cache"]
+        out["server_compile_cache_hits_total"] = float(cc["hits"])
+        out["server_compile_cache_misses_total"] = float(cc["misses"])
+        return out
+
+    def _idle_tick(self) -> None:
+        self._write_prom()
+
+    def _write_prom(self, force: bool = False) -> None:
+        if self._prom is None:
+            return
+        now = time.monotonic()
+        if not force and now - self._prom_last < self._prom_interval_s:
+            return
+        self._prom_last = now
+        nm = self._numeric_health()
+        # registry first: the sink snapshot then carries the fresh values
+        # and its renderer dedupes the extra copies by family name
+        obs.gauge("server.queue_rows").set(nm["server_queue_rows"])
+        obs.gauge("server.inflight_requests").set(
+            nm["server_inflight_requests"])
+        obs.gauge("server.degraded").set(nm["server_degraded"])
+        try:
+            self._prom.write(extra=nm)
+        except Exception:  # noqa: BLE001 - the sink must never stop serving
+            pass
+
+    def _write_server_state(self) -> None:
+        """``<root>/server.json``: the serving-level record the budget
+        advisor's ``--serving`` mode reads (shed/reject counts, knobs,
+        state) — atomic, best-effort."""
+        try:
+            path = os.path.join(self.root, "server.json")
+            tmp = path + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump({
+                    "state": self.state(),
+                    "counters": dict(self.counters),
+                    "queue": self.queue.depth(),
+                    "knobs": dict(self._knobs),
+                    "max_batch_rows": self.max_batch_rows,
+                    "batch_window_s": self.batch_window_s,
+                }, f, indent=1, sort_keys=True)
+            os.replace(tmp, path)
+        except OSError:
+            pass

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from spark_timeseries_tpu.models import auto as ref_auto
 from spark_timeseries_tpu_torch.models import auto
+from spark_timeseries_tpu_torch.parallel import mesh as meshlib
 from spark_timeseries_tpu_torch.reliability import faultinject as fi
 from test_auto import KNOWN_ORDERS, make_known_panel
 
@@ -275,6 +276,16 @@ def test_argument_errors_match_reference(panel):
         with pytest.raises(ValueError):
             auto.auto_fit(torch.as_tensor(panel), orders, device="cpu",
                           **kw)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        auto.auto_fit(torch.as_tensor(panel), KNOWN_ORDERS, device="cpu",
-                      shard=True)
+    # shard=/mesh= ride to every walk of the search: four lanes select and
+    # fit what the single-lane search on the same chunk grid does, bit
+    # for bit, and the selection is the reference's sharded search's
+    mesh = meshlib.default_mesh(devices=[torch.device("cpu")] * 4)
+    rows = -(-panel.shape[0] // 4)
+    one = _port(panel, KNOWN_ORDERS, fuse=1, chunk_rows=rows)
+    four = _port(panel, KNOWN_ORDERS, fuse=1, mesh=mesh)
+    for f in ("order_index", "params", "neg_log_likelihood", "status"):
+        np.testing.assert_array_equal(np.asarray(getattr(four, f)),
+                                      np.asarray(getattr(one, f)))
+    ref = _ref(panel, KNOWN_ORDERS, fuse=1, shard=True)
+    np.testing.assert_array_equal(np.asarray(four.order_index),
+                                  np.asarray(ref.order_index))

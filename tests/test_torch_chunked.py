@@ -13,8 +13,10 @@ Against the reference, on the same numpy panels:
   ``chunk_budget_s`` and ``job_budget_s``, bit for bit.
 The port's own promises, bit for bit: pipelined equals serial, prefetch on
 equals prefetch off, a chunk budget changes nothing that finishes in it;
-the failed fit's frames are freed before the halved retry; the
-multi-lane keywords raise ``NotImplementedError``.
+the failed fit's frames are freed before the halved retry.  The
+multi-lane keywords run the reference's multi-lane walk (the stand-in fit,
+bit for bit); ``tests/test_torch_sharded.py`` and
+``test_torch_elastic.py`` hold that walk in full.
 """
 
 import functools
@@ -352,13 +354,46 @@ def test_oom_retry_runs_after_the_failed_fit_is_freed():
     assert seen and all(seen)  # freed by refcount, before the first retry
 
 
-def test_multi_lane_keywords_raise():
-    y = torch.as_tensor(_fake_panel())
-    for kw in ({"shard": True}, {"mesh": object()}, {"process_index": 1}):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            rel.fit_chunked(_tfake, y, resilient=False, device="cpu", **kw)
-    rel.fit_chunked(_tfake, y, resilient=False, device="cpu",
-                    process_index=0)
+def test_multi_lane_keywords_raise(tmp_path):
+    # the multi-lane keywords run the multi-lane walk: an 8-lane walk is
+    # the reference's 8-lane walk (the stand-in fit's exact arithmetic)
+    # bit for bit, meta and merged manifest included; a process_index
+    # other than 0 journals under proc_00001/ as the reference's does
+    from spark_timeseries_tpu_torch.parallel import mesh as meshlib
+
+    y = _fake_panel()
+    mesh = meshlib.default_mesh(devices=[torch.device("cpu")] * 8)
+    port = rel.fit_chunked(_tfake, torch.as_tensor(y), resilient=False,
+                           device="cpu", mesh=mesh, chunk_rows=5,
+                           checkpoint_dir=str(tmp_path / "p"))
+    ref = jrel.fit_chunked(_jfake, y, resilient=False, shard=True,
+                           chunk_rows=5, checkpoint_dir=str(tmp_path / "r"))
+    _assert_bitwise(port, ref)
+    for k in ("chunks_run", "status_counts", "chunk_rows_final"):
+        assert port.meta[k] == ref.meta[k], k
+    for k in ("n_shards", "spans", "lanes_run"):
+        assert port.meta["shards"][k] == ref.meta["shards"][k], k
+    pm = json.load(open(tmp_path / "p" / "manifest.json"))
+    rm = json.load(open(tmp_path / "r" / "manifest.json"))
+    assert [(c["lo"], c["hi"], c["shard_id"], c["shard"])
+            for c in pm["chunks"]] == \
+        [(c["lo"], c["hi"], c["shard_id"], c["shard"]) for c in rm["chunks"]]
+    assert pm["merged_from_shards"] == rm["merged_from_shards"] == 8
+    assert [{k: v for k, v in sh.items() if k != "run_id"}
+            for sh in pm["shards"]] == \
+        [{k: v for k, v in sh.items() if k != "run_id"}
+         for sh in rm["shards"]]
+    for kw in ({"process_index": 1}, {"process_index": 0}):
+        d = tmp_path / f"pi{kw['process_index']}"
+        got = rel.fit_chunked(_tfake, torch.as_tensor(y), resilient=False,
+                              device="cpu", chunk_rows=16,
+                              checkpoint_dir=str(d), **kw)
+        want = jrel.fit_chunked(_jfake, y, resilient=False, chunk_rows=16,
+                                checkpoint_dir=str(tmp_path / "r" / d.name),
+                                **kw)
+        _assert_bitwise(got, want)
+        assert (os.path.basename(got.meta["journal"]["manifest"])
+                == os.path.basename(want.meta["journal"]["manifest"]))
 
 
 def test_numpy_panel_goes_to_the_card_by_default():

@@ -235,12 +235,39 @@ def test_delta_campaign_adopts_the_prior_windows(bt_panel, tmp_path):
                         device="cpu", **BT_KW)
 
 
-def test_backtest_refuses_the_unported_paths(bt_panel):
+def test_backtest_refuses_the_unported_paths(bt_panel, tmp_path):
+    # the paths once refused now run: server= routes every window's
+    # forecast through a resident FitServer and mesh= runs the fits on
+    # the multi-lane walk, each with metrics equal to the local
+    # campaign's as JSON with sorted keys (the reference's contract,
+    # tests/_fleet_worker.py), and the reference's server campaign
+    # scores within the closed-form fits' parity bar
+    from spark_timeseries_tpu import serving as rserving
+    from spark_timeseries_tpu_torch import serving
+    from spark_timeseries_tpu_torch.parallel import mesh as meshlib
+
     y = torch.as_tensor(bt_panel)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        fc.run_backtest(y, "arima", H, server=object(), device="cpu",
-                        **BT_KW)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        fc.run_backtest(y, "arima", H, shard=True, device="cpu", **BT_KW)
+    kw = dict(BT_KW, fit_kwargs={"method": "hannan-rissanen"})
+    local = fc.run_backtest(y, "arima", H, device="cpu", **kw)
+    with serving.FitServer(str(tmp_path / "srv"), cell_rows=8,
+                           autotune=False, device="cpu") as srv:
+        served = fc.run_backtest(y, "arima", H, server=srv, device="cpu",
+                                 **kw)
+    assert (json.dumps(served.metrics, sort_keys=True)
+            == json.dumps(local.metrics, sort_keys=True))
+    assert srv.health()["counters"]["completed"] == len(local.windows)
+    mesh = meshlib.default_mesh(devices=[torch.device("cpu")] * 2)
+    lanes = fc.run_backtest(y, "arima", H, mesh=mesh, device="cpu", **kw)
+    assert (json.dumps(lanes.metrics, sort_keys=True)
+            == json.dumps(local.metrics, sort_keys=True))
+    with rserving.FitServer(str(tmp_path / "rsrv"), cell_rows=8,
+                            autotune=False) as rsrv:
+        want = ref_fc.run_backtest(bt_panel, "arima", H, server=rsrv,
+                                   **kw)
+    assert set(served.metrics) == set(want.metrics)
+    for key, v in want.metrics.items():
+        if isinstance(v, list) and v and isinstance(v[0], float):
+            np.testing.assert_allclose(served.metrics[key], v, rtol=1e-5,
+                                       err_msg=key)
     with pytest.raises(ValueError):
         fc.run_backtest(y, "arima", 0, device="cpu", **BT_KW)

@@ -29,6 +29,7 @@ from spark_timeseries_tpu.forecasting import walk as ref_walk
 from spark_timeseries_tpu_torch.forecasting import _prng, kernels, params
 from spark_timeseries_tpu_torch.forecasting import walk
 from spark_timeseries_tpu_torch.models import arima, auto
+from spark_timeseries_tpu_torch.parallel import mesh as meshlib
 from spark_timeseries_tpu_torch.reliability import faultinject as fi
 from spark_timeseries_tpu_torch.reliability import fit_chunked
 from spark_timeseries_tpu_torch.reliability.status import FitStatus
@@ -283,7 +284,20 @@ def test_argument_errors_match_reference():
             walk.forecast_chunked("arima", p, y, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown forecast model"):
         walk.forecast_chunked("prophet", p, y, H, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        walk.forecast_chunked("arima", p, y, H, shard=True,
-                              model_kwargs={"order": (1, 1, 1)},
-                              device="cpu")
+    # shard=/mesh= run the multi-lane walk: bit for bit the single-lane
+    # walk on the same chunk grid, and the reference's sharded walk's
+    # forecasts within the fit-parity bar
+    mesh = meshlib.default_mesh(devices=[torch.device("cpu")] * 3)
+    rows = -(-y.shape[0] // 3)
+    kw = dict(model_kwargs={"order": (1, 1, 1)}, device="cpu")
+    one = walk.forecast_chunked("arima", p, y, H, chunk_rows=rows, **kw)
+    lanes = walk.forecast_chunked("arima", p, y, H, mesh=mesh, **kw)
+    np.testing.assert_array_equal(lanes.forecast, one.forecast)
+    np.testing.assert_array_equal(lanes.status, one.status)
+    assert lanes.meta["shards"]["n_shards"] == 3
+    ref = ref_walk.forecast_chunked("arima", np.asarray(p), y.numpy(), H,
+                                    model_kwargs={"order": (1, 1, 1)},
+                                    shard=True)
+    np.testing.assert_array_equal(lanes.status, np.asarray(ref.status))
+    np.testing.assert_allclose(lanes.forecast, np.asarray(ref.forecast),
+                               rtol=1e-4, atol=1e-4)

@@ -103,8 +103,39 @@ def test_init_distributed_single_process_returns_mesh(no_pod_env, two_cards):
                                 dict(num_processes=2, process_id=0)])
 def test_init_distributed_multi_process_is_the_multi_lane_half(no_pod_env,
                                                                kw):
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # a topology the group cannot start from is refused before any
+    # connection: the coordinator needs num_processes= and process_id=
+    # (nothing here discovers a cluster), and several processes need the
+    # coordinator's address.  A one-process gloo group on a free port
+    # then starts for real and returns the mesh of its devices, tagged
+    # with its rank, as the reference's single-process group does
+    import socket
+
+    import torch.distributed as dist
+
+    with pytest.raises(ValueError, match="coordinator|num_processes"):
         meshlib.init_distributed(**kw)
+    assert not dist.is_initialized()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
+    try:
+        m = meshlib.init_distributed(f"127.0.0.1:{port_no}",
+                                     num_processes=1, process_id=0,
+                                     devices=[torch.device("cpu")] * 2)
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert meshlib.process_count() == 1 and meshlib.process_index() == 0
+        assert list(m.devices.flat) == [torch.device("cpu")] * 2
+        assert meshlib.cell_processes(m) == [0, 0]
+        # re-entry keeps the running group (the reference's contract)
+        m2 = meshlib.init_distributed(f"127.0.0.1:{port_no}",
+                                      num_processes=1, process_id=0,
+                                      devices=[torch.device("cpu")] * 2)
+        assert m2.shape == m.shape
+        rm = rmesh.init_distributed()
+        assert meshlib.SERIES_AXIS in rm.axis_names
+    finally:
+        dist.destroy_process_group()
 
 
 def test_init_distributed_pod_env_warns_and_stays_local(no_pod_env,

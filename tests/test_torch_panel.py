@@ -476,8 +476,23 @@ def test_fit_argument_errors_match():
             x.fit("nope")
         with pytest.raises(ValueError, match="source shape"):
             x.fit("arima", source=np.zeros((2, 6), np.float32))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        p.fit("arima", shard=True, order=(1, 0, 0))
+    # shard=/mesh= forward to the multi-lane walk: bit for bit the
+    # single-lane walk on the same chunk grid, and the reference's sharded
+    # fit within the fit-parity bar
+    pw, rw = _pair(_wide(), keys=WIDE_KEYS, dtype=np.float32)
+    mesh = port.parallel.mesh.default_mesh(devices=[torch.device("cpu")] * 4)
+    kw = dict(order=(1, 0, 0), max_iters=20, resilient=False)
+    lanes = pw.fit("arima", mesh=mesh, **kw)
+    one = pw.fit("arima", chunk_rows=3, **kw)
+    np.testing.assert_array_equal(lanes.params, one.params)
+    np.testing.assert_array_equal(lanes.status, one.status)
+    assert lanes.meta["shards"]["n_shards"] == 4
+    want = rw.fit("arima", shard=True, chunk_rows=3, **kw)
+    np.testing.assert_array_equal(lanes.status, np.asarray(want.status))
+    fin = np.isfinite(lanes.params).all(1)
+    np.testing.assert_allclose(lanes.params[fin],
+                               np.asarray(want.params)[fin],
+                               rtol=4e-3, atol=4e-3)
 
 
 def test_forecast_matches_the_reference(fit_pair):

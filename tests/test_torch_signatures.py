@@ -5,8 +5,8 @@ Every public name of a ported module (and of a ported package's
 reference module defines takes the same keyword set in the port —
 constructors and public methods included — except for the differences
 recorded under ``ROADMAP.md`` queue 3, "Deliberate differences", and the
-names of the modules still to port (ROADMAP queue 1: the multi-lane half
-of item 17 and item 18), which are listed here with their reasons.  A call written for the
+names of the modules still to port (ROADMAP queue 1: the wire and fleet
+half of item 18), which are listed here with their reasons.  A call written for the
 reference then never meets an ``AttributeError`` or a ``TypeError`` on the
 port for a name or keyword the port forgot.
 """
@@ -67,6 +67,12 @@ MODULES = {
     "panel": "panel",
     "compat.sparkts": "compat.sparkts",
     "plot": "plot",
+    "serving.session": "serving.session",
+    "serving.admission": "serving.admission",
+    "serving.batcher": "serving.batcher",
+    "serving.profiles": "serving.profiles",
+    "serving.server": "serving.server",
+    "serving.tickloop": "serving.tickloop",
 }
 
 _DEVICE = ({"device"}, set())
@@ -134,10 +140,13 @@ ALLOWED = {
                  "time_series_rdd_from_pandas_dataframe",
                  "time_series_rdd_from_parquet")},
     **{("plot", n): _DEVICE for n in ("acf_plot", "pacf_plot")},
+    # a process group's devices are torch devices of any kind (a CPU
+    # device listed several times is how the gloo group runs on a CPU)
+    ("parallel.mesh", "init_distributed"): ({"devices"}, set()),
 }
 
-_ITEM_17 = ("the multi-lane walk, ROADMAP queue 1 item 17's second half")
-_ITEM_18 = ("serving and chaos, ROADMAP queue 1 item 18")
+_ITEM_18 = ("the wire and fleet half of serving, with chaos: ROADMAP "
+            "queue 1 item 18, second half")
 # (port module, name) -> why the reference's public name is absent
 ABSENT = {
     ("models.base", "jit_program"):
@@ -146,16 +155,8 @@ ABSENT = {
        "the port (deliberate difference)"
        for n in ("StragglerCarry", "lbfgs_batched_stage1",
                  "lbfgs_batched_stage2")},
-    **{("reliability.faultinject", n): _ITEM_17
-       for n in ("SimulatedLaneFailure", "lane_kill", "slow_lane",
-                 "lane_oom_storm")},
     **{("reliability.faultinject", n): _ITEM_18
-       for n in ("FaultyWire", "frame_fault_schedule", "request_storm",
-                 "server_kill", "slow_tenant")},
-    **{("reliability.plan", n): _ITEM_17
-       for n in ("LaneSupervisor", "RestagedPanel", "WorkQueue")},
-    **{("reliability.journal", n): _ITEM_17
-       for n in ("MergeWarmer", "ShardJournalView", "merge_job_manifest")},
+       for n in ("FaultyWire", "frame_fault_schedule")},
 }
 # (port module, class, method) -> why a public method is absent
 ABSENT_METHODS = {
@@ -174,23 +175,28 @@ ALLOWED_CTORS = {
        for n in ("ARIMAModel", "SeasonalARIMAModel", "ARModel", "EWMAModel",
                  "GARCHModel", "ARGARCHModel", "HoltWintersModel",
                  "RegressionARIMAModel")},
+    # the server and the tick loop fit on device= (default "cuda")
+    ("serving.server", "FitServer"): _DEVICE,
+    ("serving.tickloop", "TickLoop"): _DEVICE,
 }
 # package __init__ (relative name) -> names the reference exports that the
 # port's does not yet
 ABSENT_EXPORTS = {
-    "": {"serving": _ITEM_18},
-    "reliability": {
-        **dict.fromkeys(("ChaosEvent", "ChaosRunner", "InvariantViolation",
-                         "chaos", "chaos_schedule", "check_invariants",
-                         "load_chaos_manifest", "unavailability_windows",
-                         "write_chaos_manifest"), _ITEM_18),
-        **dict.fromkeys(("LaneSupervisor", "MergeWarmer", "RestagedPanel",
-                         "ShardJournalView", "WorkQueue",
-                         "merge_job_manifest"), _ITEM_17)},
+    "reliability": dict.fromkeys(
+        ("ChaosEvent", "ChaosRunner", "InvariantViolation", "chaos",
+         "chaos_schedule", "check_invariants", "load_chaos_manifest",
+         "unavailability_windows", "write_chaos_manifest"), _ITEM_18),
+    "serving": dict.fromkeys(
+        ("ClientDeadlineError", "EndpointHealthCache", "FitClient",
+         "FleetReplica", "FrameError", "NotLeaderError", "ReadOnlyError",
+         "RemoteTicket", "TransportError", "TransportServer",
+         "WireAuthError", "backoff_schedule", "client", "cooldown_schedule",
+         "discover_endpoints", "fleet", "health", "resolve_wire_secret",
+         "transport"), _ITEM_18),
 }
-# package __init__s the port has (serving is item 18)
+# package __init__s the port has
 PACKAGES = ("", "compat", "forecasting", "models", "obs", "ops", "parallel",
-            "reliability", "stats", "utils")
+            "reliability", "serving", "stats", "utils")
 
 
 def _shared_functions():
