@@ -204,6 +204,35 @@ Phases; each failure makes the script exit non-zero with no result line:
    the CPU tests only (one process here).  Child mode:
    ``python3 chip_smoke.py --serve-child run|recover ROOT [OUT]``.
 
+14. drive the wire and the fleet (``phase_wire_fleet``), with the launch
+   counts set to 0 before each step and read after it: (14a) a
+   ``serving.TransportServer`` armed with an HMAC secret in front of 13b's
+   ``FitServer`` configuration: 13b's eight 32,768 x 1,000 ragged tenants
+   from eight ``FitClient`` threads (131 MB a frame), admitted before the
+   serve loop starts, each bit for bit 13b's in-process answer with 13b's
+   launches and JSON-native meta; a wired ``submit_forecast`` == the
+   in-process one; a wrong secret a terminal ``WireAuthError``; four
+   tenants through a ``FaultyWire`` (``frame_fault_schedule`` with drops,
+   duplicates and tears) the same bits; the wired wall beside 13b's.
+   (14b) two ``FleetReplica`` child processes on one root (TTL 5 s, the
+   servers 13b's SIGKILL child's, on the card through ``server_kwargs``);
+   the primary ``server_kill(2, mid_commit=True)`` dies inside its second
+   commit; in the leaderless window a write bounces (``not_leader`` or
+   ``read_only``), a completed result is read from the standby, and a
+   forecast is answered by the standby's scratch server, bit for bit; the
+   standby wins a higher token and re-answers the in-flight requests bit
+   for bit an uninterrupted server's; the bounced write lands;
+   ``run_backtest(..., server=FitClient(endpoints))`` on 13c's panel ==
+   13c's served backtest; the survivor launched the CSS and moment
+   kernels.  (14c) the killed replica restarted (same owner, new pid)
+   joins as a standby; ``ChaosRunner(chaos_schedule(18, 8.0, n_events=3,
+   kinds=("kill", "pause")))`` (SIGKILL / SIGSTOP of the role's process)
+   while ``request_storm`` paces eight requests through the client;
+   ``check_invariants`` (conservation, bitwise re-answers, monotonic
+   tokens, bounded unavailability) returns ``[]``; the chaos manifest is
+   written and loads back.  Child mode: ``python3 chip_smoke.py
+   --fleet-child ROOT OWNER DEVICE KILL|- CELL STATUS``.
+
 The line before the last is a JSON object with one entry per kernel, and
 earlier lines JSON objects with the lag route's times, bounds and
 launches, with phase 9's walls, launches and counts, with phase 10's
@@ -213,7 +242,9 @@ of device memory, the commit and staging overlap), with phase 11's
 ...}``: walls, launches and peaks of each step, the fits' agreement) and
 with phase 13's (``{"lanes_serving": ...}``: walls, launches and peaks of
 each walk and request kind, the lanes' elastic records, the server's
-health);
+health) and with phase 14's (``{"wire_fleet": ...}``: walls, launches and
+peaks of each step, the wire faults, the children's roles, counters,
+launches and peaks, the chaos run's fired events and windows);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -3787,6 +3818,10 @@ def phase_lanes_serving(chk: Checks, device) -> dict:
 
         served = counted("13b fit requests", storm)
         kernels_ran("13b fit requests", SERVE_TENANTS)
+        # phase 14 holds its wired tenants to these answers and launches
+        out["_handoff"] = {"served": served,
+                           "launches": out["launches"]["13b fit requests"],
+                           "wall": out["walls_s"]["13b fit requests"]}
         chk.require(len(served) == SERVE_TENANTS and max(
             r.meta["batch_members"] for r in served) == 2,
             "13b eight tenants answered in two-member batches")
@@ -3847,6 +3882,7 @@ def phase_lanes_serving(chk: Checks, device) -> dict:
                     == json.dumps(bt_local.metrics, sort_keys=True),
                     "13c served backtest metrics == the local campaign's "
                     "(JSON, sorted keys)")
+        out["_handoff"]["backtest_metrics"] = bt_served.metrics
         srv.stop(timeout_s=300)
         health = srv.health()
         c = health["counters"]
@@ -3960,6 +3996,557 @@ def phase_lanes_serving(chk: Checks, device) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 13 in {out['phase_s']:.1f} s")
     return out
+
+
+
+FLEET_TTL_S = 5.0  # 14b-c: the replicas' lease TTL on the card
+WIRE_SECRET = "chip-smoke-wire"  # 14: the wire's shared HMAC secret
+WIRE_FAULT_TENANTS = 4  # 14a: tenants resubmitted through the lossy wire
+WIRE_FAULT_FRAMES = 12  # 14a: frames each connection's schedule covers
+WIRE_FAULT_SEED = 25  # 14a: dup, drop, tear in the first connection's frames
+LATE_ID = "late-0"  # 14b: the write sent into the leaderless window
+CHAOS_SEED, CHAOS_S = 18, 8.0  # 14c: kill the primary at 2.3 s, pauses
+STORM_REQS, STORM_ROWS = 8, 2_048  # 14c: one request a second of the span
+CHAOS_MAX_UNAVAILABLE_S = 20.0  # 14c: a TTL, an election and a replay
+FLEET_DIR = (Path(__file__).resolve().parent / "chiprun_out"
+             / "chip_smoke_fleet")
+
+
+def _fleet_kwargs(device, cell: int) -> dict:
+    """14b-c's replica servers: 13b's SIGKILL child's configuration."""
+    return dict(cell_rows=int(cell), max_batch_rows=SERVE_MAX_BATCH,
+                max_queue_rows=SERVE_MAX_QUEUE, autotune=False,
+                device=str(device))
+
+
+def fleet_child(root: str, owner: str, device: str, kill: str, cell: str,
+                status: str) -> int:
+    """14b-c's replica processes: one ``FleetReplica`` on ``root`` whose
+    servers fit on ``device`` on a grid of ``cell`` rows, armed with
+    ``faultinject.server_kill(kill, mid_commit=True)`` unless ``kill`` is
+    ``-``.  It writes its launch counts, counters, role and peak to
+    ``status`` every quarter second (a SIGKILLed replica leaves its last
+    record) and once more at stop, which ``<root>/stop_<owner>`` asks
+    for."""
+    import os
+
+    from spark_timeseries_tpu_torch.ops import _build
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.reliability import faultinject as fi
+    from spark_timeseries_tpu_torch.serving.fleet import FleetReplica
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # the context and the kernels before the election: a TTL never
+        # has to cover CUDA's start-up
+        torch.zeros(1, device=dev)
+        for name in _build.SOURCES:
+            _build.load(name)
+    kw = _fleet_kwargs(dev, int(cell))
+    if kill != "-":
+        kw["_commit_hook"] = fi.server_kill(int(kill), mid_commit=True)
+    rep = FleetReplica(root, owner=owner, ttl_s=FLEET_TTL_S,
+                       server_kwargs=kw)
+
+    def dump():
+        rec = {"owner": owner, "pid": os.getpid(), "role": rep.role(),
+               "launches": dict(ck.LAUNCHES), "counters": dict(rep.counters),
+               "peak_gib": _peak_gib(dev)}
+        tmp = status + ".tmp"
+        Path(tmp).write_text(json.dumps(rec))
+        os.replace(tmp, status)
+
+    rep.start()
+    stop = Path(root) / f"stop_{owner}"
+    while not stop.exists():
+        dump()
+        time.sleep(0.25)
+    rep.stop(timeout_s=120)
+    dump()
+    return 0
+
+
+def phase_wire_fleet(chk: Checks, device, handoff: dict) -> dict:
+    """Phase 14: the wire and the fleet.  (14a) a ``TransportServer``
+    armed with a secret in front of 13b's ``FitServer``: 13b's eight
+    tenants over the socket, a forecast, a wrong secret, a lossy wire;
+    (14b) two ``FleetReplica`` child processes on one root, the primary
+    killed by SIGKILL mid-commit, the standby's reads in the leaderless
+    window, the takeover's re-answers, a backtest through the fleet;
+    (14c) a seeded chaos run on that fleet under a request storm."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from spark_timeseries_tpu_torch import entry
+    from spark_timeseries_tpu_torch import forecasting as fc
+    from spark_timeseries_tpu_torch import serving
+    from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+    from spark_timeseries_tpu_torch.reliability import chaos
+    from spark_timeseries_tpu_torch.reliability import faultinject as fi
+    from spark_timeseries_tpu_torch.reliability import journal
+    from spark_timeseries_tpu_torch.serving import transport
+    from spark_timeseries_tpu_torch.serving.fleet import discover_endpoints
+
+    out = {"walls_s": {}, "launches": {}, "peak_gib": {}}
+    t_phase = time.perf_counter()
+    kernels3 = ("css_fwd", "css_bwd", "hr_moments")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_wire_"))
+    shutil.rmtree(FLEET_DIR, ignore_errors=True)
+    FLEET_DIR.mkdir(parents=True)
+    secret = WIRE_SECRET.encode()
+    kw = {"order": list(entry.ORDER)}
+    children: dict = {}
+
+    def counted(name, fn):
+        _sync(device)
+        _peak_gib(device, reset=True)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            _sync(device)
+            out["walls_s"][name] = time.perf_counter() - t0
+            out["launches"][name] = {k: ck.LAUNCHES[k] for k in kernels3}
+            out["peak_gib"][name] = _peak_gib(device)
+            log(f"  {name}: {out['walls_s'][name]:.3f} s, launches "
+                f"{out['launches'][name]}, peak "
+                f"{out['peak_gib'][name]:.2f} GiB")
+
+    def client(endpoints, **kw2):
+        kw2.setdefault("deadline_s", 600.0)
+        kw2.setdefault("secret", secret)
+        return serving.FitClient(endpoints, **kw2)
+
+    def spawn(owner, kill="-"):
+        st = FLEET_DIR / f"status_{owner}.json"
+        if st.exists():
+            st.unlink()
+        env = dict(os.environ, STSTPU_WIRE_SECRET=WIRE_SECRET)
+        # stderr to a file: a pipe nobody reads could fill and stall a child
+        with open(FLEET_DIR / f"{owner}.err", "a") as err:
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--fleet-child", str(root), owner, str(device), str(kill),
+                 str(KILL_ROWS), str(st)],
+                env=env, stdout=subprocess.DEVNULL, stderr=err)
+        children[owner] = (proc, st)
+        return proc
+
+    def status(owner) -> dict:
+        try:
+            return json.loads(children[owner][1].read_text())
+        except (OSError, ValueError):
+            return {}
+
+    def wait(cond, timeout_s, what):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if cond():
+                return True
+            time.sleep(0.05)
+        chk.require(False, f"14 waited {timeout_s:.0f} s for {what}")
+        return False
+
+    def holder():
+        return journal.read_lease(str(root)) or {}
+
+    try:
+        # -- 14a: one server over the wire ------------------------------------
+        log(f"phase 14a: TransportServer (HMAC armed) in front of 13b's "
+            f"FitServer on {device}: {SERVE_TENANTS} tenants x {SERVE_ROWS} "
+            f"x {TIME} ragged rows from {SERVE_TENANTS} client threads")
+        tenants = [_tenant_rows(SERVE_ROWS, 100 + i, device)
+                   for i in range(SERVE_TENANTS)]
+        srv = serving.FitServer(
+            str(tmp / "srv"), cell_rows=SERVE_CELL,
+            max_batch_rows=SERVE_MAX_BATCH, max_queue_rows=SERVE_MAX_QUEUE,
+            autotune=False, device=device)
+        ts = transport.TransportServer(srv, secret=secret).start()
+        ids = [f"w{i}" for i in range(SERVE_TENANTS)]
+
+        def wired():
+            # every tenant is admitted over the wire before the serve loop
+            # starts, so the batches are 13b's pairs
+            def one(i):
+                with client([ts.address]) as c:
+                    return c.submit(f"t{i}", tenants[i], "arima",
+                                    request_id=ids[i], **kw)
+
+            tickets, errors = fi.request_storm(
+                one, [((i,), {}) for i in range(SERVE_TENANTS)],
+                threads=SERVE_TENANTS, timeout_s=600)
+            chk.require(not any(errors), f"14a every wired submit admitted "
+                        f"({[repr(e)[:80] for e in errors if e]})")
+            srv.start()
+            with client([ts.address]) as c:
+                return [c.result_for(rid, timeout=600) for rid in ids]
+
+        got = counted("14a wired fit requests", wired)
+        served = handoff["served"]
+        chk.require(len(got) == SERVE_TENANTS and all(
+            _same_walk(g, s) for g, s in zip(got, served)),
+            "14a every wired tenant == 13b's in-process answer, bit for bit")
+        chk.require(out["launches"]["14a wired fit requests"]
+                    == handoff["launches"],
+                    f"14a launches {out['launches']['14a wired fit requests']}"
+                    f" == 13b's {handoff['launches']}")
+        chk.require(all(g.meta == json.loads(json.dumps(g.meta))
+                        and g.meta["batch_members"] == 2 for g in got),
+                    "14a wired meta is JSON-native, two-member batches")
+        out["wired_vs_inprocess_s"] = {
+            "wired": out["walls_s"]["14a wired fit requests"],
+            "in-process (13b)": handoff["wall"]}
+        wired_s = out["walls_s"]["14a wired fit requests"]
+        log(f"  14a walls: wired {wired_s:.3f} s, in-process (13b) "
+            f"{handoff['wall']:.3f} s")
+        fkw = dict(model="arima", horizon=HORIZON,
+                   model_kwargs={"order": entry.ORDER})
+        with client([ts.address]) as c:
+            fw = counted("14a wired forecast", lambda: c.submit_forecast(
+                "t0", tenants[0], served[0], request_id="fw-0",
+                **fkw).result(timeout=600))
+        fl = srv.submit_forecast("t0", tenants[0], served[0],
+                                 request_id="fl-0", **fkw).result(timeout=600)
+        chk.require(_same_walk(fw, fl), "14a wired forecast == the "
+                    "in-process forecast, bit for bit")
+        chk.require(out["launches"]["14a wired forecast"]["css_fwd"] > 0,
+                    "14a the wired forecast ran the CSS kernels")
+        t0 = time.monotonic()
+        try:
+            with client([ts.address], secret=b"wrong", retries=8) as c:
+                c.ping()
+            refused = False
+        except transport.WireAuthError:
+            refused = True
+        chk.require(refused and time.monotonic() - t0 < 10.0,
+                    "14a a wrong secret is a terminal WireAuthError, not "
+                    f"retried ({time.monotonic() - t0:.2f} s)")
+        wires = []
+
+        def lossy(sock):
+            w = fi.FaultyWire(sock, fi.frame_fault_schedule(
+                WIRE_FAULT_SEED + len(wires), WIRE_FAULT_FRAMES, drop_frac=0.1,
+                dup_frac=0.1, tear_frac=0.05))
+            wires.append(w)
+            return w
+
+        t0 = time.perf_counter()
+        with client([ts.address], io_timeout_s=5.0, backoff_base_s=0.02,
+                    _wire_wrap=lossy) as c:
+            lossy_got = [c.submit(f"t{i}", tenants[i], "arima",
+                                  request_id=ids[i], **kw).result(timeout=600)
+                         for i in range(WIRE_FAULT_TENANTS)]
+        out["walls_s"]["14a lossy wire"] = time.perf_counter() - t0
+        faults = [f for w in wires for f in w.log if f != "pass"]
+        chk.require(all(_same_walk(g, s) for g, s in zip(lossy_got, served))
+                    and faults, f"14a through a FaultyWire ({faults}) the "
+                    "same bits")
+        out["wire_faults"] = faults
+        ts.stop()
+        srv.stop(timeout_s=300)
+        del tenants, got, lossy_got, srv
+        shutil.rmtree(tmp / "srv", ignore_errors=True)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()  # the children share the card
+
+        # -- 14b: a fleet of two replicas ------------------------------------
+        root = FLEET_DIR / "root"
+        root.mkdir()
+        log(f"phase 14b: two FleetReplica children on one root, TTL "
+            f"{FLEET_TTL_S} s, cell {KILL_ROWS}; the primary dies by "
+            "SIGKILL mid-commit")
+        kill_rows = [_tenant_rows(KILL_ROWS, 300 + i, device)
+                     for i in range(len(KILL_IDS))]
+        late_rows = _tenant_rows(KILL_ROWS, 310, device)
+        ref = serving.FitServer(str(tmp / "uninterrupted"),
+                                **_fleet_kwargs(device, KILL_ROWS))
+        ref.start()
+        want = [ref.submit(f"k{i}", v, "arima", request_id=rid,
+                           **kw).result(timeout=600)
+                for i, (rid, v) in enumerate(zip(KILL_IDS, kill_rows))]
+        want_late = ref.submit("late", late_rows, "arima",
+                               request_id=LATE_ID, **kw).result(timeout=600)
+        want_fc = ref.submit_forecast("k0", kill_rows[0], want[0],
+                                      request_id="fs-0",
+                                      **fkw).result(timeout=600)
+        ref.stop(timeout_s=300)
+        os.sync()  # 14a's gigabyte of records must not stall the leases
+        t_fleet = time.perf_counter()
+        samples, stop_samp = [], threading.Event()
+
+        def sample():
+            # the lease's heartbeat age while the fleet runs: a primary
+            # whose fsyncs or GIL starve its heartbeat shows here first
+            while not stop_samp.is_set():
+                rec = holder()
+                if "heartbeat_at" in rec:
+                    samples.append((round(time.perf_counter() - t_fleet, 2),
+                                    rec.get("owner"), rec.get("token"),
+                                    round(time.time() - rec["heartbeat_at"],
+                                          2)))
+                stop_samp.wait(0.1)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+
+        a = spawn("a", kill=2)
+        wait(lambda: holder().get("owner") == "a" or a.poll() is not None,
+             180, "replica a's lease")
+        token_a = holder().get("token")
+        spawn("b")
+        wait(lambda: len(discover_endpoints(str(root))) == 2, 180,
+             "replica b's advert")
+        out["walls_s"]["14b two children up"] = time.perf_counter() - t_fleet
+        eps = discover_endpoints(str(root))
+        ep_b = json.loads((root / "endpoints" / "b.json").read_text())
+        ep_b = (ep_b["host"], ep_b["port"])
+        cli = client(eps, backoff_base_s=0.02, retries=64)
+        first = cli.submit("k0", kill_rows[0], "arima", request_id=KILL_IDS[0],
+                           **kw).result(timeout=600)
+        # the next commit is the primary's second: it dies inside it.  The
+        # submits run on a thread of their own: one that reaches the
+        # primary after its death retries until the election, and the
+        # window below must be watched while it lasts
+        inflight = {}
+        ci = client(eps, backoff_base_s=0.02, retries=64)
+
+        def send_inflight():
+            for i in (1, 2):
+                inflight[i] = ci.submit(f"k{i}", kill_rows[i], "arima",
+                                        request_id=KILL_IDS[i], **kw)
+
+        sender = threading.Thread(target=send_inflight, daemon=True)
+        sender.start()
+        wait(lambda: a.poll() is not None, 300, "replica a's death")
+        t_dead = time.perf_counter()
+        chk.require(a.returncode == -signal.SIGKILL and holder().get(
+            "owner") == "a", f"14b the primary died by SIGKILL mid-commit "
+            f"(exit {a.returncode}), the lease still names it")
+        # the leaderless window: writes bounce, reads flow from the standby
+        probe = socket_call(ep_b, {"op": "submit"},
+                            transport.encode_request_blob(
+                                late_rows, {"req_id": LATE_ID,
+                                            "tenant": "late",
+                                            "model": "arima",
+                                            "fit_kwargs": kw, "priority": 0,
+                                            "deadline_s": None}), secret)
+        chk.require(probe.get("error") in ("not_leader", "read_only"),
+                    f"14b a write in the leaderless window: "
+                    f"{probe.get('error')}")
+        with client([ep_b]) as cb:
+            read = cb.result_for(KILL_IDS[0], timeout=60)
+            fs = cb.submit_forecast("k0", kill_rows[0], first,
+                                    request_id="fs-0", **fkw)
+        window = time.perf_counter() - t_dead
+        late = cli.submit("late", late_rows, "arima", request_id=LATE_ID,
+                          **kw)
+        chk.require(_same_walk(first, want[0]) and _same_walk(read, want[0]),
+                    "14b the standby read a completed result, bit for bit")
+        sender.join(600)
+        reanswers = [inflight[i].result(timeout=600) for i in (1, 2)
+                     if i in inflight]
+        ci.close()
+        out["walls_s"]["14b death to re-answers"] = (time.perf_counter()
+                                                     - t_dead)
+        stop_samp.set()
+        sampler.join(10)
+        ages, dead_s = {}, t_dead - t_fleet
+        for t, owner, _, age in samples:
+            if owner != "a" or t < dead_s:  # a live holder's record only
+                ages[owner] = max(ages.get(owner, 0.0), age)
+        out["max_heartbeat_age_s"] = ages
+        log(f"  14b the largest heartbeat age of a live holder: {ages} "
+            f"(TTL {FLEET_TTL_S} s)")
+        rec = holder()
+        chk.require(rec.get("owner") == "b" and token_a is not None
+                    and rec.get("token", 0) > token_a,
+                    f"14b the standby won a higher token ({token_a} -> "
+                    f"{rec.get('token')})")
+        chk.require(len(reanswers) == 2 and all(
+            _same_walk(g, w) for g, w in zip(reanswers, want[1:])),
+                    "14b the takeover re-answered every in-flight request == "
+                    "an uninterrupted server, bit for bit")
+        with client([ep_b]) as cb:
+            fs_res = cb.result_for("fs-0", timeout=600)
+        chk.require(_same_walk(fs_res, want_fc)
+                    and "standby_scratch" in fs_res.meta["journal"]["dir"],
+                    "14b the standby's scratch server answered a forecast in "
+                    f"the window ({window:.2f} s after the death), bit for "
+                    "bit")
+        chk.require(_same_walk(late.result(timeout=600), want_late),
+                    "14b the bounced write landed on the new primary, bit "
+                    "for bit")
+        yb = entry.gen_panel(BACKTEST_ROWS, TIME, seed=31, device=device)
+        bt = counted("14b backtest through the fleet", lambda:
+                     fc.run_backtest(yb, "arima", 4, server=cli,
+                                     model_kwargs={"order": entry.ORDER},
+                                     device=device))
+        chk.require(json.dumps(bt.metrics, sort_keys=True)
+                    == json.dumps(handoff["backtest_metrics"],
+                                  sort_keys=True),
+                    "14b the backtest through the fleet == 13c's served "
+                    "backtest (JSON, sorted keys)")
+        del yb
+        sb = status("b")
+        la = sb.get("launches", {})
+        chk.require(sb.get("role") == "primary" and all(
+            la.get(k, 0) > 0 for k in kernels3),
+            f"14b the surviving primary launched the CSS and moment kernels "
+            f"on the card: {({k: la.get(k) for k in kernels3})}")
+        out["survivor_14b"] = sb
+
+        # -- 14c: a seeded chaos run -----------------------------------------
+        log(f"phase 14c: chaos_schedule({CHAOS_SEED}, {CHAOS_S}, n_events=3, "
+            "kinds=(kill, pause)) on the fleet, the killed replica restarted, "
+            f"under a storm of {STORM_REQS} x {STORM_ROWS} rows")
+        spawn("a")  # the killed replica restarted: same owner, new pid
+        wait(lambda: status("a").get("role") == "standby"
+             and len(discover_endpoints(str(root))) == 2, 180,
+             "the restarted replica to join as a standby")
+        cli.close()
+        eps = discover_endpoints(str(root))
+        cli = client(eps, backoff_base_s=0.02, retries=64)
+        schedule = chaos.chaos_schedule(CHAOS_SEED, CHAOS_S, n_events=3,
+                                        kinds=("kill", "pause"))
+        log(f"  schedule {[tuple(e) for e in schedule]}")
+        lease_hist, probes, stop_mon = [], [], threading.Event()
+        t_chaos = time.monotonic()
+
+        def alive():
+            return [o for o, (p, _) in children.items() if p.poll() is None]
+
+        def victim(target):
+            owner = holder().get("owner")
+            pool = [o for o in alive() if (o == owner) == (target ==
+                                                            "primary")]
+            return pool[0] if pool else None
+
+        def kill(ev):
+            v = victim(ev.target)
+            if v is None or len(alive()) < 2:
+                log(f"  chaos kill {ev.target}: declined (alive {alive()})")
+                return
+            children[v][0].send_signal(signal.SIGKILL)
+            log(f"  chaos kill {ev.target}: SIGKILL {v}")
+
+        def pause(ev):
+            v = victim(ev.target)
+            if v is None:
+                return
+            proc = children[v][0]
+            proc.send_signal(signal.SIGSTOP)
+            try:
+                time.sleep(ev.params["pause_s"])
+            finally:
+                proc.send_signal(signal.SIGCONT)
+            log(f"  chaos pause {ev.target}: {v} for {ev.params['pause_s']} s")
+
+        def monitor():
+            with client(eps, deadline_s=5.0, retries=2,
+                        backoff_base_s=0.02) as cp:
+                while not stop_mon.is_set():
+                    rec = holder()
+                    if rec.get("token") is not None:
+                        lease_hist.append({"token": rec["token"],
+                                           "owner": rec["owner"]})
+                    try:
+                        ok = _same_walk(cp.result_for(KILL_IDS[0],
+                                                      timeout=2.0), want[0])
+                    except Exception:  # noqa: BLE001 - a failed probe
+                        ok = False
+                    probes.append((time.monotonic() - t_chaos, ok))
+                    stop_mon.wait(0.1)
+
+        storm_rows = [_tenant_rows(STORM_ROWS, 400 + i, device)
+                      for i in range(STORM_REQS)]
+        storm_ids = [f"storm-{i}" for i in range(STORM_REQS)]
+        mon = threading.Thread(target=monitor, daemon=True)
+        mon.start()
+        runner = chaos.ChaosRunner(schedule, {"kill": kill, "pause": pause})
+        runner.start()
+        t0 = time.perf_counter()
+        def paced(i):
+            # one submit a second of the span: the storm outlives the kill
+            time.sleep(i * CHAOS_S / STORM_REQS)
+            return cli.submit(f"s{i}", storm_rows[i], "arima",
+                              request_id=storm_ids[i], **kw)
+
+        tickets, errors = fi.request_storm(
+            paced, [((i,), {}) for i in range(STORM_REQS)],
+            threads=STORM_REQS, timeout_s=600)
+        answers = {rid: (t.result(timeout=600) if t is not None else None)
+                   for rid, t in zip(storm_ids, tickets)}
+        fired, ch_errors = runner.join(timeout_s=120)
+        reanswers = {rid: cli.result_for(rid, timeout=600)
+                     for rid in storm_ids}
+        stop_mon.set()
+        mon.join(30)
+        out["walls_s"]["14c storm under chaos"] = time.perf_counter() - t0
+        violations = chaos.check_invariants(
+            expected_ids=storm_ids, answers=answers, reanswers=reanswers,
+            lease_history=lease_hist, probes=probes,
+            max_unavailable_s=CHAOS_MAX_UNAVAILABLE_S)
+        chk.require(not any(errors) and violations == [] and ch_errors == []
+                    and len(fired) == len(schedule),
+                    f"14c check_invariants == [] ({violations}), every event "
+                    f"fired ({len(fired)} of {len(schedule)}, errors "
+                    f"{ch_errors}), no submit refused")
+        windows = chaos.unavailability_windows(probes)
+        manifest = {"kind": "chip_smoke_chaos", "seed": CHAOS_SEED,
+                    "schedule": [e._asdict() for e in schedule],
+                    "fired": fired, "windows": windows,
+                    "lease_history": lease_hist[-50:],
+                    "violations": [v._asdict() for v in violations]}
+        chaos.write_chaos_manifest(str(root), manifest)
+        chk.require(chaos.load_chaos_manifest(str(root)) == json.loads(
+            json.dumps(manifest)), "14c the chaos manifest was written and "
+            "loads back")
+        out["chaos"] = {"fired": fired, "windows": windows,
+                        "tokens": sorted({h["token"] for h in lease_hist}),
+                        "probes": len(probes)}
+        cli.close()
+    finally:
+        for owner in list(children):
+            (FLEET_DIR / "root" / f"stop_{owner}").touch()
+        for owner, (proc, _) in children.items():
+            try:
+                proc.wait(timeout=180)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+            err = (FLEET_DIR / f"{owner}.err").read_text()
+            if proc.returncode not in (0, -signal.SIGKILL):
+                chk.require(False, f"14 replica {owner} exited "
+                            f"{proc.returncode}: {err[-400:]}")
+            out.setdefault("children", {})[owner] = {
+                "exit": proc.returncode, **status(owner)}
+        shutil.rmtree(tmp, ignore_errors=True)
+        for p in FLEET_DIR.rglob("*.npz"):
+            p.unlink()
+    for owner, rec in out.get("children", {}).items():
+        log(f"  replica {owner}: exit {rec['exit']}, role {rec.get('role')}, "
+            f"peak {rec.get('peak_gib', 0.0):.2f} GiB, counters "
+            f"{rec.get('counters')}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14 in {out['phase_s']:.1f} s")
+    return out
+
+
+def socket_call(ep, header: dict, blob: bytes, secret: bytes) -> dict:
+    """One raw request/reply on a fresh connection to ``ep``."""
+    import socket
+
+    from spark_timeseries_tpu_torch.serving import transport
+
+    with socket.create_connection(ep, timeout=60) as s:
+        transport.send_msg(s, {**header, "msg_id": "probe"}, blob, secret)
+        reply = transport.recv_msg(s, transport.FrameDecoder(),
+                                   secret=secret)
+    return reply[0] if reply else {}
 
 
 def build() -> int:
@@ -4359,6 +4946,9 @@ def main() -> int:
     lap("phase 12")
     lanes_serving = phase_lanes_serving(chk, device)
     lap("phase 13")
+    wire_fleet = phase_wire_fleet(chk, device,
+                                  lanes_serving.pop("_handoff"))
+    lap("phase 14")
     log(json.dumps({"css_lag_route": {
         "shape": [HOURLY_TIME - 1 - SEASON, HOURLY_ROWS], "times": lag,
         "launches": {"airline fit (8b)": search["airline_launches"],
@@ -4369,6 +4959,7 @@ def main() -> int:
     log(json.dumps({"search_forecast": search_fc}))
     log(json.dumps({"panel_mesh": panel_mesh}))
     log(json.dumps({"lanes_serving": lanes_serving}, default=str))
+    log(json.dumps({"wire_fleet": wire_fleet}, default=str))
     if chk.failures:
         return failed(chk)
     launches = {**main_run["launches"],
@@ -4394,4 +4985,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--serve-child"]:
         sys.exit(serve_child(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--fleet-child"]:
+        sys.exit(fleet_child(*sys.argv[2:]))
     sys.exit(main())

@@ -36,19 +36,25 @@ guarantees at row granularity:
 - :mod:`.delta` — delta walks: refit only the chunks whose rows changed.
 - :mod:`.watchdog` — :func:`call_with_deadline` / :class:`Deadline`:
   wall-clock budgets for a fit call and for a whole job.
-- :mod:`.faultinject` — deterministic data, behavioral, commit and disk
-  faults that drive every recovery path in tests.
+- :mod:`.faultinject` — deterministic data, behavioral, commit, disk,
+  lane, request and wire faults that drive every recovery path in tests.
+- :mod:`.chaos` — seeded chaos scenarios against a replica fleet: timed
+  schedules of composed faults, a runner, the invariant checker
+  (conservation, bitwise re-answers, monotonic fencing, bounded
+  unavailability), and the durable ``chaos_manifest.json`` record.
 
 ``fit_chunked(..., shard=True | mesh=)`` is the multi-lane walk: one lane
 per series-axis device of a mesh (:class:`LaneSupervisor` over a
 :class:`WorkQueue` makes a single-process one elastic), per-shard journal
 namespaces read across by :class:`ShardJournalView`, and one merged root
-manifest (:func:`merge_job_manifest`).  The reference's chaos scenarios
-(``chaos``) belong to the fleet and are not ported yet.
+manifest (:func:`merge_job_manifest`).
 """
 
-from . import (chunked, committer, delta, faultinject, journal, plan,
+from . import (chaos, chunked, committer, delta, faultinject, journal, plan,
                prefetcher, runner, sanitize, sink, source, status, watchdog)
+from .chaos import (ChaosEvent, ChaosRunner, InvariantViolation,
+                    chaos_schedule, check_invariants, load_chaos_manifest,
+                    unavailability_windows, write_chaos_manifest)
 from .chunked import OOMBackoffExceeded, fit_chunked, is_resource_exhausted
 from .committer import ChunkCommitter, CommitterStats
 from .delta import (DeltaError, DeltaPlan, StalePriorError, WarmstartFit,
@@ -72,6 +78,8 @@ from .status import STATUS_DTYPE, FitStatus, merge_status, status_counts
 from .watchdog import Deadline, DeadlineExceeded, call_with_deadline
 
 __all__ = [
+    "ChaosEvent",
+    "ChaosRunner",
     "ChunkCommitter",
     "ChunkJournal",
     "ChunkPrefetcher",
@@ -86,6 +94,7 @@ __all__ = [
     "FencedError",
     "FitStatus",
     "HostChunkSource",
+    "InvariantViolation",
     "JournalError",
     "LaneRunner",
     "LaneSpec",
@@ -114,6 +123,9 @@ __all__ = [
     "acquire_lease",
     "as_source",
     "call_with_deadline",
+    "chaos",
+    "chaos_schedule",
+    "check_invariants",
     "chunked",
     "committer",
     "config_hash",
@@ -123,6 +135,7 @@ __all__ = [
     "fit_chunked",
     "is_resource_exhausted",
     "journal",
+    "load_chaos_manifest",
     "merge_job_manifest",
     "merge_status",
     "panel_fingerprint",
@@ -138,6 +151,8 @@ __all__ = [
     "source",
     "status",
     "status_counts",
+    "unavailability_windows",
     "watchdog",
+    "write_chaos_manifest",
     "write_npz_shards",
 ]

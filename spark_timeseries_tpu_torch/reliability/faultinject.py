@@ -50,8 +50,13 @@ sharded walk carries.
 :func:`server_kill` is the serving spelling of
 :func:`kill_after_commits`, and :func:`slow_tenant` straggles any batch
 carrying one tenant's rows (keyed on :func:`~.watchdog.current_request`).
-The reference's wire faults (``frame_fault_schedule``, ``FaultyWire``)
-belong to the socket transport, which is not ported yet.
+
+**Wire faults** (the fleet's socket transport):
+:func:`frame_fault_schedule` maps a seed to a per-frame plan (pass / drop
+/ dup / tear, the reference's draws for the same seed) and
+:class:`FaultyWire` wraps a client socket to play it, with an optional
+connection reset after ``reset_after`` frames
+(``serving.FitClient(_wire_wrap=...)``).
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ from __future__ import annotations
 import functools
 import os
 import signal
+import socket
+import struct
 import threading
 import time
 from typing import Callable, Optional
@@ -93,6 +100,8 @@ __all__ = [
     "request_storm",
     "server_kill",
     "slow_tenant",
+    "frame_fault_schedule",
+    "FaultyWire",
 ]
 
 
@@ -651,3 +660,114 @@ def slow_tenant(fit_fn: Callable, tenant: str, delay_s: float) -> Callable:
         return fit_fn(yb, **kwargs)
 
     return wrapped
+
+
+# ---------------------------------------------------------------------------
+# transport faults (the fleet's socket plane: dropped / duplicated /
+# half-written frames and connection resets, deterministically seeded)
+# ---------------------------------------------------------------------------
+
+
+def frame_fault_schedule(seed: int, n: int, *, drop_frac: float = 0.1,
+                         dup_frac: float = 0.1,
+                         tear_frac: float = 0.05) -> list:
+    """A deterministic per-frame fault plan: ``n`` entries drawn from
+    ``{"pass", "drop", "dup", "tear"}`` with the given rates.  Same seed
+    → same schedule, bit for bit (numpy's ``default_rng``, as the
+    reference draws it), so a transport test's fault pattern is
+    reproducible from its seed alone (the client's backoff jitter is
+    seeded the same way — :func:`serving.client.backoff_schedule`)."""
+    if drop_frac + dup_frac + tear_frac > 1.0:
+        raise ValueError("fault fractions must sum to at most 1.0")
+    rng = np.random.default_rng(int(seed))
+    u = rng.random(int(n))
+    out = []
+    for x in u:
+        if x < drop_frac:
+            out.append("drop")
+        elif x < drop_frac + dup_frac:
+            out.append("dup")
+        elif x < drop_frac + dup_frac + tear_frac:
+            out.append("tear")
+        else:
+            out.append("pass")
+    return out
+
+
+class FaultyWire:
+    """A lossy socket: each ``sendall`` (one wire frame, by the transport
+    layer's one-``sendall``-per-message contract) consumes the next entry
+    of a :func:`frame_fault_schedule` — ``pass`` forwards the frame,
+    ``drop`` swallows it (the peer never sees it; the client's deadline +
+    resubmit machinery must recover), ``dup`` forwards it twice (the
+    server must ack idempotently and the client must pair replies by
+    msg id), ``tear`` forwards a half-frame prefix then resets the
+    connection (the peer's CRC/EOF validation must reject the torn frame
+    loudly).  ``reset_after=k`` additionally drops the connection after
+    ``k`` successful frames — the mid-batch reset fault.  Past the end of
+    the schedule every frame passes (faults are a finite storm, not a
+    dead wire).  Duck-types the socket surface the transport layer uses
+    (``sendall/recv/settimeout/close``); wrap client connections via
+    ``FitClient(_wire_wrap=...)``."""
+
+    def __init__(self, sock, schedule, *, reset_after: Optional[int] = None):
+        self._sock = sock
+        self._schedule = list(schedule)
+        self._sent = 0
+        self._ok = 0
+        self._reset_after = None if reset_after is None else int(reset_after)
+        self.log: list = []
+
+    def _next_fault(self) -> str:
+        i = self._sent
+        self._sent += 1
+        if self._reset_after is not None and self._ok >= self._reset_after:
+            return "reset"
+        return self._schedule[i] if i < len(self._schedule) else "pass"
+
+    def sendall(self, data: bytes) -> None:
+        fault = self._next_fault()
+        self.log.append(fault)
+        if fault == "drop":
+            return
+        if fault == "dup":
+            self._sock.sendall(data)
+            self._sock.sendall(data)
+            self._ok += 1
+            return
+        if fault == "tear":
+            self._sock.sendall(data[: max(1, len(data) // 2)])
+            self._reset()
+            raise ConnectionResetError(
+                "simulated torn frame (reliability.faultinject.FaultyWire)")
+        if fault == "reset":
+            self._reset()
+            raise ConnectionResetError(
+                "simulated connection reset "
+                "(reliability.faultinject.FaultyWire)")
+        self._sock.sendall(data)
+        self._ok += 1
+
+    def _reset(self) -> None:
+        try:
+            # SO_LINGER 0: RST on close, not FIN — an abrupt peer death
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                                  struct.pack("ii", 1, 0))
+        except OSError:
+            pass
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+    def recv(self, n: int) -> bytes:
+        return self._sock.recv(n)
+
+    def settimeout(self, t) -> None:
+        self._sock.settimeout(t)
+
+    def close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
+            pass

@@ -1251,7 +1251,13 @@ def lease_is_live(root: str, *, now: Optional[float] = None) -> bool:
     The freshness source is the lease record's heartbeat when it carries
     the highest token, else the highest claim file's mtime (the window
     between a claim landing and its first heartbeat write)."""
-    top = highest_claim(root)
+    return _claim_is_live(root, highest_claim(root), now)
+
+
+def _claim_is_live(root: str, top: int, now: Optional[float] = None) -> bool:
+    """Whether claim ``top`` (the highest one a caller read) is live: the
+    body of :func:`lease_is_live` for a top the caller has already read,
+    so an election judges the same claim it then tries to follow."""
     if top == 0:
         return False
     now = time.time() if now is None else now  # lint: nondet(lease liveness is wall-clock by design; never fitted bytes)
@@ -1339,13 +1345,21 @@ def acquire_lease(root: str, owner: str, *,
     per token, and a fresh claim counts as live (``lease_is_live``), so
     a racer that lost the claim sees the winner as the holder and backs
     off.  Callers poll — a standby loops ``acquire_lease`` until the
-    incumbent's heartbeat goes stale."""
+    incumbent's heartbeat goes stale.
+
+    Each round reads the highest claim ONCE, judges that claim's liveness
+    and links the next token after it.  Reading it twice (once to judge,
+    once to choose the token) seats two winners: a racer that judged "no
+    live holder" before another racer linked ``claim_1`` would then link
+    ``claim_2`` and win too.  With one read it tries ``claim_1`` and
+    loses on ``FileExistsError``."""
     root = os.path.abspath(root)
     os.makedirs(_claims_dir(root), exist_ok=True)
     for _ in range(64):
-        if lease_is_live(root):
+        top = highest_claim(root)
+        if _claim_is_live(root, top):
             return None
-        token = highest_claim(root) + 1
+        token = top + 1
         claim = {
             "token": token,
             "owner": str(owner),

@@ -41,30 +41,63 @@ Quickstart::
   forecast, publish through a write-back sink, all as one journaled cycle
   that resumes bitwise after SIGKILL.
 
-The reference's socket transport, remote client, endpoint health cache
-and replica fleet (``transport``, ``client``, ``health``, ``fleet``) are
-not ported yet.
+- :mod:`.transport` — the length-prefixed socket wire protocol:
+  CRC-framed (optionally HMAC-armed) messages carrying the durable
+  npz+JSON request spelling verbatim, and :class:`TransportServer`, the
+  per-replica socket front end.  The bytes are the reference's.
+- :mod:`.client` — :class:`FitClient`: kill-tolerant remote access with
+  idempotent resubmit on existing request ids, bounded deterministic
+  backoff, per-call deadlines, and reconnect-safe result polling.  Host
+  code: a tensor argument is read to the host once.
+- :mod:`.health` — :class:`EndpointHealthCache`: the client's
+  per-endpoint circuit breaker / primary belief / latency EWMA; writes
+  prefer the believed primary, reads fan to healthy standbys, failing
+  endpoints cool down on a seeded deterministic schedule.
+- :mod:`.fleet` — :class:`FleetReplica`: N replicas on one checkpoint
+  root under a lease/fencing protocol; a SIGKILLed primary's write-ahead
+  requests are taken over and re-answered bitwise by a surviving peer,
+  stale-token zombies lose loudly (:class:`FencedError`), standbys serve
+  forecast reads from a private scratch root, leaderless windows answer
+  typed ``read_only``, and a primary whose disk refuses writes steps
+  down cleanly.  The device rides ``server_kwargs`` to each replica's
+  ``FitServer``.
 """
 
-from . import admission, batcher, profiles, server, session, tickloop
+from . import (admission, batcher, client, fleet, health, profiles, server,
+               session, tickloop, transport)
 from .admission import AdmissionQueue, TenantQuota
 from .batcher import MicroBatch, batch_key
+from .client import (ClientDeadlineError, FitClient, RemoteTicket,
+                     backoff_schedule)
+from .fleet import FleetReplica, discover_endpoints
+from .health import EndpointHealthCache, cooldown_schedule
 from .profiles import TenantProfileStore
 from .server import FORECAST_MODEL, FitServer
 from .session import (CancelledError, FitRequest, FitTicket, RejectedError,
                       ServerClosedError, StorageError, TenantFitResult)
 from .tickloop import CycleResult, TickLoop, TickLoopError
+from .transport import (FrameError, NotLeaderError, ReadOnlyError,
+                        TransportError, TransportServer, WireAuthError,
+                        resolve_wire_secret)
 
 __all__ = [
     "AdmissionQueue",
     "CancelledError",
+    "ClientDeadlineError",
     "CycleResult",
+    "EndpointHealthCache",
     "FORECAST_MODEL",
+    "FitClient",
     "FitRequest",
     "FitServer",
     "FitTicket",
+    "FleetReplica",
+    "FrameError",
     "MicroBatch",
+    "NotLeaderError",
+    "ReadOnlyError",
     "RejectedError",
+    "RemoteTicket",
     "ServerClosedError",
     "StorageError",
     "TenantFitResult",
@@ -72,11 +105,22 @@ __all__ = [
     "TenantQuota",
     "TickLoop",
     "TickLoopError",
+    "TransportError",
+    "TransportServer",
+    "WireAuthError",
     "admission",
+    "backoff_schedule",
     "batch_key",
     "batcher",
+    "client",
+    "cooldown_schedule",
+    "discover_endpoints",
+    "fleet",
+    "health",
     "profiles",
+    "resolve_wire_secret",
     "server",
     "session",
     "tickloop",
+    "transport",
 ]

@@ -69,7 +69,8 @@ from ..reliability.status import FitStatus
 from ..utils import compile_cache
 from . import _advise, batcher
 from .admission import AdmissionQueue, TenantQuota
-from ..reliability.journal import consult_disk_fault, tear_after_replace
+from ..reliability.journal import (FencedError, consult_disk_fault,
+                                   tear_after_replace)
 from ..reliability.runner import _accepted_kwargs, _host
 from .session import (FitRequest, FitTicket, RejectedError,
                       ServerClosedError, StorageError, TenantFitResult)
@@ -734,7 +735,10 @@ class FitServer:
                     f"server crashed ({type(e).__name__}); the request is "
                     "durable — restart the server on this root to "
                     "re-answer it"))
-            if not isinstance(e, (SimulatedCrash, KeyboardInterrupt)):
+            if isinstance(e, FencedError):
+                # a fenced zombie stopping is the fencing contract working
+                obs.event("server.fenced", error=repr(e)[:300])
+            elif not isinstance(e, (SimulatedCrash, KeyboardInterrupt)):
                 obs.event("server.crash", error=repr(e)[:300])
                 raise
 
@@ -855,7 +859,14 @@ class FitServer:
         solo so a poisoned tenant panel is isolated to its own request
         (the serving rung of the quarantine ladder); a solo failure
         lands on that request's ticket alone.  The server keeps serving
-        either way."""
+        either way — except for a :class:`FencedError`: a zombie primary
+        whose lease was superseded (the commit hook's check, on the
+        committer thread) must stop, not re-run each member solo on the
+        card only to be fenced again, so it takes the serve loop's crash
+        path as an auto request's does; the successor re-answers from
+        the durable records."""
+        if isinstance(error, FencedError):
+            raise error
         with self._counters_lock:
             self.counters["batch_failures"] += 1
         self._note_degraded()

@@ -4,9 +4,8 @@ Every public name of a ported module (and of a ported package's
 ``__init__``) exists in the port, and every public function and class the
 reference module defines takes the same keyword set in the port —
 constructors and public methods included — except for the differences
-recorded under ``ROADMAP.md`` queue 3, "Deliberate differences", and the
-names of the modules still to port (ROADMAP queue 1: the wire and fleet
-half of item 18), which are listed here with their reasons.  A call written for the
+recorded under ``ROADMAP.md`` queue 3, "Deliberate differences", which
+are listed here with their reasons.  A call written for the
 reference then never meets an ``AttributeError`` or a ``TypeError`` on the
 port for a name or keyword the port forgot.
 """
@@ -73,6 +72,11 @@ MODULES = {
     "serving.profiles": "serving.profiles",
     "serving.server": "serving.server",
     "serving.tickloop": "serving.tickloop",
+    "serving.health": "serving.health",
+    "serving.transport": "serving.transport",
+    "serving.client": "serving.client",
+    "serving.fleet": "serving.fleet",
+    "reliability.chaos": "reliability.chaos",
 }
 
 _DEVICE = ({"device"}, set())
@@ -145,8 +149,6 @@ ALLOWED = {
     ("parallel.mesh", "init_distributed"): ({"devices"}, set()),
 }
 
-_ITEM_18 = ("the wire and fleet half of serving, with chaos: ROADMAP "
-            "queue 1 item 18, second half")
 # (port module, name) -> why the reference's public name is absent
 ABSENT = {
     ("models.base", "jit_program"):
@@ -155,8 +157,6 @@ ABSENT = {
        "the port (deliberate difference)"
        for n in ("StragglerCarry", "lbfgs_batched_stage1",
                  "lbfgs_batched_stage2")},
-    **{("reliability.faultinject", n): _ITEM_18
-       for n in ("FaultyWire", "frame_fault_schedule")},
 }
 # (port module, class, method) -> why a public method is absent
 ABSENT_METHODS = {
@@ -180,20 +180,8 @@ ALLOWED_CTORS = {
     ("serving.tickloop", "TickLoop"): _DEVICE,
 }
 # package __init__ (relative name) -> names the reference exports that the
-# port's does not yet
-ABSENT_EXPORTS = {
-    "reliability": dict.fromkeys(
-        ("ChaosEvent", "ChaosRunner", "InvariantViolation", "chaos",
-         "chaos_schedule", "check_invariants", "load_chaos_manifest",
-         "unavailability_windows", "write_chaos_manifest"), _ITEM_18),
-    "serving": dict.fromkeys(
-        ("ClientDeadlineError", "EndpointHealthCache", "FitClient",
-         "FleetReplica", "FrameError", "NotLeaderError", "ReadOnlyError",
-         "RemoteTicket", "TransportError", "TransportServer",
-         "WireAuthError", "backoff_schedule", "client", "cooldown_schedule",
-         "discover_endpoints", "fleet", "health", "resolve_wire_secret",
-         "transport"), _ITEM_18),
-}
+# port's does not (none: the port exports every one)
+ABSENT_EXPORTS = {}
 # package __init__s the port has
 PACKAGES = ("", "compat", "forecasting", "models", "obs", "ops", "parallel",
             "reliability", "serving", "stats", "utils")
