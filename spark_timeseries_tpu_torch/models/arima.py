@@ -420,26 +420,28 @@ def fit(
     if count_evals and method == "hannan-rissanen":
         raise ValueError("count_evals requires an optimizing method")
     seasonal = _validate_seasonal(seasonal)
-    if seasonal is not None:
-        return _fit_seasonal(
-            y, order, seasonal, include_intercept, method=method,
-            init_params=init_params, max_iters=max_iters, tol=tol,
-            backend=backend, count_evals=count_evals, compact=compact,
-            align_mode=align_mode, device=device)
-    p, d, q = order
-    yb, single = ensure_batched(to_device(y, device))
-    if tol is None:
-        # f32 gradients of a ~1k-term CSS bottom out near 1e-4 relative noise
-        tol = 1e-6 if yb.dtype == torch.float64 else 1e-4
-    backend = resolve_backend(backend, yb,
-                              structural_ok=ck.css_structural_ok(p, q))
-    require_pallas_for_count_evals(count_evals, backend)
-    align_mode = resolve_align_mode(yb, align_mode)
-    with torch.no_grad():
-        out = _fit_css(yb, order, include_intercept, method, backend,
-                       max_iters, float(tol), init_params, align_mode,
-                       compact, count_evals)
-    return debatch_fit(out, single, count_evals)
+    with obs.span("fit.arima") as sp:
+        if seasonal is not None:
+            return _fit_seasonal(
+                y, order, seasonal, include_intercept, method=method,
+                init_params=init_params, max_iters=max_iters, tol=tol,
+                backend=backend, count_evals=count_evals, compact=compact,
+                align_mode=align_mode, device=device, span=sp)
+        p, d, q = order
+        yb, single = ensure_batched(to_device(y, device))
+        if tol is None:
+            # f32 gradients of a ~1k-term CSS bottom out near 1e-4
+            # relative noise
+            tol = 1e-6 if yb.dtype == torch.float64 else 1e-4
+        backend = resolve_backend(backend, yb,
+                                  structural_ok=ck.css_structural_ok(p, q))
+        sp.set(rows=yb.shape[0], time=yb.shape[1], backend=backend)
+        require_pallas_for_count_evals(count_evals, backend)
+        with torch.no_grad():
+            out = _fit_css(yb, order, include_intercept, method, backend,
+                           max_iters, float(tol), init_params, align_mode,
+                           compact, count_evals)
+        return debatch_fit(out, single, count_evals)
 
 
 def _css_prep(yb, init_params, order: Order, include_intercept: bool,
@@ -482,6 +484,7 @@ def _objective(backend, order, include_intercept, yd, nvd, yt, zb, n_eff):
     T = yd.shape[1]
     if backend == "cuda":
         def fb(P, yt=yt, zb=zb, nv=nvd, ne=n_eff):
+            optim.count_objective(P, T)
             return ck.css_neg_loglik_folded(P, yt, zb, T, order,
                                             include_intercept, nv) / ne
 
@@ -493,6 +496,7 @@ def _objective(backend, order, include_intercept, yd, nvd, yt, zb, n_eff):
             return lambda P: fb(P, *sub)
     else:
         def fb(P, yd=yd, nv=nvd, ne=n_eff):
+            optim.count_objective(P, T)
             return css_neg_loglik(P, yd, order, include_intercept, nv) / ne
 
         def straggler(idxc):
@@ -503,17 +507,24 @@ def _objective(backend, order, include_intercept, yd, nvd, yt, zb, n_eff):
 
 def _fit_css(yb, order: Order, include_intercept: bool, method: str,
              backend: str, max_iters: int, tol: float, init_params,
-             align_mode: str, compact: bool, count_evals: bool = False):
-    yd, nvd, yt, zb, init, ok, n_eff = _css_prep(
-        yb, init_params, order, include_intercept, backend, align_mode)
-    fb, straggler = _objective(backend, order, include_intercept, yd, nvd,
-                               yt, zb, n_eff)
+             align_mode: Optional[str], compact: bool,
+             count_evals: bool = False):
+    """The plain CSS fit of a batched panel: its preparation (``align_mode``
+    ``None`` probes the panel), the optimizer and the finalization, each in
+    its span."""
+    with obs.span("fit.prep"):
+        align_mode = resolve_align_mode(yb, align_mode)
+        yd, nvd, yt, zb, init, ok, n_eff = _css_prep(
+            yb, init_params, order, include_intercept, backend, align_mode)
+        fb, straggler = _objective(backend, order, include_intercept, yd,
+                                   nvd, yt, zb, n_eff)
     if method == "hannan-rissanen":
-        nll = fb(init) * n_eff
-        params = torch.where(ok[:, None], init, torch.nan)
-        z = torch.zeros(yd.shape[0], dtype=torch.int32, device=yd.device)
-        return FitResult(params, torch.where(ok, nll, torch.nan), ok, z,
-                         derive_status(ok, ok, params))
+        with obs.span("fit.finalize"):
+            nll = fb(init) * n_eff
+            params = torch.where(ok[:, None], init, torch.nan)
+            z = torch.zeros(yd.shape[0], dtype=torch.int32, device=yd.device)
+            return FitResult(params, torch.where(ok, nll, torch.nan), ok, z,
+                             derive_status(ok, ok, params))
     bsz = yd.shape[0]
     if backend == "cuda":
         del yd  # the objective reads only the time-major copy
@@ -523,7 +534,8 @@ def _fit_css(yb, order: Order, include_intercept: bool, method: str,
         straggler_fun=straggler if gate else None,
         straggler_cap=optim.compaction_cap(bsz))
     res, info = res if count_evals else (res, None)
-    out = _finalize_css_fit(res, ok, n_eff)
+    with obs.span("fit.finalize"):
+        out = _finalize_css_fit(res, ok, n_eff)
     return (out, info) if count_evals else out
 
 
@@ -539,9 +551,10 @@ def _fit_seasonal(y, order: Order, seasonal: Seasonal,
                   include_intercept: bool, *, method: str, init_params,
                   max_iters: int, tol: Optional[float], backend: str,
                   count_evals: bool, compact: bool,
-                  align_mode: Optional[str], device) -> FitResult:
+                  align_mode: Optional[str], device,
+                  span=obs.NULL_SPAN) -> FitResult:
     """Seasonal branch of :func:`fit` (validated ``seasonal`` only), with
-    the reference's refusals."""
+    the reference's refusals; ``span`` is the caller's ``fit.arima``."""
     if method == "hannan-rissanen":
         raise ValueError(
             "seasonal orders require an optimizing CSS method "
@@ -562,7 +575,7 @@ def _fit_seasonal(y, order: Order, seasonal: Seasonal,
     backend = resolve_backend(backend, yb,
                               structural_ok=ck.css_structural_ok(p_full,
                                                                  q_full))
-    align_mode = resolve_align_mode(yb, align_mode)
+    span.set(rows=yb.shape[0], time=yb.shape[1], backend=backend)
     with torch.no_grad():
         out = _fit_sarima(yb, order, seasonal, include_intercept, backend,
                           max_iters, float(tol), init_params, align_mode,
@@ -572,64 +585,74 @@ def _fit_seasonal(y, order: Order, seasonal: Seasonal,
 
 def _fit_sarima(yb, order: Order, seasonal: Seasonal,
                 include_intercept: bool, backend: str, max_iters: int,
-                tol: float, init_params, align_mode: str, compact: bool):
-    """Align, both differencings, the non-seasonal Hannan-Rissanen warm
-    start (the P + Q seasonal terms start at 0), the reference's
-    identifiability gate, and the batched L-BFGS on the expanded-polynomial
-    objective, with straggler compaction as in the plain fit."""
-    p, d, q = order
-    P, D, Q, s = seasonal
-    k = _n_params_seasonal(order, seasonal, include_intercept)
-    p_full, q_full, d_full = seasonal_lag_span(order, seasonal)
-    ya, nv0 = maybe_align(yb, align_mode)  # ragged: NaN head/tail
-    yd = _difference_seasonal(_difference(ya, d), D, s)
-    del ya
-    nvd = nv0 - d_full  # valid length after both differencings
-    bsz, T = yd.shape
-    yt = zb = None
-    if backend == "cuda":
-        yt, zb = ck.css_prefold(yd, (p_full, 0, q_full), nvd)
-    if init_params is not None:
-        init = torch.as_tensor(init_params, dtype=yd.dtype, device=yd.device)
-        init = init.expand(bsz, k).clone()
-    else:
-        if yt is not None and ck.hr_structural_ok(p, q):
-            base = ck.hr_init(yd, (p, 0, q), include_intercept, nvd, yt=yt)
+                tol: float, init_params, align_mode: Optional[str],
+                compact: bool):
+    """Align (``align_mode`` ``None`` probes the panel), both
+    differencings, the non-seasonal Hannan-Rissanen warm start (the P + Q
+    seasonal terms start at 0), the reference's identifiability gate, and
+    the batched L-BFGS on the expanded-polynomial objective, with straggler
+    compaction as in the plain fit."""
+    with obs.span("fit.prep"):
+        align_mode = resolve_align_mode(yb, align_mode)
+        p, d, q = order
+        P, D, Q, s = seasonal
+        k = _n_params_seasonal(order, seasonal, include_intercept)
+        p_full, q_full, d_full = seasonal_lag_span(order, seasonal)
+        ya, nv0 = maybe_align(yb, align_mode)  # ragged: NaN head/tail
+        yd = _difference_seasonal(_difference(ya, d), D, s)
+        del ya
+        nvd = nv0 - d_full  # valid length after both differencings
+        bsz, T = yd.shape
+        yt = zb = None
+        if backend == "cuda":
+            yt, zb = ck.css_prefold(yd, (p_full, 0, q_full), nvd)
+        if init_params is not None:
+            init = torch.as_tensor(init_params, dtype=yd.dtype,
+                                   device=yd.device)
+            init = init.expand(bsz, k).clone()
         else:
-            base = hannan_rissanen_batched(yd, (p, 0, q), include_intercept,
-                                           nvd)
-        init = torch.cat([base, base.new_zeros(bsz, P + Q)], dim=1)
-    ok = nvd >= p_full + q_full + max(p_full + q_full + 1, 1) + k + 2
-    if init_params is None:
-        ok = ok & (nvd >= 4 * (p + q + 1))
-    n_eff = torch.clamp(nvd - p_full, min=1).to(yd.dtype)
-    if backend == "cuda":
-        lags = _lag_support(order, seasonal)
+            if yt is not None and ck.hr_structural_ok(p, q):
+                base = ck.hr_init(yd, (p, 0, q), include_intercept, nvd,
+                                  yt=yt)
+            else:
+                base = hannan_rissanen_batched(yd, (p, 0, q),
+                                               include_intercept, nvd)
+            init = torch.cat([base, base.new_zeros(bsz, P + Q)], dim=1)
+        ok = nvd >= p_full + q_full + max(p_full + q_full + 1, 1) + k + 2
+        if init_params is None:
+            ok = ok & (nvd >= 4 * (p + q + 1))
+        n_eff = torch.clamp(nvd - p_full, min=1).to(yd.dtype)
+        if backend == "cuda":
+            lags = _lag_support(order, seasonal)
 
-        def fb(P_, yt=yt, zb=zb, nv=nvd, ne=n_eff):
-            kp = _sarima_kernel_params(P_, order, seasonal, include_intercept)
-            css = ck.css_sse_folded(kp, yt, zb, p_full, q_full, lags=lags)
-            return _concentrated(css, nv.to(kp.dtype) - p_full) / ne
+            def fb(P_, yt=yt, zb=zb, nv=nvd, ne=n_eff):
+                optim.count_objective(P_, T)
+                kp = _sarima_kernel_params(P_, order, seasonal,
+                                           include_intercept)
+                css = ck.css_sse_folded(kp, yt, zb, p_full, q_full, lags=lags)
+                return _concentrated(css, nv.to(kp.dtype) - p_full) / ne
 
-        def straggler(idxc):
-            sub = (yt[:, idxc].contiguous(), zb[idxc], nvd[idxc],
-                   n_eff[idxc])
-            return lambda P_: fb(P_, *sub)
-        del yd  # the objective reads only the time-major copy
-    else:
-        def fb(P_, yd=yd, nv=nvd, ne=n_eff):
-            return sarima_neg_loglik(P_, yd, order, seasonal,
-                                     include_intercept, nv) / ne
+            def straggler(idxc):
+                sub = (yt[:, idxc].contiguous(), zb[idxc], nvd[idxc],
+                       n_eff[idxc])
+                return lambda P_: fb(P_, *sub)
+            del yd  # the objective reads only the time-major copy
+        else:
+            def fb(P_, yd=yd, nv=nvd, ne=n_eff):
+                optim.count_objective(P_, T)
+                return sarima_neg_loglik(P_, yd, order, seasonal,
+                                         include_intercept, nv) / ne
 
-        def straggler(idxc):
-            sub = (yd[idxc], nvd[idxc], n_eff[idxc])
-            return lambda P_: fb(P_, *sub)
+            def straggler(idxc):
+                sub = (yd[idxc], nvd[idxc], n_eff[idxc])
+                return lambda P_: fb(P_, *sub)
     gate = compact and bsz >= _COMPACT_MIN_BATCH
     res = optim.minimize_lbfgs_batched(
         fb, init, max_iters=max_iters, tol=tol,
         straggler_fun=straggler if gate else None,
         straggler_cap=optim.compaction_cap(bsz))
-    return _finalize_css_fit(res, ok, n_eff)
+    with obs.span("fit.finalize"):
+        return _finalize_css_fit(res, ok, n_eff)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from .. import obs
 from ..ops import cuda_kernels as ck
 from ..ops.layout import time_major
 from ..utils import optim
@@ -166,16 +167,17 @@ def fit(r, *, max_iters: int = 80, tol: Optional[float] = None,
     ``(FitResult, info)``, the optimizer's pass accounting
     (``utils.optim``), on either backend.
     """
-    rb, single = ensure_batched(to_device(r, device))
-    if tol is None:
-        tol = 1e-7 if rb.dtype == torch.float64 else 1e-4
-    backend = resolve_backend(backend, rb)
-    require_pallas_for_count_evals(count_evals, backend)
-    align_mode = resolve_align_mode(rb, align_mode)
-    with torch.no_grad():
-        out = _fit_garch(rb, max_iters, float(tol), backend, align_mode,
-                         compact, count_evals)
-    return debatch_fit(out, single, count_evals)
+    with obs.span("fit.garch") as sp:
+        rb, single = ensure_batched(to_device(r, device))
+        if tol is None:
+            tol = 1e-7 if rb.dtype == torch.float64 else 1e-4
+        backend = resolve_backend(backend, rb)
+        sp.set(rows=rb.shape[0], time=rb.shape[1], backend=backend)
+        require_pallas_for_count_evals(count_evals, backend)
+        with torch.no_grad():
+            out = _fit_garch(rb, max_iters, float(tol), backend, align_mode,
+                             compact, count_evals)
+        return debatch_fit(out, single, count_evals)
 
 
 def _garch_prep(rb, align_mode: str):
@@ -194,6 +196,7 @@ def _garch_prep(rb, align_mode: str):
 def _garch_objective(backend, ra, nv, n_eff):
     """The batched mean-nll objective ``u [B, 3] -> [B]`` and its straggler
     builder (``idxc -> objective over the gathered rows``)."""
+    T = ra.shape[1]
     if backend == "cuda":
         # one layout conversion per fit; h0 depends only on the data
         rzt, mask, nvf, zb = ck.garch_prefold(ra, nv)
@@ -201,6 +204,7 @@ def _garch_objective(backend, ra, nv, n_eff):
         del mask
 
         def fb(u, rzt=rzt, h0=h0, zb=zb, ne=n_eff):
+            optim.count_objective(u, T)
             return ck.garch_neg_loglik_folded(_to_natural(u), rzt, h0,
                                               zb) / ne
 
@@ -211,6 +215,7 @@ def _garch_objective(backend, ra, nv, n_eff):
             return lambda u: fb(u, *sub)
     else:
         def fb(u, ra=ra, nv=nv, ne=n_eff):
+            optim.count_objective(u, T)
             return neg_log_likelihood(_to_natural(u), ra, nv) / ne
 
         def straggler(idxc):
@@ -237,13 +242,18 @@ def _finalize(res, ok, n_eff, to_natural) -> FitResult:
 
 def _fit_garch(rb, max_iters, tol, backend, align_mode, compact,
                count_evals=False):
-    ra, nv, u0, n_eff = _garch_prep(rb, align_mode)
-    fb, straggler = _garch_objective(backend, ra, nv, n_eff)
-    del ra  # the cuda objective reads only its time-major copy
+    """The GARCH fit of a batched panel (``align_mode`` ``None`` probes
+    it): preparation, optimizer and finalization, each in its span."""
+    with obs.span("fit.prep"):
+        ra, nv, u0, n_eff = _garch_prep(rb, resolve_align_mode(rb,
+                                                               align_mode))
+        fb, straggler = _garch_objective(backend, ra, nv, n_eff)
+        del ra  # the cuda objective reads only its time-major copy
     res = _minimize(fb, straggler, u0, max_iters, tol, compact, count_evals)
     res, info = res if count_evals else (res, None)
-    ok = nv >= 10  # GARCH needs a handful of observations to identify
-    out = _finalize(res, ok, n_eff, _to_natural)
+    with obs.span("fit.finalize"):
+        ok = nv >= 10  # GARCH needs a handful of observations to identify
+        out = _finalize(res, ok, n_eff, _to_natural)
     return (out, info) if count_evals else out
 
 
@@ -383,15 +393,16 @@ def fit_argarch(y, *, max_iters: int = 100, tol: Optional[float] = None,
     """Fit AR(1)+GARCH(1,1) -> natural params ``[batch?, 5]``
     (``ARGARCH.fitModel``).  Arguments as in :func:`fit`; rows with fewer
     than 12 valid observations are ``EXCLUDED``."""
-    yb, single = ensure_batched(to_device(y, device))
-    if tol is None:
-        tol = 1e-7 if yb.dtype == torch.float64 else 1e-4
-    backend = resolve_backend(backend, yb)
-    align_mode = resolve_align_mode(yb, align_mode)
-    with torch.no_grad():
-        out = _fit_argarch(yb, max_iters, float(tol), backend, align_mode,
-                           compact)
-    return debatch(out, single)
+    with obs.span("fit.argarch") as sp:
+        yb, single = ensure_batched(to_device(y, device))
+        if tol is None:
+            tol = 1e-7 if yb.dtype == torch.float64 else 1e-4
+        backend = resolve_backend(backend, yb)
+        sp.set(rows=yb.shape[0], time=yb.shape[1], backend=backend)
+        with torch.no_grad():
+            out = _fit_argarch(yb, max_iters, float(tol), backend, align_mode,
+                               compact)
+        return debatch(out, single)
 
 
 def _argarch_prep(yb, align_mode: str):
@@ -424,8 +435,10 @@ def _argarch_objective(backend, ya, nv, n_eff):
     on the time-major panel at each evaluation; the GARCH kernels'
     cotangents of the returns and of the variance seed carry the gradient
     on to ``c`` and ``phi``."""
+    T = ya.shape[1]
     if backend != "cuda":
         def fb(u, ya=ya, nv=nv, ne=n_eff):
+            optim.count_objective(u, T)
             return argarch_neg_log_likelihood(_argarch_to_natural(u), ya,
                                               nv) / ne
 
@@ -433,7 +446,6 @@ def _argarch_objective(backend, ya, nv, n_eff):
             sub = (ya[idxc], nv[idxc], n_eff[idxc])
             return lambda u: fb(u, *sub)
         return fb, straggler
-    T = ya.shape[1]
     yat = time_major(ya)
     prevt = torch.cat([yat[:1], yat[:-1]])
     start = (T - nv).to(ya.dtype)
@@ -444,6 +456,7 @@ def _argarch_objective(backend, ya, nv, n_eff):
 
     def fb(u, yat=yat, prevt=prevt, keep=keep, nvf=nvf, zb=start + 1,
            ne=n_eff):
+        optim.count_objective(u, T)
         nat = _argarch_to_natural(u)
         rt = torch.where(keep, yat - nat[:, 0] - nat[:, 1] * prevt, 0.0)
         h0 = ck.garch_h0_folded(rt, keep, nvf)
@@ -459,12 +472,15 @@ def _argarch_objective(backend, ya, nv, n_eff):
 
 
 def _fit_argarch(yb, max_iters, tol, backend, align_mode, compact):
-    ya, nv, u0, n_eff = _argarch_prep(yb, align_mode)
-    fb, straggler = _argarch_objective(backend, ya, nv, n_eff)
-    del ya  # the cuda objective reads only its time-major copies
+    with obs.span("fit.prep"):
+        ya, nv, u0, n_eff = _argarch_prep(yb, resolve_align_mode(yb,
+                                                                 align_mode))
+        fb, straggler = _argarch_objective(backend, ya, nv, n_eff)
+        del ya  # the cuda objective reads only its time-major copies
     res = _minimize(fb, straggler, u0, max_iters, tol, compact)
-    ok = nv >= 12
-    return _finalize(res, ok, n_eff, _argarch_to_natural)
+    with obs.span("fit.finalize"):
+        ok = nv >= 12
+        return _finalize(res, ok, n_eff, _argarch_to_natural)
 
 
 def argarch_sample(params, gen, n: int, *, device="cuda"):

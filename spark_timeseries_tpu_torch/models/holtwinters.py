@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from .. import obs
 from ..ops import cuda_kernels as ck
 from ..ops.layout import time_major
 from ..utils import optim
@@ -182,29 +183,31 @@ def fit(y, period: int, model_type: str = "additive", *,
             f"n_starts must be in [1, {len(_MULTISTART_NATS)}] (one per "
             "seeded init in holtwinters._MULTISTART_NATS), got "
             f"{n_starts}")
-    yb, single = ensure_batched(to_device(y, device))
-    if yb.shape[1] < 2 * period:
-        raise ValueError(f"need at least two seasons ({2 * period} points), "
-                         f"got {yb.shape[1]}")
-    if tol is None:
-        tol = 1e-7 if yb.dtype == torch.float64 else 1e-4
-    if backend == "cuda":
-        ck._hw_check_period(period)
-    backend = resolve_backend(backend, yb,
-                              structural_ok=ck.hw_structural_ok(period))
-    require_pallas_for_count_evals(count_evals, backend)
-    align_mode = resolve_align_mode(yb, align_mode)
-    with torch.no_grad():
-        out = _fit_hw(yb, period, multiplicative, max_iters, float(tol),
-                      backend, align_mode, compact, int(n_starts),
-                      count_evals)
-    return debatch_fit(out, single, count_evals)
+    with obs.span("fit.holtwinters") as sp:
+        yb, single = ensure_batched(to_device(y, device))
+        if yb.shape[1] < 2 * period:
+            raise ValueError(f"need at least two seasons ({2 * period} "
+                             f"points), got {yb.shape[1]}")
+        if tol is None:
+            tol = 1e-7 if yb.dtype == torch.float64 else 1e-4
+        if backend == "cuda":
+            ck._hw_check_period(period)
+        backend = resolve_backend(backend, yb,
+                                  structural_ok=ck.hw_structural_ok(period))
+        sp.set(rows=yb.shape[0], time=yb.shape[1], backend=backend)
+        require_pallas_for_count_evals(count_evals, backend)
+        with torch.no_grad():
+            out = _fit_hw(yb, period, multiplicative, max_iters, float(tol),
+                          backend, align_mode, compact, int(n_starts),
+                          count_evals)
+        return debatch_fit(out, single, count_evals)
 
 
 def _hw_objective(backend, ya, nv, n_err, period: int, multiplicative: bool,
                   align_mode: str):
     """The batched mean-SSE objective ``u [B, 3] -> [B]`` and its straggler
     builder (``idxc -> objective over the gathered rows``)."""
+    T = ya.shape[1]
     if backend == "cuda":
         # seeds depend on the data only: computed once per fit and shared
         # by every start; the dense mode takes the gather-free windows
@@ -213,6 +216,7 @@ def _hw_objective(backend, ya, nv, n_err, period: int, multiplicative: bool,
         yt = time_major(ya)
 
         def fb(u, yt=yt, seeds=seeds, ne=n_err):
+            optim.count_objective(u, T)
             nat = optim.sigmoid_to_interval(u, 0.0, 1.0)
             return ck.hw_sse_folded(nat, yt, seeds, period,
                                     multiplicative) / ne
@@ -224,6 +228,7 @@ def _hw_objective(backend, ya, nv, n_err, period: int, multiplicative: bool,
             return lambda u: fb(u, *sub)
     else:
         def fb(u, ya=ya, nv=nv, ne=n_err):
+            optim.count_objective(u, T)
             nat = optim.sigmoid_to_interval(u, 0.0, 1.0)
             return sse(nat, ya, period, multiplicative, nv) / ne
 
@@ -235,13 +240,18 @@ def _hw_objective(backend, ya, nv, n_err, period: int, multiplicative: bool,
 
 def _fit_hw(yb, period, multiplicative, max_iters, tol, backend, align_mode,
             compact, n_starts, count_evals=False):
-    ya, nv = maybe_align(yb, align_mode)
-    # optimize the MEAN one-step squared error: same argmin as the SSE, an
-    # O(1) gradient scale for the relative stopping rule
-    n_err = torch.clamp(nv - period, min=1).to(ya.dtype)
-    fb, straggler = _hw_objective(backend, ya, nv, n_err, period,
-                                  multiplicative, align_mode)
-    del ya  # the cuda objective reads only its time-major copy
+    """The Holt-Winters fit of a batched panel (``align_mode`` ``None``
+    probes it): preparation, one optimizer a start and the finalization,
+    each in its span."""
+    with obs.span("fit.prep"):
+        align_mode = resolve_align_mode(yb, align_mode)
+        ya, nv = maybe_align(yb, align_mode)
+        # optimize the MEAN one-step squared error: same argmin as the
+        # SSE, an O(1) gradient scale for the relative stopping rule
+        n_err = torch.clamp(nv - period, min=1).to(ya.dtype)
+        fb, straggler = _hw_objective(backend, ya, nv, n_err, period,
+                                      multiplicative, align_mode)
+        del ya  # the cuda objective reads only its time-major copy
     bsz = yb.shape[0]
     gate = compact and bsz >= _COMPACT_MIN_BATCH
     results, info = [], None
@@ -258,8 +268,9 @@ def _fit_hw(yb, period, multiplicative, max_iters, tol, backend, align_mode,
             res, info = res
             info = {**info, "n_starts": n_starts}
         results.append(res)
-    ok = nv >= 2 * period  # the seed needs two full seasons of real data
-    out = _finalize_hw_fit(_select_best_start(results), ok, n_err)
+    with obs.span("fit.finalize"):
+        ok = nv >= 2 * period  # the seed needs two full seasons of data
+        out = _finalize_hw_fit(_select_best_start(results), ok, n_err)
     return (out, info) if count_evals else out
 
 

@@ -39,9 +39,17 @@ Usage::
     obs.disable()                     # final metrics snapshot -> JSONL
 
 Instrumented surfaces: ``reliability.resilient_fit`` / ``sanitize`` /
-``watchdog``, ``models.base.align_mode_on_host``, ``utils.optim``'s
-straggler compaction, ``models.arima.fit_grid`` and the kernel library
-loader (``ops._build``, through ``utils.compile_cache``).
+``watchdog``, ``models.base.align_mode_on_host``, ``models.arima.fit_grid``;
+the fits of ``models.arima`` (plain and seasonal), ``models.garch``
+(``fit``, ``fit_argarch``) and ``models.holtwinters`` (``fit.<model>``
+spans, with ``fit.prep`` and ``fit.finalize`` inside, and the
+``work.objective_row_steps`` counter in each objective); ``utils.optim``'s
+L-BFGS loop (``optim.*`` spans, ``optim.host_read`` around each counted
+device read, the ``work.row_evals`` / ``work.live_row_evals`` counters,
+the straggler compaction); ``ops.univariate``'s fill chain and batched
+autocorrelation (``transforms.*`` spans); and the kernel library loader
+(``ops._build``: ``kernels.build`` spans and the build clock, through
+``utils.compile_cache``).
 """
 
 from . import core, memory, metrics, promsink, recorder, tracing

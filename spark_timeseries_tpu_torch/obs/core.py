@@ -13,7 +13,15 @@ timings and counts, never tensors.
 
 Spans nest per thread (the watchdog runs fits on worker threads, and a
 worker's spans must not splice into the driver thread's stack) and
-measure **host** wall clock plus process CPU time.  A span does not
+measure **host** wall clock plus process CPU time.  Reading the process
+CPU clock is a system call whose cost depends on the host (under a
+microsecond natively, up to a millisecond in some sandboxes while the
+card is busy), and the optimizer's loop opens spans hundreds of times a
+second: a thread reads the clock anew only once the wall since its last
+reading is ``CPU_CLOCK_RATIO`` times what that reading took, so the clock
+costs at most 1 % of the thread's time.  A span's ``process_s`` is the
+clock's advance between its enter and exit readings, at that resolution
+(a span shorter than it may read 0).  A span does not
 synchronize the device: PyTorch launches CUDA work asynchronously, so a
 span around a fit that reads nothing back closes when the work is queued,
 not when the card finishes it.  The fits this plane wraps read their
@@ -88,6 +96,20 @@ class _State:
 _STATE = _State()
 _LOCK = threading.RLock()
 _TLS = threading.local()
+CPU_CLOCK_RATIO = 100
+
+
+def _process_time() -> float:
+    """This thread's latest reading of the process CPU clock, read anew
+    once the wall since the last reading is ``CPU_CLOCK_RATIO`` times what
+    that reading took."""
+    now = time.perf_counter()
+    last = getattr(_TLS, "cpu", None)  # (wall after reading, cost, value)
+    if last is None or now - last[0] >= CPU_CLOCK_RATIO * last[1]:
+        value = time.process_time()
+        done = time.perf_counter()
+        last = _TLS.cpu = (done, done - now, value)
+    return last[2]
 
 
 # -- lifecycle ---------------------------------------------------------------
@@ -280,13 +302,13 @@ class Span:
             except Exception:  # noqa: BLE001 - profiling is best-effort
                 self._ann = None
         self._ts0 = time.time()
-        self._p0 = time.process_time()
+        self._p0 = _process_time()
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         self.wall_s = time.perf_counter() - self.t0
-        self.process_s = time.process_time() - self._p0
+        self.process_s = _process_time() - self._p0
         if self._ann is not None:
             try:
                 self._ann.__exit__(exc_type, exc, tb)

@@ -14,7 +14,10 @@ Each library counts once a process in ``utils.compile_cache`` (which can
 also move :data:`BUILD_DIR` to a persistent cache directory): a miss when
 this process runs ``nvcc`` for it, a hit when :func:`load` first finds it
 built on disk by an earlier run.  Later loads of a loaded library are not
-lookups and count nothing.
+lookups and count nothing.  :func:`build_all` also keeps the build clock:
+its wall goes to ``utils.compile_cache``'s ``build_s``, and with the
+``obs`` plane on each ``nvcc`` job it waits for is a ``kernels.build``
+span.
 
 A failed build raises: nothing here falls back to another path.
 """
@@ -27,8 +30,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
+from .. import obs
 from ..utils import compile_cache
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -141,7 +146,9 @@ def _start(name: str, defines, out: Path):
 def build_all(names=SOURCES, variants=()) -> dict:
     """Build every stale library at once (one ``nvcc`` per source, and one
     per ``(name, defines)`` of ``variants``) -> ``{library file: compiler
-    log}`` for the libraries it built."""
+    log}`` for the libraries it built.  Its wall counts in
+    ``compile_cache.program_cache_stats()["build_s"]``."""
+    t0 = time.perf_counter()
     logs = {}
     wanted = [(n, ()) for n in names] + [(n, tuple(d)) for n, d in variants]
     jobs = [_start(n, d, t) for n, d in wanted
@@ -151,7 +158,9 @@ def build_all(names=SOURCES, variants=()) -> dict:
         compile_cache.note_miss()
     try:
         for proc, tmp, out in jobs:
-            log, _ = proc.communicate()
+            # the jobs run at once: each span is the wait for one of them
+            with obs.span("kernels.build", library=out.name):
+                log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
             os.replace(tmp, out)  # atomic: never a half-written library
@@ -161,6 +170,7 @@ def build_all(names=SOURCES, variants=()) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        compile_cache.note_build_seconds(time.perf_counter() - t0)
     return logs
 
 

@@ -22,6 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import obs
 from ..models.base import BACKENDS, resolve_backend
 from . import cuda_kernels as ck
 from .layout import FoldedPanel, fold_panel, unfold_panel
@@ -466,17 +467,18 @@ def batch_autocorr(num_lags: int, backend: str = "auto") -> Callable:
     _check_backend(backend)
 
     def run(panel):
-        panel = _as_panel(panel)
-        if isinstance(panel, FoldedPanel):
-            if _use_kernel(backend, panel.data,
-                           ck.autocorr_structural_ok(num_lags, panel.t)):
-                return ck.batch_autocorr_folded(panel, num_lags)
-            return autocorr(unfold_panel(panel), num_lags)
-        if panel.ndim == 2 and _use_kernel(
-                backend, panel,
-                ck.autocorr_structural_ok(num_lags, panel.shape[1])):
-            return ck.batch_autocorr(panel, num_lags)
-        return autocorr(panel, num_lags)
+        with obs.span("transforms.autocorr", lags=num_lags):
+            panel = _as_panel(panel)
+            if isinstance(panel, FoldedPanel):
+                if _use_kernel(backend, panel.data,
+                               ck.autocorr_structural_ok(num_lags, panel.t)):
+                    return ck.batch_autocorr_folded(panel, num_lags)
+                return autocorr(unfold_panel(panel), num_lags)
+            if panel.ndim == 2 and _use_kernel(
+                    backend, panel,
+                    ck.autocorr_structural_ok(num_lags, panel.shape[1])):
+                return ck.batch_autocorr(panel, num_lags)
+            return autocorr(panel, num_lags)
 
     return run
 
@@ -510,11 +512,15 @@ def batch_fill_linear_chain(panel, backend: str = "auto", outputs=None):
     if not sel or any(o not in ck.CHAIN_OUTPUTS for o in sel):
         raise ValueError(f"outputs must be a non-empty subset of "
                          f"{ck.CHAIN_OUTPUTS}, got {outputs!r}")
-    panel = _as_panel(panel)
+    with obs.span("transforms.fill_chain"):
+        return _fill_linear_chain(_as_panel(panel), backend, sel)
+
+
+def _fill_linear_chain(panel, backend: str, sel: tuple) -> tuple:
     if isinstance(panel, FoldedPanel):
         if _use_kernel(backend, panel.data):
             return ck.fill_linear_chain_folded(panel, sel)
-        nat = batch_fill_linear_chain(unfold_panel(panel), "eager", sel)
+        nat = _fill_linear_chain(unfold_panel(panel), "eager", sel)
         return tuple(fold_panel(o) for o in nat)
     if panel.ndim == 2 and _use_kernel(backend, panel):
         fps = ck.fill_linear_chain_folded(fold_panel(panel), sel)

@@ -25,6 +25,8 @@ built on disk by an earlier run.  The reference counts a lookup per fit
 call of a cached jitted program; a loaded library is reused by every
 launch, which is not a lookup.  Process-local mirrors ride along so the counts are readable with the
 obs plane off (the obs counters stay authoritative for per-run deltas).
+The build clock rides with them: ``build_s``, the seconds this process
+spent in ``_build.build_all``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ _enabled_dir: Optional[str] = None
 
 _hits = 0
 _misses = 0
+_build_s = 0.0
 # concurrent threads (watchdog workers, lanes) report through here; the
 # obs counters carry their own locks, but these process-local mirrors
 # would otherwise lose increments to the non-atomic load/add/store
@@ -48,7 +51,8 @@ _stats_lock = _threading.Lock()
 
 # lock-discipline contract (module-level form): every thread that loads or
 # builds a library reports hits/misses under the lock.
-_PROTECTED_BY_ = {"_hits": "_stats_lock", "_misses": "_stats_lock"}
+_PROTECTED_BY_ = {"_hits": "_stats_lock", "_misses": "_stats_lock",
+                  "_build_s": "_stats_lock"}
 
 
 def note_hit() -> None:
@@ -72,16 +76,25 @@ def note_miss() -> None:
     obs.counter("compile_cache.miss").inc()
 
 
+def note_build_seconds(seconds: float) -> None:
+    """Add the wall of one ``_build.build_all`` call to ``build_s``."""
+    global _build_s
+    with _stats_lock:
+        _build_s += seconds
+
+
 def program_cache_stats() -> dict:
     """Process-lifetime program-cache accounting: ``{hits, misses,
-    hit_rate}`` (hit_rate None before the first lookup)."""
+    hit_rate, build_s}`` (hit_rate None before the first lookup; build_s
+    the seconds spent building kernel libraries)."""
     with _stats_lock:
-        hits, misses = _hits, _misses
+        hits, misses, build_s = _hits, _misses, _build_s
     total = hits + misses
     return {
         "hits": hits,
         "misses": misses,
         "hit_rate": round(hits / total, 4) if total else None,
+        "build_s": build_s,
     }
 
 

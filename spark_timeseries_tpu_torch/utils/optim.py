@@ -13,6 +13,15 @@ Each such read is counted in :data:`host_reads`, so a run can show what the
 loop cost in synchronisations.  (Fixed trip counts under CUDA graphs would
 remove them.)
 
+With the ``obs`` plane on, the loop opens spans (``optim.minimize``,
+``optim.init``, ``optim.lockstep``, ``optim.direction``,
+``optim.linesearch``, ``optim.update``, ``optim.compact``,
+``optim.stragglers`` and ``optim.host_read`` around each counted read) and
+feeds the ``work.*`` counters from host integers it holds anyway:
+``work.row_evals`` (the rows of every objective evaluation) and
+``work.live_row_evals`` (of those, the rows live when their iteration
+began).  Neither reads the device.
+
 Straggler compaction: once at most ``cap`` rows remain unconverged, those
 rows and their whole optimizer state are gathered into a ``[cap, d]``
 problem whose objective is ``straggler_fun(row_indices)``; the loop finishes
@@ -24,6 +33,7 @@ the same.
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -39,13 +49,21 @@ COMPACT_MIN_BATCH = 4096
 class HostReadCounter:
     """Count of device->host reads the optimizer's loop bounds made."""
 
+    # lanes run the optimizer from several threads at once: a bare
+    # ``+= 1`` can lose a count between them
+    _protected_by_ = {"count": "_lock"}
+
     def __init__(self):
         self.count = 0
+        self._lock = threading.Lock()
 
     def read(self, x):
-        """The Python value of a 0-d device tensor (one counted read)."""
-        self.count += 1
-        return x.item()
+        """The Python value of a 0-d device tensor (one counted read; the
+        host's wait is the ``optim.host_read`` span)."""
+        with self._lock:
+            self.count += 1
+        with obs.span("optim.host_read"):
+            return x.item()
 
 
 host_reads = HostReadCounter()
@@ -157,6 +175,7 @@ def _value_and_grad(fb, x):
 def _init_state(fb, x0, m: int, tol: float) -> _State:
     bsz, d = x0.shape
     f0, g0 = _value_and_grad(fb, x0)
+    _count_evals(bsz, bsz)  # every row is live at the start
     z = lambda *s: torch.zeros(s, dtype=x0.dtype, device=x0.device)  # noqa: E731
     return _State(
         x=x0, f=f0, g=g0,
@@ -200,61 +219,89 @@ def _step(fb, state: _State, k: int, *, m, tol, ftol, max_linesearch,
           c1, ls_evals: list) -> _State:
     """One lockstep L-BFGS iteration (iteration index ``k``); its
     line-search evaluations go to ``ls_evals[k]``."""
-    done = state.converged | state.failed
-    direction = -_two_loop_b(state.g, state.s_hist, state.y_hist,
-                             state.rho_hist, k, m)
-    descent = _rowdot(state.g, direction) < 0.0
-    direction = torch.where(descent[:, None], direction, -state.g)
-    # rows with no curvature history step along raw steepest descent, whose
-    # scale is arbitrary: bound their first trial by 1; with history, warm
-    # start from the row's last accepted step
-    has_hist = (state.rho_hist > 0.0).any(-1)
-    t0 = torch.where(has_hist & descent,
-                     torch.clamp(4.0 * state.tprev, max=1.0),
-                     1.0 / torch.clamp(_rownorm(direction), min=1.0)
-                     ).to(state.x.dtype)
-    t, ok, ls_evals[k] = _linesearch(fb, state.x, state.f, state.g,
-                                     direction, done, t0, ftol=ftol,
-                                     max_linesearch=max_linesearch, c1=c1)
-    x_new = state.x + t[:, None] * direction
-    f_new, g_new = _value_and_grad(fb, x_new)
+    with obs.span("optim.direction"):
+        done = state.converged | state.failed
+        direction = -_two_loop_b(state.g, state.s_hist, state.y_hist,
+                                 state.rho_hist, k, m)
+        descent = _rowdot(state.g, direction) < 0.0
+        direction = torch.where(descent[:, None], direction, -state.g)
+        # rows with no curvature history step along raw steepest descent,
+        # whose scale is arbitrary: bound their first trial by 1; with
+        # history, warm start from the row's last accepted step
+        has_hist = (state.rho_hist > 0.0).any(-1)
+        t0 = torch.where(has_hist & descent,
+                         torch.clamp(4.0 * state.tprev, max=1.0),
+                         1.0 / torch.clamp(_rownorm(direction), min=1.0)
+                         ).to(state.x.dtype)
+    with obs.span("optim.linesearch"):
+        t, ok, ls_evals[k] = _linesearch(fb, state.x, state.f, state.g,
+                                         direction, done, t0, ftol=ftol,
+                                         max_linesearch=max_linesearch,
+                                         c1=c1)
+    with obs.span("optim.update"):
+        x_new = state.x + t[:, None] * direction
+        f_new, g_new = _value_and_grad(fb, x_new)
 
-    s = x_new - state.x
-    y = g_new - state.g
-    sy = _rowdot(s, y)
-    slot = k % m
-    accept = (ok & (f_new <= state.f + ftol * torch.clamp(state.f.abs(),
-                                                          min=1.0))
-              & ~done)
-    # history is gated on accept: a step rejected at the re-evaluation must
-    # not poison the curvature history
-    good = (sy > 1e-10) & accept
-    s_hist, y_hist, rho_hist = (state.s_hist.clone(), state.y_hist.clone(),
-                                state.rho_hist.clone())
-    s_hist[:, slot] = torch.where(good[:, None], s, state.s_hist[:, slot])
-    y_hist[:, slot] = torch.where(good[:, None], y, state.y_hist[:, slot])
-    rho_hist[:, slot] = torch.where(good, 1.0 / torch.clamp(sy, min=1e-30),
-                                    state.rho_hist[:, slot])
-    x_out = torch.where(accept[:, None], x_new, state.x)
-    f_out = torch.where(accept, f_new, state.f)
-    g_out = torch.where(accept[:, None], g_new, state.g)
-    conv = state.converged | (
-        _rownorm(g_out) < tol * torch.clamp(_rownorm(x_out), min=1.0))
-    conv = conv | (accept & (state.f - f_new
-                             <= ftol * torch.clamp(f_new.abs(), min=1.0)))
-    better = f_out < state.bf
-    return _State(
-        x=x_out, f=f_out, g=g_out,
-        s_hist=s_hist, y_hist=y_hist, rho_hist=rho_hist,
-        converged=conv,
-        failed=state.failed | (~ok & ~conv & ~done),
-        tprev=torch.where(accept, t, state.tprev),
-        bx=torch.where(better[:, None], x_out, state.bx),
-        bf=torch.where(better, f_out, state.bf),
-        bg=torch.where(better[:, None], g_out, state.bg),
-        iters=torch.where(done, state.iters,
-                          torch.full_like(state.iters, k + 1)),
-    )
+        s = x_new - state.x
+        y = g_new - state.g
+        sy = _rowdot(s, y)
+        slot = k % m
+        accept = (ok & (f_new <= state.f
+                        + ftol * torch.clamp(state.f.abs(), min=1.0))
+                  & ~done)
+        # history is gated on accept: a step rejected at the re-evaluation
+        # must not poison the curvature history
+        good = (sy > 1e-10) & accept
+        s_hist, y_hist, rho_hist = (state.s_hist.clone(),
+                                    state.y_hist.clone(),
+                                    state.rho_hist.clone())
+        s_hist[:, slot] = torch.where(good[:, None], s,
+                                      state.s_hist[:, slot])
+        y_hist[:, slot] = torch.where(good[:, None], y,
+                                      state.y_hist[:, slot])
+        rho_hist[:, slot] = torch.where(good,
+                                        1.0 / torch.clamp(sy, min=1e-30),
+                                        state.rho_hist[:, slot])
+        x_out = torch.where(accept[:, None], x_new, state.x)
+        f_out = torch.where(accept, f_new, state.f)
+        g_out = torch.where(accept[:, None], g_new, state.g)
+        conv = state.converged | (
+            _rownorm(g_out) < tol * torch.clamp(_rownorm(x_out), min=1.0))
+        conv = conv | (accept & (state.f - f_new
+                                 <= ftol * torch.clamp(f_new.abs(), min=1.0)))
+        better = f_out < state.bf
+        return _State(
+            x=x_out, f=f_out, g=g_out,
+            s_hist=s_hist, y_hist=y_hist, rho_hist=rho_hist,
+            converged=conv,
+            failed=state.failed | (~ok & ~conv & ~done),
+            tprev=torch.where(accept, t, state.tprev),
+            bx=torch.where(better[:, None], x_out, state.bx),
+            bf=torch.where(better, f_out, state.bf),
+            bg=torch.where(better[:, None], g_out, state.bg),
+            iters=torch.where(done, state.iters,
+                              torch.full_like(state.iters, k + 1)),
+        )
+
+
+def _count_evals(rows: int, live: int) -> None:
+    """Add objective evaluations to ``work.row_evals`` (``rows`` evaluated)
+    and ``work.live_row_evals`` (``live`` of them still unconverged)."""
+    obs.counter("work.row_evals").inc(rows)
+    obs.counter("work.live_row_evals").inc(live)
+
+
+def count_objective(x, steps: int) -> None:
+    """Count one evaluation of a model's objective over ``x`` (``[rows,
+    ...]``) and a panel of ``steps`` time steps in
+    ``work.objective_row_steps``: rows x steps for the forward sweep, and
+    as much again for the adjoint sweep when the evaluation will be
+    differentiated.  Called by each model's objective on every backend, so
+    the count is the same whatever computes the objective."""
+    n = x.shape[0] * steps
+    if x.requires_grad and torch.is_grad_enabled():
+        n *= 2
+    obs.counter("work.objective_row_steps").inc(n)
 
 
 def _run(fb, state: _State, k: int, max_iters: int, stop_at: int, knobs):
@@ -265,6 +312,8 @@ def _run(fb, state: _State, k: int, max_iters: int, stop_at: int, knobs):
         if k >= max_iters or n_live <= stop_at:
             return state, k, n_live
         state = _step(fb, state, k, **knobs)
+        evals = knobs["ls_evals"][k] + 1  # the trials and the update
+        _count_evals(state.x.shape[0] * evals, n_live * evals)
         k += 1
 
 
@@ -325,45 +374,60 @@ def minimize_lbfgs_batched(
     compaction).  The counts are host integers the loop keeps anyway: no
     extra device read.
     """
-    bsz, _ = x0.shape
-    if ftol is None:
-        ftol = 1e-9 if x0.dtype == torch.float64 else 1e-6
-    cap = straggler_cap if straggler_cap is not None else max(128, bsz // 8)
-    compact = straggler_fun is not None and cap < bsz
-    ls_evals = [0] * max_iters  # each iteration's line-search evaluations
-    knobs = dict(m=history, tol=tol, ftol=ftol,
-                 max_linesearch=max_linesearch, c1=c1, ls_evals=ls_evals)
-    state = _init_state(fun_batched, x0, history, tol)
-    state, k, n_live = _run(fun_batched, state, 0, max_iters,
-                            cap if compact else 0, knobs)
-    compact_at = k
-    if compact and n_live > 0 and k < max_iters:
-        # n_live <= cap here: the loop only exits early once the stragglers
-        # fit the cap.  Fill slots repeat row bsz-1 and are dropped on the
-        # scatter, as in the reference's size=cap gather.  Counted once per
-        # compaction (the reference counts its compacted programs' traces)
-        obs.counter("optim.stage2_compact_traces").inc()
-        live = torch.nonzero(~(state.converged | state.failed)).squeeze(1)
-        idx = torch.full((cap,), bsz, dtype=torch.long, device=x0.device)
-        idx[:n_live] = live
-        idxc = torch.clamp(idx, max=bsz - 1)
-        sub, _, _ = _run(straggler_fun(idxc), state.take(idxc), k, max_iters,
-                         0, knobs)
-        rows = idx[:n_live]
-        state = state._replace(**{
-            name: _scatter(getattr(state, name), rows,
-                           getattr(sub, name)[:n_live])
-            for name in ("converged", "failed", "bx", "bf", "bg", "iters")})
-    result = LBFGSResult(
-        x=state.bx, f=state.bf,
-        converged=state.converged & torch.isfinite(state.bf),
-        iters=state.iters, grad_norm=_rownorm(state.bg))
-    if not count_evals:
-        return result
-    return result, {
-        "ls_evals": torch.tensor(ls_evals, dtype=torch.int32,
-                                 device=x0.device),
-        "compact_at": compact_at, "cap": cap if compact else 0}
+    with obs.span("optim.minimize", rows=x0.shape[0]):
+        bsz, _ = x0.shape
+        if ftol is None:
+            ftol = 1e-9 if x0.dtype == torch.float64 else 1e-6
+        cap = (straggler_cap if straggler_cap is not None
+               else max(128, bsz // 8))
+        compact = straggler_fun is not None and cap < bsz
+        ls_evals = [0] * max_iters  # each iteration's line-search evaluations
+        knobs = dict(m=history, tol=tol, ftol=ftol,
+                     max_linesearch=max_linesearch, c1=c1, ls_evals=ls_evals)
+        with obs.span("optim.init"):
+            state = _init_state(fun_batched, x0, history, tol)
+        with obs.span("optim.lockstep"):
+            state, k, n_live = _run(fun_batched, state, 0, max_iters,
+                                    cap if compact else 0, knobs)
+        compact_at = k
+        if compact and n_live > 0 and k < max_iters:
+            # n_live <= cap here: the loop only exits early once the stragglers
+            # fit the cap.  Fill slots repeat row bsz-1 and are dropped on the
+            # scatter, as in the reference's size=cap gather; they start
+            # converged, so that they neither hold the loop open nor count as
+            # live rows.  Counted once per compaction (the reference counts its
+            # compacted programs' traces)
+            with obs.span("optim.compact", live=n_live, cap=cap):
+                obs.counter("optim.stage2_compact_traces").inc()
+                live = torch.nonzero(
+                    ~(state.converged | state.failed)).squeeze(1)
+                idx = torch.full((cap,), bsz, dtype=torch.long,
+                                 device=x0.device)
+                idx[:n_live] = live
+                idxc = torch.clamp(idx, max=bsz - 1)
+                fun_sub = straggler_fun(idxc)
+                sub = state.take(idxc)
+                filled = sub.converged.clone()
+                filled[n_live:] = True
+                sub = sub._replace(converged=filled)
+            with obs.span("optim.stragglers"):
+                sub, _, _ = _run(fun_sub, sub, k, max_iters, 0, knobs)
+                rows = idx[:n_live]
+                state = state._replace(**{
+                    name: _scatter(getattr(state, name), rows,
+                                   getattr(sub, name)[:n_live])
+                    for name in ("converged", "failed", "bx", "bf", "bg",
+                                 "iters")})
+        result = LBFGSResult(
+            x=state.bx, f=state.bf,
+            converged=state.converged & torch.isfinite(state.bf),
+            iters=state.iters, grad_norm=_rownorm(state.bg))
+        if not count_evals:
+            return result
+        return result, {
+            "ls_evals": torch.tensor(ls_evals, dtype=torch.int32,
+                                     device=x0.device),
+            "compact_at": compact_at, "cap": cap if compact else 0}
 
 
 def _scatter(full, rows, vals):

@@ -379,7 +379,7 @@ def test_compile_cache_counts_builds_and_loads(tmp_path, monkeypatch):
             after["hits"] - before["hits"]) == (2, 1)
     assert obs.snapshot()["counters"] == {"compile_cache.miss": 2,
                                           "compile_cache.hit": 1}
-    assert set(after) == {"hits", "misses", "hit_rate"}
+    assert set(after) == {"hits", "misses", "hit_rate", "build_s"}
 
 
 def test_compile_cache_env_opt_in(tmp_path, monkeypatch):
