@@ -6,7 +6,7 @@
 Phases; each failure makes the script exit non-zero with no result line:
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the CUDA kernels from the seven sources in
+2. build the CUDA kernels from the eight sources in
    ``spark_timeseries_tpu_torch/csrc`` (one ``nvcc`` per source, all at
    once) and print the build seconds and each source's registers, stack
    frames and spills (per instantiation for the Holt-Winters, GARCH,
@@ -31,6 +31,10 @@ Phases; each failure makes the script exit non-zero with no result line:
    (q_full = 25) and (1,0,1)(1,1,1,24)'s (p_full = q_full = 25) at B =
    65,537, s = 7 and 52 at B = 16,385, and s = 168 (the local route)
    with its support at B = 4,097);
+3b. hold the optimizer's three kernels (``csrc/lbfgs.cu``: the L-BFGS
+   direction, a line-search trial, the update) against their plain
+   versions, on inputs that take every branch, and time them at [1M, 3] and [13,312, 3] with m = 8, beside
+   their byte bounds (a JSON line ``{"lbfgs_kernels": ...}``);
 4. drive the ARIMA path: ``arima.fit`` of a 1,000,000 x 1,000 float32
    ARIMA(1,1,1) panel (the BASELINE.json headline) built on the card from a
    seeded generator, then ``arima.forecast(..., 30)``, with the kernel
@@ -279,7 +283,8 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = {"css_fwd": 1e-5, "css_bwd": 1e-5, "hr_moments": 1e-5,
        "fill_chain": 1e-6, "autocorr": 1e-6, "garch_fwd": 1e-5,
        "garch_bwd": 1e-5, "ewma_fwd": 1e-6, "ewma_bwd": 1e-6,
-       "hw_fwd": 1e-6, "hw_bwd": 1e-6}
+       "hw_fwd": 1e-6, "hw_bwd": 1e-6, "lbfgs_direction": 3.4e-7,
+       "lbfgs_trial": 3.4e-7, "lbfgs_update": 3.4e-7}
 
 _PK = "spark_timeseries_tpu/ops/pallas_kernels.py"
 REPLACES = {
@@ -1604,6 +1609,234 @@ def phase_timing(chk: Checks, main: dict, device) -> dict:
         log(f"  {name:10s} {ms:9.3f} ms  plain {plain:10.3f} ms  bound "
             f"{bms:.3f} ms ({by})  library: none (no single PyTorch call "
             "computes this function)")
+    return out
+
+
+LBFGS_ROWS = (1_000_000, 13_312)  # a whole hourly fit; GARCH's stragglers
+LBFGS_D, LBFGS_M = 3, 8  # GARCH's and Holt-Winters' widths, the history
+
+
+def _lbfgs_state(b: int, device, seed: int = 7):
+    """A mid-run optimizer state of ``b`` rows (``ops.lbfgs_kernels``'
+    layout): a full ring with some slots invalid, 2 % of rows done."""
+    from spark_timeseries_tpu_torch.utils import optim
+
+    d, m = LBFGS_D, LBFGS_M
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=device)  # noqa: E731
+    ru = lambda *s: torch.rand(*s, generator=gen, device=device)  # noqa: E731
+    x, g = rn(b, d), rn(b, d)
+    s = 0.2 * rn(b, m, d)
+    y = s * (0.5 + ru(b, m, 1)) + 0.05 * rn(b, m, d)
+    rho = 1.0 / (s * y).sum(-1)
+    rho = torch.where(ru(b, m) < 0.2, -rho.abs(), rho)
+    f = ru(b) * 3
+    done = ru(b) < 0.02
+    return optim._State(x, f, g, s, y, rho, done, torch.zeros_like(done),
+                        0.05 + ru(b), x.clone(), f + 0.01, g.clone(),
+                        torch.full((b,), 9, dtype=torch.int32,
+                                   device=device))
+
+
+def _lbfgs_trial_inputs(st, dr, t, gen):
+    """Objective values at a trial that take every branch of the trial's
+    arithmetic: ``f(t) - f`` spread over [-3, 5] x |g.dir t|, so rows pass,
+    backtrack inside the clamp or at 0.1 t; 1 % NaN and 1 % inf."""
+    u = torch.rand(2, t.shape[0], generator=gen, device=t.device)
+    fnew = st.f + (dr.gd * t).abs() * (8.0 * u[0] - 3.0)
+    fnew = torch.where(u[1] < 0.01, math.nan, fnew)
+    return torch.where((u[1] >= 0.01) & (u[1] < 0.02), math.inf, fnew)
+
+
+def _lbfgs_update_inputs(st, xt, gen, tol: float, ftol: float):
+    """The objective's raw value and gradient at ``xt`` for an update that
+    takes every branch, one group of rows each -> (fn, gn, groups): a NaN
+    value, an infinite gradient, a step refused at the re-evaluation, a
+    relative decrease and a gradient norm each within half of its
+    threshold (``ftol``, ``tol``) either way, no curvature, and the rest
+    accepted with curvature."""
+    u = torch.rand(2, xt.shape[0], generator=gen, device=xt.device)
+    edges = {"nan_f": 0.01, "inf_g": 0.02, "refused": 0.17, "near_ftol": 0.27,
+             "near_tol": 0.37, "no_curv": 0.47}
+    groups, lo = {}, 0.0
+    for name, hi in edges.items():
+        groups[name] = (u[0] >= lo) & (u[0] < hi)
+        lo = hi
+    s, near = xt - st.x, 0.5 + u[1]
+    fn = st.f - 0.1
+    fn = torch.where(groups["refused"], st.f + 0.1, fn)
+    fn = torch.where(groups["near_ftol"],
+                     st.f - ftol * st.f.abs().clamp(min=1.0) * near, fn)
+    fn = torch.where(groups["nan_f"], math.nan, fn)
+    gn = st.g + 1.5 * s
+    scale = tol * xt.norm(dim=-1).clamp(min=1.0) / st.g.norm(dim=-1)
+    gn = torch.where(groups["near_tol"][:, None],
+                     st.g * (scale * near)[:, None], gn)
+    gn = torch.where(groups["no_curv"][:, None], st.g - 1.5 * s, gn)
+    gn[:, 0] = torch.where(groups["inf_g"], math.inf, gn[:, 0])
+    return fn, gn, groups
+
+
+def phase_lbfgs(chk: Checks, device) -> dict:
+    """The optimizer's three kernels (``csrc/lbfgs.cu``) against their plain
+    versions summing in the kernels' order, then timed at [1M, 3] (a whole
+    hourly fit's lockstep stage) and [13,312, 3] (GARCH's compacted
+    stragglers), m = 8, beside their byte bounds.
+
+    The comparison feeds both sides the same inputs, which take every
+    branch (and the phase checks that they do): two trials whose rows
+    pass, backtrack on a finite value inside the clamp and at it, and
+    backtrack on a non-finite one; an update whose rows are accepted with
+    and without curvature, refused at the re-evaluation, converge by
+    either test, carry a non-finite value or gradient, or fail (their line
+    search did not pass).  The timings make every row work: all backtrack
+    in the trial, every update is accepted."""
+    from spark_timeseries_tpu_torch.ops import lbfgs_kernels as lk
+
+    log("phase 3b: the optimizer's kernels (csrc/lbfgs.cu), d = "
+        f"{LBFGS_D}, m = {LBFGS_M}")
+    d, m, k = LBFGS_D, LBFGS_M, 9
+    tol, ftol = 1e-4, 1e-6
+    direction_plain = functools.partial(lk.lbfgs_direction_plain, lanes=True)
+    update_plain = functools.partial(lk.lbfgs_update_plain, lanes=True)
+    out = {}
+    for b in LBFGS_ROWS:
+        st = _lbfgs_state(b, device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(b)
+        fl = torch.zeros(2, dtype=torch.int32, device=device)
+        fl_p = fl.clone()
+        dargs = (st.x, st.f, st.g, st.s_hist, st.y_hist, st.rho_hist,
+                 st.tprev, st.converged, st.failed, k, ftol)
+        dk = lk.lbfgs_direction(*dargs, fl)
+        dp = direction_plain(*dargs, fl_p)
+        for name in ("direction", "t", "gd", "eps", "xt"):
+            chk.compare("lbfgs_direction", f"{name}, [{b}, {d}]",
+                        getattr(dk, name), getattr(dp, name))
+        chk.require(torch.equal(dk.ok, dp.ok), f"lbfgs_direction ok [{b}]")
+
+        # two trials from the kernel's direction, on both sides
+        tk = [a.clone() for a in (dk.t, dk.ok, dk.xt)]
+        tp = [a.clone() for a in tk]
+        for trial in (1, 2):
+            fnew = _lbfgs_trial_inputs(st, dk, tk[0], gen)
+            t0, was_ok = tk[0].clone(), tk[1].clone()
+            lk.lbfgs_trial(st.x, dk.direction, st.f, dk.gd, dk.eps, fnew,
+                           *tk, fl, trial, 1e-4)
+            lk.lbfgs_trial_plain(st.x, dk.direction, st.f, dk.gd, dk.eps,
+                                 fnew, *tp, fl_p, trial, 1e-4)
+            chk.compare("lbfgs_trial", f"t {trial}, [{b}, {d}]", tk[0],
+                        tp[0])
+            chk.compare("lbfgs_trial", f"xt {trial}, [{b}, {d}]", tk[2],
+                        tp[2])
+            chk.require(torch.equal(tk[1], tp[1])
+                        and torch.equal(fl[0], fl_p[0]),
+                        f"lbfgs_trial {trial} ok and flag [{b}]")
+            back = ~tp[1]
+            finite = torch.isfinite(fnew)
+            at_clamp = back & finite & (tp[0] == 0.1 * t0)
+            taken = {"passed": tp[1] & ~was_ok, "at clamp": at_clamp,
+                     "inside clamp": back & finite & ~at_clamp,
+                     "non-finite": back & ~finite}
+            chk.require(all(bool(v.any()) for v in taken.values()),
+                        f"lbfgs_trial {trial} takes every branch [{b}]: "
+                        + ", ".join(f"{n} {int(v.sum())}"
+                                    for n, v in taken.items()))
+
+        # the update after the trials: their ok (rows that still backtrack
+        # fail), on both sides from the same inputs
+        fn, gn, groups = _lbfgs_update_inputs(st, tk[2], gen, tol, ftol)
+        ring_k = [a.clone() for a in (st.s_hist, st.y_hist, st.rho_hist)]
+        ring_p = [a.clone() for a in ring_k]
+        uargs = (st.x, st.f, st.g, tk[2], fn, gn, tk[0], tk[1],
+                 st.converged, st.failed, st.tprev, st.bx, st.bf, st.bg,
+                 st.iters)
+        uk = lk.lbfgs_update(*uargs, *ring_k, k, tol, ftol, fl)
+        up = update_plain(*uargs, *ring_p, k, tol, ftol, fl_p)
+        for i, (a, e) in enumerate(zip(uk + tuple(ring_k),
+                                       up + tuple(ring_p))):
+            if a.dtype.is_floating_point:
+                chk.compare("lbfgs_update", f"output {i}, [{b}, {d}]", a, e)
+            else:
+                chk.require(torch.equal(a, e), f"lbfgs_update output {i} "
+                            f"[{b}]")
+        chk.require(torch.equal(fl, fl_p), f"lbfgs_update live count [{b}]")
+        done = st.converged | st.failed
+        accepted = up[0].ne(st.x).any(-1)
+        written = ring_p[2][:, k % m].ne(st.rho_hist[:, k % m])
+        conv_new = up[3] & ~done
+        taken = {"accepted": accepted, "written": written,
+                 "accepted, no curvature": accepted & ~written,
+                 "refused": tk[1] & ~done & ~accepted,
+                 "converged on the fall": conv_new & groups["near_ftol"],
+                 "live near ftol": accepted & ~conv_new & groups["near_ftol"],
+                 "converged on the gradient": conv_new & groups["near_tol"],
+                 "live near tol": accepted & ~conv_new & groups["near_tol"],
+                 "failed": up[4] & ~st.failed,
+                 "non-finite": (groups["nan_f"] | groups["inf_g"])
+                 & ~accepted & ~done}
+        chk.require(all(bool(v.any()) for v in taken.values()),
+                    f"lbfgs_update takes every branch [{b}]: "
+                    + ", ".join(f"{n} {int(v.sum())}"
+                                for n, v in taken.items()))
+
+        # bytes a row: the direction reads x, g, f, tprev, the ring and two
+        # flags and writes the direction, the trial point, t, gd, eps and
+        # ok; a trial reads ok, fnew, t, f, gd, eps, x, dir and writes t
+        # and the trial point; the update reads x, g, xn, gn, bx, bg, f,
+        # fn, t, tprev, bf, iters and three flags and writes x, g, bx, bg,
+        # f, tprev, bf, iters, two flags and a ring slot (s, y, rho)
+        fb, ring = 4, 4 * (2 * m * d + m)
+        per_row = {
+            "lbfgs_direction": (fb * (2 * d + 2) + ring + 2
+                                + fb * (2 * d + 3) + 1),
+            "lbfgs_trial": 1 + fb * (5 + 2 * d) + fb * (1 + d),
+            "lbfgs_update": (fb * (6 * d + 6) + 3 + fb * (4 * d + 4) + 2
+                             + fb * (2 * d + 1)),
+        }
+        # the timed inputs: every row backtracks, every update is accepted
+        fnew_all = torch.full_like(st.f, math.inf)
+        tk = [dk.t.clone(), torch.zeros_like(dk.ok), dk.xt.clone()]
+        tp = [a.clone() for a in tk]
+        uargs = (st.x, st.f, st.g, dk.xt, st.f - 0.1,
+                 st.g + 1.5 * (dk.xt - st.x), dk.t, torch.ones_like(dk.ok),
+                 st.converged, st.failed, st.tprev, st.bx, st.bf, st.bg,
+                 st.iters)
+
+        def run_direction():
+            lk.lbfgs_direction(*dargs, fl)
+
+        def run_direction_plain():
+            direction_plain(*dargs, fl_p)
+
+        def run_trial():
+            lk.lbfgs_trial(st.x, dk.direction, st.f, dk.gd, dk.eps, fnew_all,
+                           *tk, fl, 1, 1e-4)
+
+        def run_trial_plain():
+            lk.lbfgs_trial_plain(st.x, dk.direction, st.f, dk.gd, dk.eps,
+                                 fnew_all, *tp, fl_p, 1, 1e-4)
+
+        def run_update():
+            lk.lbfgs_update(*uargs, *ring_k, k, tol, ftol, fl)
+
+        def run_update_plain():
+            update_plain(*uargs, *ring_p, k, tol, ftol, fl_p)
+
+        for name, fn_, plain in (
+                ("lbfgs_direction", run_direction, run_direction_plain),
+                ("lbfgs_trial", run_trial, run_trial_plain),
+                ("lbfgs_update", run_update, run_update_plain)):
+            ms = cuda_ms(fn_, reps=20)
+            pms = cuda_ms(plain, reps=5)
+            bms = per_row[name] * b / HBM_BYTES_PER_S * 1e3
+            out[f"{name}@{b}"] = {"ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                  "bytes_per_row": per_row[name],
+                                  "share_of_bound": bms / ms}
+            log(f"  {name:16s} [{b:>9,}, {d}] {ms:8.4f} ms  plain "
+                f"{pms:8.3f} ms  bound {bms:.4f} ms ({per_row[name]} B a row,"
+                f" {100 * bms / ms:.0f} %)")
     return out
 
 
@@ -4914,6 +5147,7 @@ def main() -> int:
     check_hw_divide(chk, device)
     phase_kernels_smoothing(chk, device)
     phase_kernels_seasonal(chk, device)
+    lbfgs = phase_lbfgs(chk, device)
     if chk.failures:  # a kernel that disagrees makes the rest meaningless
         return failed(chk)
 
@@ -4954,6 +5188,7 @@ def main() -> int:
         "launches": {"airline fit (8b)": search["airline_launches"],
                      "seasonal grid (8c)": search["grid_seasonal_launches"]},
         "walls_s": {k: v for k, v in search.items() if k.endswith("_s")}}}))
+    log(json.dumps({"lbfgs_kernels": lbfgs}))
     log(json.dumps({"resilient_fit": resilient}))
     log(json.dumps({"chunked_walk": chunked}))
     log(json.dumps({"search_forecast": search_fc}))

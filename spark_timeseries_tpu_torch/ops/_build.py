@@ -39,7 +39,7 @@ from ..utils import compile_cache
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("css", "hr", "fill", "autocorr", "garch", "ewma", "hw")
+SOURCES = ("css", "hr", "fill", "autocorr", "garch", "ewma", "hw", "lbfgs")
 # -Xptxas=-v: the build log reports each kernel's registers and spills
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -47,8 +47,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_F = ctypes.c_float
 # C signatures: every device pointer and the stream are void*, sizes int,
-# host arrays int*
+# host arrays int*, tolerances float
 SIGNATURES = {
     "css": {
         "sts_css_fwd": [_P] * 6 + [_I] * 4 + [_IP, _I, _I, _I, _I, _P],
@@ -94,6 +95,11 @@ SIGNATURES = {
         "sts_hw_occupancy": [_I, _I, _I, _P, _P],
         "sts_hw_check_divide": [ctypes.c_ulonglong, ctypes.c_ulonglong, _P,
                                 _P, _P],
+    },
+    "lbfgs": {
+        "sts_lbfgs_direction": [_P] * 16 + [_I] * 4 + [_F, _P],
+        "sts_lbfgs_trial": [_P] * 10 + [_I] * 3 + [_F, _P],
+        "sts_lbfgs_update": [_P] * 29 + [_I] * 4 + [_F, _F, _P],
     },
 }
 

@@ -21,6 +21,10 @@ wrapper         source           replaces (pallas_kernels.py)
 ``hw_bwd``      ``hw.cu``        ``_hw_bwd_kernel`` via ``_hw_e_bwd``
 ==============  ===============  ==============================================
 
+The optimizer's own kernels (``csrc/lbfgs.cu``, which replace no Pallas
+kernel) have their wrappers in ``ops.lbfgs_kernels`` and count their
+launches in :data:`OPTIM_LAUNCHES`, apart from the objectives'.
+
 Each wrapper checks device, dtype (float32), shape and contiguity and raises
 on anything else; it launches its kernel for CUDA tensors (counting the
 launch in :data:`LAUNCHES`) and runs the kernel's plain PyTorch version
@@ -50,7 +54,8 @@ from . import _build
 from .layout import FoldedPanel, css_prefold, time_major
 
 __all__ = [
-    "LAUNCHES", "ROUTE_LAUNCHES", "reset_launch_counts", "supported",
+    "LAUNCHES", "OPTIM_LAUNCHES", "ROUTE_LAUNCHES", "reset_launch_counts",
+    "supported",
     "css_structural_ok", "css_route",
     "hr_structural_ok", "css_fwd", "css_fwd_plain", "css_bwd",
     "css_bwd_plain", "hr_moments", "hr_moments_plain", "css_errors",
@@ -73,6 +78,10 @@ __all__ = [
 LAUNCHES = {"css_fwd": 0, "css_bwd": 0, "hr_moments": 0, "fill_chain": 0,
             "autocorr": 0, "garch_fwd": 0, "garch_bwd": 0, "ewma_fwd": 0,
             "ewma_bwd": 0, "hw_fwd": 0, "hw_bwd": 0}
+
+# the optimizer's launches by wrapper name (``ops.lbfgs_kernels``), apart
+# from the objective's, so that ``LAUNCHES`` keeps counting the same work
+OPTIM_LAUNCHES = {"lbfgs_direction": 0, "lbfgs_trial": 0, "lbfgs_update": 0}
 
 # the CSS launches by css.cu's route (:func:`css_route`)
 CSS_ROUTES = ("register", "lag", "local")
@@ -99,8 +108,9 @@ _SMEM_LIMIT = 227 * 1024
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+        for counts in (LAUNCHES, OPTIM_LAUNCHES):
+            for name in counts:
+                counts[name] = 0
         for counts in ROUTE_LAUNCHES.values():
             for route in counts:
                 counts[route] = 0
@@ -108,7 +118,8 @@ def reset_launch_counts() -> None:
 
 def _count_launch(counter: str) -> None:
     with _COUNT_LOCK:
-        LAUNCHES[counter] += 1
+        counts = OPTIM_LAUNCHES if counter in OPTIM_LAUNCHES else LAUNCHES
+        counts[counter] += 1
 
 
 def _count_route(counter: str, route: str) -> None:
@@ -203,11 +214,13 @@ def _hw_check_period(period: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _check(name: str, x: torch.Tensor, shape, device) -> None:
+def _check(name: str, x: torch.Tensor, shape, device,
+           dtype=torch.float32) -> None:
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(x).__name__}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be "
+                        f"{str(dtype).removeprefix('torch.')}, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, "
                          f"got {tuple(x.shape)}")

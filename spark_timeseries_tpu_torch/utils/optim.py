@@ -18,9 +18,22 @@ With the ``obs`` plane on, the loop opens spans (``optim.minimize``,
 ``optim.linesearch``, ``optim.update``, ``optim.compact``,
 ``optim.stragglers`` and ``optim.host_read`` around each counted read) and
 feeds the ``work.*`` counters from host integers it holds anyway:
-``work.row_evals`` (the rows of every objective evaluation) and
+``work.row_evals`` (the rows of every objective evaluation),
 ``work.live_row_evals`` (of those, the rows live when their iteration
-began).  Neither reads the device.
+began), ``work.optim_iters`` (every lockstep and straggler iteration) and
+``work.optim_fused_iters`` (those that took the kernel route).  None reads
+the device.
+
+An iteration's own arithmetic is three calls of ``ops.lbfgs_kernels``
+around the objective: the direction and first trial point, one
+line-search trial after each objective evaluation, and the update, which
+writes the history ring's slot in place and counts the live rows on the
+device for the next iteration's read.  For float32 state on a CUDA device
+with ``d <= 16`` and ``m <= 16`` (``lbfgs_kernels.fused_ok``, which every
+fit of the port meets) they are CUDA kernels; any other state (the CPU,
+float64, wider ``d``) runs their plain versions, PyTorch operations on the
+batch.  The loop, the objective, the reads and compaction are the same
+either way.
 
 Straggler compaction: once at most ``cap`` rows remain unconverged, those
 rows and their whole optimizer state are gathered into a ``[cap, d]``
@@ -40,6 +53,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..ops import lbfgs_kernels as lk
 
 # Straggler-compaction sizing shared by every fit driver: below this batch
 # size the compaction stage is not worth its gather.
@@ -126,47 +140,18 @@ class _State(NamedTuple):
         return _State(*(a[idx] for a in self))
 
 
-def _rownorm(v):
-    return torch.linalg.vector_norm(v, dim=-1)
-
-
-def _rowdot(a, b):
-    return (a * b).sum(-1)
-
-
-def _two_loop_b(g, s_hist, y_hist, rho_hist, k: int, m: int):
-    """Batched two-loop recursion over a ring of ``m`` history slots; slot
-    ``i`` of a row is valid when its ``rho > 0``.  Returns ~ ``H g``."""
-    idx = [(k - 1 - j) % m for j in range(m)]  # newest -> oldest
-    q = g
-    alphas = []
-    for i in idx:
-        valid = rho_hist[:, i] > 0.0
-        alpha = torch.where(valid, rho_hist[:, i] * _rowdot(s_hist[:, i], q),
-                            0.0)
-        q = q - alpha[:, None] * y_hist[:, i] * valid[:, None]
-        alphas.append(alpha)
-    newest = idx[0]
-    sy = _rowdot(s_hist[:, newest], y_hist[:, newest])
-    yy = _rowdot(y_hist[:, newest], y_hist[:, newest])
-    gamma = torch.where((rho_hist[:, newest] > 0.0) & (yy > 0.0), sy / yy, 1.0)
-    r = gamma[:, None] * q
-    for j in reversed(range(m)):
-        i = idx[j]
-        valid = rho_hist[:, i] > 0.0
-        beta = torch.where(valid, rho_hist[:, i] * _rowdot(y_hist[:, i], r),
-                           0.0)
-        r = r + (alphas[j] - beta)[:, None] * s_hist[:, i] * valid[:, None]
-    return r
-
-
-def _value_and_grad(fb, x):
-    """Batched value and gradient with the non-finite guard rows carry."""
+def _raw_value_and_grad(fb, x):
+    """Batched value and gradient of ``fb`` at ``x``, unguarded."""
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
         f = fb(xr)
         (g,) = torch.autograd.grad(f.sum(), xr)
-    f = f.detach()
+    return f.detach(), g
+
+
+def _value_and_grad(fb, x):
+    """Batched value and gradient with the non-finite guard rows carry."""
+    f, g = _raw_value_and_grad(fb, x)
     bad = ~torch.isfinite(f) | ~torch.isfinite(g).all(-1)
     return (torch.where(bad, torch.inf, f),
             torch.where(bad[:, None], 0.0, g))
@@ -180,7 +165,7 @@ def _init_state(fb, x0, m: int, tol: float) -> _State:
     return _State(
         x=x0, f=f0, g=g0,
         s_hist=z(bsz, m, d), y_hist=z(bsz, m, d), rho_hist=z(bsz, m),
-        converged=(_rownorm(g0) < tol) & torch.isfinite(f0),
+        converged=(lk.row_norm(g0) < tol) & torch.isfinite(f0),
         failed=torch.isinf(f0),
         tprev=torch.ones(bsz, dtype=x0.dtype, device=x0.device),
         bx=x0, bf=f0, bg=g0,
@@ -188,100 +173,50 @@ def _init_state(fb, x0, m: int, tol: float) -> _State:
     )
 
 
-def _linesearch(fb, x, f, g, direction, done, t0, *, ftol, max_linesearch,
-                c1):
-    """Batched backtracking with quadratic interpolation -> ``(t, ok,
-    trials)``.  Done rows are pre-satisfied (their frozen state could never
-    pass the strict Armijo test and would drag the batch through every
-    trial).  A failed trial jumps to the minimizer of the quadratic through
-    (0, f), slope g.dir and (t, f(t)), clamped to [0.1t, 0.5t].  The Armijo
-    test carries the noise floor ftol*max(1, |f|).  One host read per
-    trial; ``trials`` counts the objective evaluations."""
-    gd = _rowdot(g, direction)
-    eps = ftol * torch.clamp(f.abs(), min=1.0)
-    t, ok = t0, done
+def _linesearch(fb, x, f, dr: lk.Direction, flags, *, max_linesearch,
+                c1) -> int:
+    """Batched backtracking with quadratic interpolation from the direction
+    ``dr`` -> the trials (objective evaluations).  Each trial updates
+    ``dr.t``, ``dr.ok`` and the trial points ``dr.xt`` in place and leaves
+    in ``flags[0]`` whether a row still backtracks: one host read per
+    trial."""
     trials = 0
     with torch.no_grad():
         for trials in range(1, max_linesearch + 1):
-            fnew = fb(x + t[:, None] * direction)
-            fnew = torch.where(torch.isfinite(fnew), fnew, torch.inf)
-            ok_new = ok | (fnew <= f + c1 * t * gd + eps)
-            tq = -gd * t * t / (2.0 * (fnew - f - gd * t))
-            tq = torch.where(torch.isfinite(tq), tq, 0.0)
-            tq = torch.minimum(torch.maximum(tq, 0.1 * t), 0.5 * t).to(t.dtype)
-            t, ok = torch.where(ok_new, t, tq), ok_new
-            if trials < max_linesearch and not host_reads.read((~ok).any()):
+            fnew = fb(dr.xt)
+            lk.lbfgs_trial(x, dr.direction, f, dr.gd, dr.eps, fnew, dr.t,
+                           dr.ok, dr.xt, flags, trials, c1)
+            if trials < max_linesearch and \
+                    host_reads.read(flags[0]) != trials:
                 break
-    return t, ok, trials
+    return trials
 
 
-def _step(fb, state: _State, k: int, *, m, tol, ftol, max_linesearch,
-          c1, ls_evals: list) -> _State:
+def _step(fb, state: _State, k: int, flags, *, m, tol, ftol,
+          max_linesearch, c1, ls_evals: list) -> _State:
     """One lockstep L-BFGS iteration (iteration index ``k``); its
-    line-search evaluations go to ``ls_evals[k]``."""
+    line-search evaluations go to ``ls_evals[k]``.  Writes the history ring
+    in place and the count of live rows after it into ``flags[1]``."""
     with obs.span("optim.direction"):
-        done = state.converged | state.failed
-        direction = -_two_loop_b(state.g, state.s_hist, state.y_hist,
-                                 state.rho_hist, k, m)
-        descent = _rowdot(state.g, direction) < 0.0
-        direction = torch.where(descent[:, None], direction, -state.g)
-        # rows with no curvature history step along raw steepest descent,
-        # whose scale is arbitrary: bound their first trial by 1; with
-        # history, warm start from the row's last accepted step
-        has_hist = (state.rho_hist > 0.0).any(-1)
-        t0 = torch.where(has_hist & descent,
-                         torch.clamp(4.0 * state.tprev, max=1.0),
-                         1.0 / torch.clamp(_rownorm(direction), min=1.0)
-                         ).to(state.x.dtype)
+        dr = lk.lbfgs_direction(state.x, state.f, state.g, state.s_hist,
+                                state.y_hist, state.rho_hist, state.tprev,
+                                state.converged, state.failed, k, ftol,
+                                flags)
     with obs.span("optim.linesearch"):
-        t, ok, ls_evals[k] = _linesearch(fb, state.x, state.f, state.g,
-                                         direction, done, t0, ftol=ftol,
-                                         max_linesearch=max_linesearch,
-                                         c1=c1)
+        ls_evals[k] = _linesearch(fb, state.x, state.f, dr, flags,
+                                  max_linesearch=max_linesearch, c1=c1)
     with obs.span("optim.update"):
-        x_new = state.x + t[:, None] * direction
-        f_new, g_new = _value_and_grad(fb, x_new)
-
-        s = x_new - state.x
-        y = g_new - state.g
-        sy = _rowdot(s, y)
-        slot = k % m
-        accept = (ok & (f_new <= state.f
-                        + ftol * torch.clamp(state.f.abs(), min=1.0))
-                  & ~done)
-        # history is gated on accept: a step rejected at the re-evaluation
-        # must not poison the curvature history
-        good = (sy > 1e-10) & accept
-        s_hist, y_hist, rho_hist = (state.s_hist.clone(),
-                                    state.y_hist.clone(),
-                                    state.rho_hist.clone())
-        s_hist[:, slot] = torch.where(good[:, None], s,
-                                      state.s_hist[:, slot])
-        y_hist[:, slot] = torch.where(good[:, None], y,
-                                      state.y_hist[:, slot])
-        rho_hist[:, slot] = torch.where(good,
-                                        1.0 / torch.clamp(sy, min=1e-30),
-                                        state.rho_hist[:, slot])
-        x_out = torch.where(accept[:, None], x_new, state.x)
-        f_out = torch.where(accept, f_new, state.f)
-        g_out = torch.where(accept[:, None], g_new, state.g)
-        conv = state.converged | (
-            _rownorm(g_out) < tol * torch.clamp(_rownorm(x_out), min=1.0))
-        conv = conv | (accept & (state.f - f_new
-                                 <= ftol * torch.clamp(f_new.abs(), min=1.0)))
-        better = f_out < state.bf
-        return _State(
-            x=x_out, f=f_out, g=g_out,
-            s_hist=s_hist, y_hist=y_hist, rho_hist=rho_hist,
-            converged=conv,
-            failed=state.failed | (~ok & ~conv & ~done),
-            tprev=torch.where(accept, t, state.tprev),
-            bx=torch.where(better[:, None], x_out, state.bx),
-            bf=torch.where(better, f_out, state.bf),
-            bg=torch.where(better[:, None], g_out, state.bg),
-            iters=torch.where(done, state.iters,
-                              torch.full_like(state.iters, k + 1)),
-        )
+        f_new, g_new = _raw_value_and_grad(fb, dr.xt)
+        (x, f, g, converged, failed, tprev, bx, bf, bg,
+         iters) = lk.lbfgs_update(
+            state.x, state.f, state.g, dr.xt, f_new, g_new, dr.t, dr.ok,
+            state.converged, state.failed, state.tprev, state.bx, state.bf,
+            state.bg, state.iters,
+            state.s_hist, state.y_hist, state.rho_hist, k, tol, ftol, flags)
+        return _State(x=x, f=f, g=g, s_hist=state.s_hist,
+                      y_hist=state.y_hist, rho_hist=state.rho_hist,
+                      converged=converged, failed=failed, tprev=tprev,
+                      bx=bx, bf=bf, bg=bg, iters=iters)
 
 
 def _count_evals(rows: int, live: int) -> None:
@@ -306,12 +241,24 @@ def count_objective(x, steps: int) -> None:
 
 def _run(fb, state: _State, k: int, max_iters: int, stop_at: int, knobs):
     """Lockstep loop from iteration ``k`` while more than ``stop_at`` rows
-    are live -> ``(state, k, n_live)``.  One host read per iteration."""
+    are live -> ``(state, k, n_live)``.  One host read per iteration, of
+    the count the update left in ``flags``, this call's own buffer."""
+    fused = lk.fused_ok(state.x, knobs["m"])
+    if fused:
+        # the kernels take row-major state; an objective's gradient may
+        # come back strided (a no-op for the tensors that are not)
+        state = _State(*(a.contiguous() for a in state))
+    flags = torch.zeros(2, dtype=torch.int32, device=state.x.device)
+    live = (~(state.converged | state.failed)).sum()
     while True:
-        n_live = host_reads.read((~(state.converged | state.failed)).sum())
+        n_live = host_reads.read(live)
         if k >= max_iters or n_live <= stop_at:
             return state, k, n_live
-        state = _step(fb, state, k, **knobs)
+        obs.counter("work.optim_iters").inc()
+        if fused:
+            obs.counter("work.optim_fused_iters").inc()
+        state = _step(fb, state, k, flags, **knobs)
+        live = flags[1]
         evals = knobs["ls_evals"][k] + 1  # the trials and the update
         _count_evals(state.x.shape[0] * evals, n_live * evals)
         k += 1
@@ -421,7 +368,7 @@ def minimize_lbfgs_batched(
         result = LBFGSResult(
             x=state.bx, f=state.bf,
             converged=state.converged & torch.isfinite(state.bf),
-            iters=state.iters, grad_norm=_rownorm(state.bg))
+            iters=state.iters, grad_norm=lk.row_norm(state.bg))
         if not count_evals:
             return result
         return result, {

@@ -19,6 +19,7 @@ checks the kernels' logic (indexing, masks, modes, ring capacities);
 """
 
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -28,6 +29,8 @@ import torch
 
 from spark_timeseries_tpu_torch.ops import _build
 from spark_timeseries_tpu_torch.ops import cuda_kernels as ck
+from spark_timeseries_tpu_torch.ops import lbfgs_kernels as lk
+from spark_timeseries_tpu_torch.utils import optim
 
 _HEADER = r"""
 #pragma once
@@ -40,6 +43,7 @@ _HEADER = r"""
 #include <map>
 #include <memory>
 #include <vector>
+using std::isfinite;
 using std::isnan;
 using std::min;
 struct dim3 {
@@ -119,6 +123,7 @@ inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
@@ -301,7 +306,7 @@ def kernels(emulated, monkeypatch):
     for CPU tensors; returns the launch counter."""
     def launch(lib_name, counter, device, call):
         assert call(emulated[lib_name], None) == 0
-        ck.LAUNCHES[counter] += 1
+        ck._count_launch(counter)
 
     monkeypatch.setattr(ck, "_on_cuda", lambda device: True)
     monkeypatch.setattr(ck, "_launch_call", launch)
@@ -1314,3 +1319,102 @@ def test_hr_moments_ring_instantiations_source(emulated, hr_depth, cols,
     assert torch.equal(got, sweep(emulated["hr-D0"]))
     _close(got.t(), ck.hr_moments_plain(yt, zb, lag_y, lag_e, ic, woff,
                                         beta_m, beta, tl))
+
+
+def _lbfgs_state(b, d, m, k, seed):
+    """A random optimizer state: rings partly valid (row 0 without history,
+    some slots with rho <= 0), rows 1 and 2 done, row 3's f infinite."""
+    g = torch.Generator().manual_seed(seed)
+    x, grad = torch.randn(b, d, generator=g), torch.randn(b, d, generator=g)
+    s = 0.2 * torch.randn(b, m, d, generator=g)
+    y = s * (0.5 + torch.rand(b, m, 1, generator=g)) + 0.05 * torch.randn(
+        b, m, d, generator=g)
+    rho = 1.0 / (s * y).sum(-1)
+    rho = torch.where(torch.rand(b, m, generator=g) < 0.3, -rho.abs(), rho)
+    rho[0] = 0.0
+    f = torch.randn(b, generator=g).abs() * 3
+    f[3] = torch.inf
+    conv, failed = torch.zeros(b, dtype=torch.bool), torch.zeros(
+        b, dtype=torch.bool)
+    conv[1], failed[2] = True, True
+    return optim._State(x, f, grad, s, y, rho, conv, failed,
+                        0.05 + torch.rand(b, generator=g), x.clone(), f + 0.01,
+                        grad.clone(), torch.full((b,), k, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("d", [1, 3, 5, 11, 16])
+@pytest.mark.parametrize("m", [3, 8, 16])
+def test_lbfgs_kernels_source(kernels, d, m, monkeypatch):
+    # the direction, two trials and the update, each capacity of d and m,
+    # B not a multiple of the block, k wrapping the ring: the bits of the
+    # plain versions summing in the kernels' order (both round every
+    # operation once)
+    monkeypatch.setattr(lk, "fused_ok", lambda x, m: True)
+    b, k = 300, 2 * m + 1
+    st = _lbfgs_state(b, d, m, k, seed=d * 31 + m)
+    outs = {}
+    for route in ("kernel", "plain"):
+        flags = torch.tensor([5, 5], dtype=torch.int32)
+        ring = [a.clone() for a in (st.s_hist, st.y_hist, st.rho_hist)]
+        fn = (lk.lbfgs_direction if route == "kernel"
+              else functools.partial(lk.lbfgs_direction_plain, lanes=True))
+        dr = fn(st.x, st.f, st.g, *ring, st.tprev, st.converged, st.failed,
+                k, 1e-6, flags)
+        got = [*dr, flags.clone()]
+        g = torch.Generator().manual_seed(d + m)
+        for trial in (1, 2):
+            fnew = st.f - 0.3 * torch.randn(b, generator=g)
+            fnew[5] = torch.nan
+            fn = lk.lbfgs_trial if route == "kernel" else lk.lbfgs_trial_plain
+            fn(st.x, dr.direction, st.f, dr.gd, dr.eps, fnew, dr.t, dr.ok,
+               dr.xt, flags, trial, 1e-4)
+            got += [dr.t.clone(), dr.ok.clone(), dr.xt.clone(), flags.clone()]
+        gn = st.g + 1.5 * (dr.xt - st.x)
+        gn[6, 0] = torch.nan
+        fn = (lk.lbfgs_update if route == "kernel"
+              else functools.partial(lk.lbfgs_update_plain, lanes=True))
+        got += [*fn(st.x, st.f, st.g, dr.xt, st.f - 0.2, gn, dr.t, dr.ok,
+                    st.converged, st.failed, st.tprev, st.bx, st.bf, st.bg,
+                    st.iters, *ring, k, 1e-4, 1e-6, flags), *ring, flags]
+        outs[route] = got
+    for a, e in zip(outs["kernel"], outs["plain"]):
+        assert torch.equal(a, e)
+    assert ck.OPTIM_LAUNCHES == {"lbfgs_direction": 1, "lbfgs_trial": 2,
+                                 "lbfgs_update": 1}
+    assert sum(ck.LAUNCHES.values()) == 0
+
+
+def test_lbfgs_minimize_through_the_kernels_source(kernels, monkeypatch):
+    # a whole run with compaction through the emulated kernels: the bits,
+    # reads and trials of the plain route summing in the kernels' order
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(200, 3, 3, generator=g)
+    a = a @ a.transpose(1, 2) + 0.5 * torch.eye(3)
+    c = torch.randn(200, 3, generator=g)
+
+    def f(x, idx=slice(None)):
+        return 0.5 * torch.einsum("bi,bij,bj->b", x, a[idx], x) \
+            - (c[idx] * x).sum(-1) + 0.1 * (x ** 4).sum(-1)
+
+    x0 = torch.randn(200, 3, generator=g)
+    monkeypatch.setattr(lk, "fused_ok", lambda x, m: True)
+    runs = []
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(lk, "fused_ok", lambda x, m: False)
+            for name in ("lbfgs_direction_plain", "lbfgs_update_plain"):
+                monkeypatch.setattr(lk, name, functools.partial(
+                    getattr(lk, name), lanes=True))
+        reads = optim.host_reads.count
+        res, info = optim.minimize_lbfgs_batched(
+            f, x0, max_iters=60, count_evals=True, straggler_cap=64,
+            straggler_fun=lambda idx: (lambda x: f(x, idx)))
+        runs.append((res, info, optim.host_reads.count - reads))
+    (rk, ik, nk), (rp, ip, np_) = runs
+    assert ik["compact_at"] < 60 and nk == np_
+    assert torch.equal(ik["ls_evals"], ip["ls_evals"])
+    for a_, e in zip(rk, rp):
+        assert torch.equal(a_, e)
+    # one update a lockstep or straggler iteration, each with its trials
+    assert ck.OPTIM_LAUNCHES["lbfgs_update"] == int((ik["ls_evals"] > 0).sum())
+

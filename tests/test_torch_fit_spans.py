@@ -149,16 +149,25 @@ def _compacting_problem():
 
 
 def _recorded_reads(monkeypatch):
-    """Record every counted read's value, in order."""
-    got = []
-    real = optim.HostReadCounter.read
+    """Record every counted read, in order: ``(value, made by a line
+    search)``."""
+    got, depth = [], [0]
+    real_read, real_linesearch = optim.HostReadCounter.read, optim._linesearch
 
     def read(self, x):
-        v = real(self, x)
-        got.append(v)
+        v = real_read(self, x)
+        got.append((v, depth[0] > 0))
         return v
 
+    def linesearch(*args, **kwargs):
+        depth[0] += 1
+        try:
+            return real_linesearch(*args, **kwargs)
+        finally:
+            depth[0] -= 1
+
     monkeypatch.setattr(optim.HostReadCounter, "read", read)
+    monkeypatch.setattr(optim, "_linesearch", linesearch)
     return got
 
 
@@ -185,9 +194,9 @@ def test_work_counters_are_the_pass_accounting(plane, monkeypatch, compact):
     res, info = optim.minimize_lbfgs_batched(fun, x0, max_iters=60,
                                              count_evals=True, **kw)
     ls = [int(v) for v in info["ls_evals"]]
-    # the live counts: the loop's integer reads, less the one that ends
-    # each stage
-    ints = [v for v in reads if not isinstance(v, bool)]
+    # the live counts: the loop's reads outside the line search, less the
+    # one that ends each stage
+    ints = [v for v, in_linesearch in reads if not in_linesearch]
     n_stages = 2 if info["cap"] else 1
     steps = sum(1 for v in ls if v > 0)
     assert len(ints) == steps + n_stages
