@@ -627,8 +627,9 @@ def _fit_sarima(yb, order: Order, seasonal: Seasonal,
 
             def fb(P_, yt=yt, zb=zb, nv=nvd, ne=n_eff):
                 optim.count_objective(P_, T)
-                kp = _sarima_kernel_params(P_, order, seasonal,
-                                           include_intercept)
+                with obs.span("fit.expand"):
+                    kp = _sarima_kernel_params(P_, order, seasonal,
+                                               include_intercept)
                 css = ck.css_sse_folded(kp, yt, zb, p_full, q_full, lags=lags)
                 return _concentrated(css, nv.to(kp.dtype) - p_full) / ne
 
@@ -639,9 +640,14 @@ def _fit_sarima(yb, order: Order, seasonal: Seasonal,
             del yd  # the objective reads only the time-major copy
         else:
             def fb(P_, yd=yd, nv=nvd, ne=n_eff):
+                # sarima_neg_loglik, with the expansion in its span
                 optim.count_objective(P_, T)
-                return sarima_neg_loglik(P_, yd, order, seasonal,
-                                         include_intercept, nv) / ne
+                with obs.span("fit.expand"):
+                    c, phi, theta = _expanded(P_, order, seasonal,
+                                              include_intercept)
+                e = _css_errors_poly(c, phi, theta, yd, n_valid=nv)
+                return _concentrated((e * e).sum(-1),
+                                     nv.to(yd.dtype) - p_full) / ne
 
             def straggler(idxc):
                 sub = (yd[idxc], nvd[idxc], n_eff[idxc])

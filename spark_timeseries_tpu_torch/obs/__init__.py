@@ -42,8 +42,10 @@ Instrumented surfaces: ``reliability.resilient_fit`` / ``sanitize`` /
 ``watchdog``, ``models.base.align_mode_on_host``, ``models.arima.fit_grid``;
 the fits of ``models.arima`` (plain and seasonal), ``models.garch``
 (``fit``, ``fit_argarch``) and ``models.holtwinters`` (``fit.<model>``
-spans, with ``fit.prep`` and ``fit.finalize`` inside, and the
-``work.objective_row_steps`` counter in each objective); ``utils.optim``'s
+spans, with ``fit.prep`` and ``fit.finalize`` inside, ``fit.expand``
+around the seasonal objective's expansion, and the
+``work.objective_row_steps`` counter in each objective); the CSS kernel
+wrappers' ``work.css_*`` launch and lag-route counters; ``utils.optim``'s
 L-BFGS loop (``optim.*`` spans, ``optim.host_read`` around each counted
 device read, the ``work.row_evals`` / ``work.live_row_evals`` counters,
 the straggler compaction); ``ops.univariate``'s fill chain and batched

@@ -30,7 +30,10 @@ on anything else; it launches its kernel for CUDA tensors (counting the
 launch in :data:`LAUNCHES`) and runs the kernel's plain PyTorch version
 (``*_plain``: a Python loop over time on ``[B]`` slices, in the kernel's
 summation order) only for CPU tensors.  No path catches a failed build or
-launch.  Panels are time-major ``[T, B]`` (``ops.layout``).
+launch.  Panels are time-major ``[T, B]`` (``ops.layout``).  With the
+``obs`` plane on, each CSS launch also feeds the registry's ``work.css_*``
+counters (:func:`_count_css_work`): every launch, and what a lag-route
+launch must move.
 
 Above the wrappers sit the reference's entry points with its signatures,
 minus ``interpret``: ``css_neg_loglik``, ``css_neg_loglik_folded``,
@@ -50,6 +53,7 @@ import threading
 
 import torch
 
+from .. import obs
 from . import _build
 from .layout import FoldedPanel, css_prefold, time_major
 
@@ -125,6 +129,33 @@ def _count_launch(counter: str) -> None:
 def _count_route(counter: str, route: str) -> None:
     with _COUNT_LOCK:
         ROUTE_LAUNCHES[counter][route] += 1
+
+
+def _count_css_work(route: str, B: int, row_steps: dict, row_floats: int,
+                    coef_rows: int) -> None:
+    """One CSS launch in the ``obs`` registry (no-ops with the plane off),
+    from host integers only: every launch in ``work.css_launches``; one on
+    the lag route also in ``work.css_lag_launches``, with what it must
+    move: ``row_steps`` (``{kind: rows x steps}`` into
+    ``work.css_lag_row_steps.<kind>``), ``row_floats`` floats a row read
+    or written once (``work.css_lag_row_floats``) and ``coef_rows``
+    coefficient and gradient rows (``work.css_lag_coef_floats``)."""
+    if not obs.enabled():
+        return
+    obs.counter("work.css_launches").inc()
+    if route != "lag":
+        return
+    obs.counter("work.css_lag_launches").inc()
+    for kind, n in row_steps.items():
+        if n:
+            obs.counter(f"work.css_lag_row_steps.{kind}").inc(n)
+    obs.counter("work.css_lag_row_floats").inc(B * row_floats)
+    obs.counter("work.css_lag_coef_floats").inc(B * coef_rows)
+
+
+def _listed(p: int, q: int, lags) -> tuple:
+    """``(KA, KM)``: the lags a side the kernels read."""
+    return (p, q) if lags is None else (len(lags[0]), len(lags[1]))
 
 
 def supported(x: torch.Tensor) -> bool:
@@ -313,6 +344,12 @@ def css_fwd(yt, params, zb, p: int, q: int, mode: str, t_limit=None,
         _launch("css", "sts_css_fwd", "css_fwd", dev, _ptr(yt), _ptr(par_t),
                 _ptr(zb), _ptr(e), _ptr(sse), _ptr(tail), B, T, p, q,
                 *_c_lags(lags), t_limit, _MODES[mode], route=route)
+        # y read over the sweep (and e written in "e" / "both"); zb, the
+        # SSE or the tail, and the listed coefficient rows once a row
+        steps = t_limit if mode == "tail" else T
+        _count_css_work(route, B, {mode: B * steps},
+                        1 + (sse is not None) + (q if tail is not None else 0),
+                        1 + sum(_listed(p, q, lags)))
     return _fwd_out(mode, e, sse, None if tail is None else tail.t())
 
 
@@ -452,6 +489,16 @@ def css_bwd(yt, et, params, zb, g, p: int, q: int, want_gy: bool = False,
         _launch("css", "sts_css_bwd", "css_bwd", dev, _ptr(yt), _ptr(et),
                 _ptr(par_t), _ptr(zb), _ptr(g), _ptr(gpar), _ptr(gy), B, T,
                 p, q, *_c_lags(lags), t_limit, int(g_is_sse), route=route)
+        # the panels css.cu's lag adjoint streams: y with AR lags, e with
+        # MA lags or for the per-series cotangent, g when it is a panel,
+        # and gy written; zb (and g a row) once; coefficient rows read and
+        # gradient rows written
+        ka, km = _listed(p, q, lags)
+        n = B * T
+        _count_css_work(route, B, {
+            "bwd": n, "bwd_y": n * (ka > 0), "bwd_e": n * (km > 0 or g_is_sse),
+            "bwd_g": n * (not g_is_sse), "bwd_gy": n * want_gy},
+            1 + g_is_sse, 2 * (1 + ka + km))
         if route == "local" and lags is not None:
             gpar.index_fill_(0, _index(dev, _unlisted(p, q, lags)), 0.0)
     return gpar.t(), gy

@@ -965,6 +965,54 @@ def test_sarima_objective_with_support_through_the_kernels(kernels, order,
     _close(g_k, g_e)
 
 
+def test_css_work_counters_of_the_airline_fit(kernels, monkeypatch):
+    # the airline fit on the cuda backend, through the emulated kernels:
+    # every CSS launch on the lag route; with the plane on the work.css_*
+    # counters are a hand count from the launches (each adjoint follows a
+    # "both" forward, every other forward is a "sum"); plane off and on
+    # give the same bits and the same launches
+    from spark_timeseries_tpu_torch import entry, obs
+    from spark_timeseries_tpu_torch.models import arima
+
+    monkeypatch.setattr(arima, "resolve_backend",
+                        lambda backend, y, structural_ok=True: "cuda")
+    b, t = 40, 24 * 6
+    y = entry.gen_hourly_panel(b, t, seed=13, device="cpu")
+
+    def run():
+        ck.reset_launch_counts()
+        res = arima.fit(y, (0, 1, 1), seasonal=(0, 1, 1, 24),
+                        include_intercept=False, max_iters=8, device="cpu")
+        return res, dict(ck.LAUNCHES), {k: dict(v) for k, v in
+                                        ck.ROUTE_LAUNCHES.items()}
+
+    off, launches, routes = run()
+    obs.enable()
+    try:
+        on, launches_on, routes_on = run()
+        work = obs.snapshot()["counters"]
+    finally:
+        obs.disable()
+    for a, c in zip(off, on):
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(c))
+    assert launches_on == launches and routes_on == routes
+    n_f, n_b = launches["css_fwd"], launches["css_bwd"]
+    assert routes["css_fwd"]["lag"] == n_f > n_b == routes["css_bwd"]["lag"]
+    steps = b * (t - 25)  # rows x the doubly differenced steps
+    assert work["work.css_launches"] == work["work.css_lag_launches"] \
+        == n_f + n_b
+    assert work["work.css_lag_row_steps.sum"] == (n_f - n_b) * steps
+    assert work["work.css_lag_row_steps.both"] == n_b * steps
+    assert work["work.css_lag_row_steps.bwd"] == n_b * steps
+    assert work["work.css_lag_row_steps.bwd_e"] == n_b * steps
+    assert not {"work.css_lag_row_steps.bwd_y", "work.css_lag_row_steps.e",
+                "work.css_lag_row_steps.bwd_g"} & set(work)
+    # zb and the SSE (zb and the row's cotangent) a row; c and the three
+    # MA lags' rows read, and written again as gradients by the adjoint
+    assert work["work.css_lag_row_floats"] == 2 * b * (n_f + n_b)
+    assert work["work.css_lag_coef_floats"] == 4 * b * (n_f + 2 * n_b)
+
+
 def _ewma_inputs(t, b, seed):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(t, b, generator=g).cumsum(0)
